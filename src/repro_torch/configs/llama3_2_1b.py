@@ -1,0 +1,23 @@
+"""llama3.2-1b — [dense] 16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256.
+
+Small llama3 [hf:meta-llama/Llama-3.2-1B; unverified].
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-1b",
+        family="dense",
+        n_layers=16,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=8,
+        d_head=64,
+        d_ff=8192,
+        vocab_size=128256,
+        block_pattern=("attn_mlp",),
+        rope_theta=500_000.0,
+        tie_embeddings=True,
+        act="silu",
+    )
