@@ -6,13 +6,18 @@ Phases (each prints one line; any failure exits non-zero):
   1. card + kernel build: nvidia-smi name/power limit, nvcc build time of
      every ``src/repro_torch/kernels/csrc/*.cu``.
   2. kernels vs their plain PyTorch versions at the serving path's shapes
-     (Hq=32, Hkv=8, D=64, page 16), fp32 and bf16, plus small mask cases;
+     (Hq=32, Hkv=8, D=64, page 16), fp32 and bf16, plus small mask cases:
+     the global and the per-slot paged decode and flash prefill;
      CUDA-event times of kernel, plain version and the library yardstick,
-     and each kernel's bound.
+     each kernel's bound, and the global decode's "hbm" table residency
+     against "smem".
   3. full-width llama3.2-1b (bf16, random seeded weights) served by the
      zero-copy paged engine: prefix sharing, CoW, launch counters.
+  3c. the same requests served by the copy-mode engine (the staging
+     baseline over per-slot pools), beside phase 3's figures.
   4. the smoke-reduced llama3.2-1b (fp32) served on cuda and on cpu over the
-     same seeded workload: greedy tokens must be identical.
+     same seeded workload, in zero_copy and in copy mode: greedy tokens must
+     be identical, and copy must equal zero_copy without prefix sharing.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -140,6 +145,48 @@ def _decode_bound(q, kp, table, lengths) -> tuple:
     return nbytes, flops
 
 
+def _slot_decode_inputs(dtype, rng):
+    """B=8 per-slot pools of P pages each, every table a random permutation;
+    lengths 0, 1, a partial page and a full table among them."""
+    table = np.stack([rng.permutation(DEC_P) for _ in range(DEC_B)]) \
+        .astype(np.int32)
+    lengths = np.array([0, 1, 23, DEC_P * PAGE, 500, 129, 700, 333], np.int32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    q = mk(DEC_B, HQ, D)
+    kp = mk(DEC_B, DEC_P, PAGE, HKV, D)
+    vp = mk(DEC_B, DEC_P, PAGE, HKV, D)
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.from_numpy(lengths).cuda())
+
+
+def _slot_decode_bound(q, kp, table, lengths) -> tuple:
+    """Bytes and flops of a per-slot decode for this data: each row's valid
+    K/V tokens once (slots share no pages), q in, out once, the table."""
+    _, n_pages, page, hkv, d = kp.shape
+    n = np.minimum(lengths.cpu().numpy().astype(np.int64), n_pages * page)
+    it = kp.element_size()
+    nbytes = (2 * int(n.sum()) * hkv * d * it + 2 * q.numel() * it
+              + table.numel() * 4 + lengths.numel() * 4)
+    return nbytes, 4 * q.shape[1] * d * int(n.sum())
+
+
+def _sdpa_gathered(q, k, v, lens):
+    """The library yardstick: SDPA over logical (B, P, page, Hkv, D) K/V
+    gathered beforehand (the gather, the paged part, is not timed)."""
+    B = q.shape[0]
+    G = HQ // HKV
+    kd = k.reshape(B, -1, HKV, D).repeat_interleave(G, 2).transpose(1, 2) \
+        .contiguous()
+    vd = v.reshape(B, -1, HKV, D).repeat_interleave(G, 2).transpose(1, 2) \
+        .contiguous()
+    pos = torch.arange(kd.shape[2], device="cuda")
+    mask = (pos[None] < lens[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+
+
 def _bound(nbytes, flops, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -159,9 +206,11 @@ def _flash_flops(B, Sq, Skv, Hq, D, causal, window, q_offset):
 
 def phase_kernels() -> dict:
     from repro_torch.kernels import flash_attention_fwd, paged_attention_global
+    from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention.ref import (
-        gather_global_pages, paged_attention_global_ref)
+        gather_global_pages, gather_slot_pages, paged_attention_global_ref,
+        paged_attention_ref)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(SEED)
@@ -169,11 +218,13 @@ def phase_kernels() -> dict:
     # ---- paged decode
     for dtype in (torch.float32, torch.bfloat16):
         q, kp, vp, tbl, lens = _decode_inputs(dtype, rng)
+        errs = []
         for cap in (None, 30.0):
             out = paged_attention_global(q, kp, vp, tbl, lens, softcap=cap)
             ref = paged_attention_global_ref(q, kp, vp, tbl, lens, softcap=cap)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            errs.append(err)
             assert torch.isfinite(out).all(), "decode kernel: non-finite"
             assert (out[0] == 0).all(), "decode kernel: length-0 row != 0"
             assert (out[5] == 0).all(), "decode kernel: all-NULL row != 0"
@@ -183,25 +234,58 @@ def phase_kernels() -> dict:
         ms = cuda_ms(lambda: paged_attention_global(q, kp, vp, tbl, lens))
         plain = cuda_ms(lambda: paged_attention_global_ref(q, kp, vp, tbl, lens),
                         iters=5)
-        # Yardstick: SDPA over K/V already gathered dense (the gather, which
-        # is the paged part, is outside the timed call).
-        k = gather_global_pages(kp, tbl).reshape(DEC_B, -1, HKV, D)
-        v = gather_global_pages(vp, tbl).reshape(DEC_B, -1, HKV, D)
-        G = HQ // HKV
-        kd = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
-        vd = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
-        pos = torch.arange(kd.shape[2], device="cuda")
-        mask = (pos[None] < lens[:, None])[:, None, None, :]
-        qd = q[:, :, None, :]
-        sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
+        sdpa = _sdpa_gathered(q, gather_global_pages(kp, tbl),
+                              gather_global_pages(vp, tbl), lens)
         nbytes, flops = _decode_bound(q, kp, tbl, lens)
         bound, by = _bound(nbytes, flops, dtype)
         emit("phase2 decode timing", dtype=str(dtype), ms=ms, plain_ms=plain,
              sdpa_gathered_ms=sdpa, bound_ms=bound, bound_by=by,
              bytes=nbytes, flops=flops)
-        res[("decode", dtype)] = dict(err=err, ms=ms, plain_ms=plain,
+        res[("decode", dtype)] = dict(err=max(errs), ms=ms, plain_ms=plain,
                                       sdpa=sdpa, bound=bound, by=by)
+        # The LLC-off baseline: pages gathered through the table first, then
+        # the per-slot kernel on an identity table. In turns with "smem".
+        out = paged_attention_global(q, kp, vp, tbl, lens,
+                                     table_residency="hbm")
+        ref = paged_attention_global_ref(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype], f"decode hbm {dtype}: err {err}"
+        turns = {"smem": [], "hbm": []}
+        for mode in ("smem", "hbm", "hbm", "smem"):
+            turns[mode].append(cuda_ms(lambda: paged_attention_global(
+                q, kp, vp, tbl, lens, table_residency=mode)))
+        emit("phase2 decode residency", dtype=str(dtype), max_abs_err_hbm=err,
+             smem_ms=turns["smem"], hbm_ms=turns["hbm"])
+        res[("residency", dtype)] = {m: statistics.mean(t)
+                                     for m, t in turns.items()}
+    # ---- per-slot paged decode (the copy baseline's layout)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, tbl, lens = _slot_decode_inputs(dtype, rng)
+        errs = []
+        for cap in (None, 30.0):
+            out = paged_attention(q, kp, vp, tbl, lens, softcap=cap)
+            ref = paged_attention_ref(q, kp, vp, tbl, lens, softcap=cap)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            errs.append(err)
+            assert torch.isfinite(out).all(), "slot decode kernel: non-finite"
+            assert (out[0] == 0).all(), "slot decode kernel: length-0 row != 0"
+            assert err <= TOL[dtype], f"slot decode {dtype} cap={cap}: err {err}"
+            emit("phase2 slot decode", dtype=str(dtype), softcap=cap,
+                 max_abs_err=err, tol=TOL[dtype])
+        ms = cuda_ms(lambda: paged_attention(q, kp, vp, tbl, lens))
+        plain = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tbl, lens),
+                        iters=5)
+        sdpa = _sdpa_gathered(q, gather_slot_pages(kp, tbl),
+                              gather_slot_pages(vp, tbl), lens)
+        nbytes, flops = _slot_decode_bound(q, kp, tbl, lens)
+        bound, by = _bound(nbytes, flops, dtype)
+        emit("phase2 slot decode timing", dtype=str(dtype), ms=ms,
+             plain_ms=plain, sdpa_gathered_ms=sdpa, bound_ms=bound,
+             bound_by=by, bytes=nbytes, flops=flops)
+        res[("slot", dtype)] = dict(err=max(errs), ms=ms, plain_ms=plain,
+                                    sdpa=sdpa, bound=bound, by=by)
     # ---- flash prefill: main shape, then small mask cases
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D, True, None, None, 0),
@@ -267,12 +351,13 @@ def requests(vocab: int, rng, n: int = 8, system_len: int = 256,
     return prompts[:1] + [list(prompts[0])] + prompts[1:]
 
 
-def serve(cfg, params, device, prompts, max_tokens, n_slots, max_len, page):
-    """Serve ``prompts`` on a fresh zero-copy engine; returns (outputs,
-    engine, finished, wall seconds)."""
+def serve(cfg, params, device, prompts, max_tokens, n_slots, max_len, page,
+          **engine_kw):
+    """Serve ``prompts`` on a fresh engine (zero-copy unless ``engine_kw``
+    says otherwise); returns (outputs, engine, finished, wall seconds)."""
     from repro_torch.core.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, n_slots=n_slots, max_len=max_len,
-                        page_size=page, device=device)
+                        page_size=page, device=device, **engine_kw)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -285,14 +370,22 @@ def serve(cfg, params, device, prompts, max_tokens, n_slots, max_len, page):
 
 
 def check_serve(cfg, eng, outs, prompts, max_tokens) -> dict:
-    """What a served run must show on any device; returns its stats."""
+    """What a served run must show on any device; returns its stats. A
+    zero-copy serve with prefix sharing maps shared pages and makes no
+    staging copy; a copy-mode serve stages every admission and maps
+    nothing."""
     s = eng.stats()
-    assert s["staging_copies"] == 0, "zero-copy serve made a staging copy"
     assert all(len(o) == max_tokens for o in outs), "short generation"
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
     assert len({tuple(o) for o in outs}) > 1, "every request decoded alike"
-    assert s["shared_admissions"] > 0 and s["prefill_tokens_saved"] > 0
-    assert s["cow_page_copies"] > 0, "no CoW page copy was exercised"
+    if eng.offload_mode == "copy":
+        assert s["staging_copies"] == len(prompts), s["staging_copies"]
+        assert s["sva"]["bytes_copied"] > 0 and s["sva"]["bytes_mapped"] == 0
+    else:
+        assert s["staging_copies"] == 0, "zero-copy serve made a staging copy"
+    if eng._can_share:
+        assert s["shared_admissions"] > 0 and s["prefill_tokens_saved"] > 0
+        assert s["cow_page_copies"] > 0, "no CoW page copy was exercised"
     for kv in eng.cache:
         assert torch.isfinite(kv.k_pool).all() and torch.isfinite(kv.v_pool).all()
     return s
@@ -341,7 +434,74 @@ def phase_serve() -> dict:
          table_uploads_delta=s["table_uploads_delta"],
          table_upload_bytes=s["table_upload_bytes"], launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    return launches, (cfg, params, prompts, new_tokens, n_slots, max_len)
+    figures = _serve_figures(s, done, wall)
+    return (launches, (cfg, params, prompts, new_tokens, n_slots, max_len),
+            outs, figures)
+
+
+def _serve_figures(s, done, wall) -> dict:
+    ttft = [(r.first_token_at - r.submitted_at) * 1e3 for r in done.values()]
+    return dict(wall_s=wall, tokens_per_s=s["tokens"] / wall,
+                ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+                prefill_s=s["prefill_s"],
+                decode_ms_per_step=s["decode_s"] / s["decode_steps"] * 1e3)
+
+
+def phase_copy_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
+                     zero_copy_outs, zero_copy_figures) -> dict:
+    """The phase-3 requests on the copy-mode engine: per-slot pools, one
+    exact-length B=1 prefill and one staging copy per admission, the
+    per-slot decode kernel, a full table upload every step. Served in turns
+    with zero-copy (phase 3's serve, copy, copy, zero-copy), so the two
+    modes' figures share the host's state."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    run = lambda **kw: serve(cfg, params, "cuda", prompts, new_tokens,
+                             n_slots, max_len, PAGE, **kw)
+    reset_launch_counts()
+    outs, eng, done, wall = run(offload_mode="copy")
+    launches = launch_counts()
+    s = check_serve(cfg, eng, outs, prompts, new_tokens)
+    steps = s["decode_steps"]
+    assert s["staging_copies"] == n_slots == len(prompts), s["staging_copies"]
+    assert launches["paged_attention"] == cfg.n_layers * steps, launches
+    assert launches["paged_attention_global"] == 0, launches
+    assert launches["flash_attention_fwd"] >= cfg.n_layers * len(prompts), \
+        launches
+    copy_figures = [_serve_figures(s, done, wall)]
+    _, eng2, done2, wall2 = run(offload_mode="copy")
+    copy_figures.append(_serve_figures(eng2.stats(), done2, wall2))
+    _, eng3, done3, wall3 = run()
+    zero_copy_figures = [zero_copy_figures,
+                         _serve_figures(eng3.stats(), done3, wall3)]
+    # What the staging path moves on the device per admission: the fresh
+    # single-sequence cache (zeroed, then rewritten by the prefill), its
+    # clone, and the write into the batch slot, each a whole per-slot cache.
+    single = sum(t.numel() * t.element_size()
+                 for kv in eng.cache for t in kv) // n_slots
+    same = sum(a == b for o, z in zip(outs, zero_copy_outs)
+               for a, b in zip(o, z))
+    emit("phase3c copy serve", arch=cfg.name, offload_mode="copy",
+         requests=len(prompts), new_tokens=new_tokens, slots=n_slots,
+         max_len=max_len, page=PAGE, turns="zero_copy copy copy zero_copy",
+         copy=copy_figures, zero_copy=zero_copy_figures,
+         decode_steps=steps, prefills=s["prefills"],
+         staging_copies=s["staging_copies"],
+         table_uploads_full=s["table_uploads_full"],
+         table_upload_bytes=s["table_upload_bytes"],
+         modeled_bytes_copied=s["sva"]["bytes_copied"],
+         modeled_bytes_mapped=s["sva"]["bytes_mapped"],
+         device_bytes_single_cache=single * len(prompts),
+         device_bytes_clone=single * len(prompts),
+         device_bytes_slot_write=single * len(prompts),
+         tokens_equal_to_zero_copy=same,
+         tokens_total=sum(len(o) for o in outs),
+         requests_identical_to_zero_copy=sum(
+             o == z for o, z in zip(outs, zero_copy_outs)),
+         first_tokens_equal=sum(o[0] == z[0]
+                                for o, z in zip(outs, zero_copy_outs)),
+         launches=launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return launches
 
 
 def _leaves(tree):
@@ -400,20 +560,42 @@ def phase_cross_check(device: str = "cuda") -> None:
     prompts = requests(cfg.vocab_size, np.random.default_rng(SEED), n=6,
                        system_len=20, lo=8, hi=40)
     kw = dict(max_tokens=8, n_slots=4, max_len=64, page=8)
-    reset_launch_counts()
-    dev_outs, dev_eng, _, _ = serve(cfg, params_dev, device, prompts, **kw)
-    launches = launch_counts()
-    cpu_outs, cpu_eng, _, _ = serve(cfg, params_cpu, "cpu", prompts, **kw)
-    s = check_serve(cfg, dev_eng, dev_outs, prompts, kw["max_tokens"])
-    check_serve(cfg, cpu_eng, cpu_outs, prompts, kw["max_tokens"])
-    if device == "cuda":
-        assert all(n > 0 for n in launches.values()), launches
-    same = dev_outs == cpu_outs
-    emit("phase4 cuda-vs-cpu", arch=cfg.name, dtype=cfg.activation_dtype,
-         device=device, requests=len(prompts), identical_tokens=same,
-         launches=launches, shared_admissions=s["shared_admissions"],
-         cow_page_copies=s["cow_page_copies"])
-    assert same, f"greedy tokens differ: {device} {dev_outs} vs cpu {cpu_outs}"
+    runs = {}
+    for mode, ekw in (("zero_copy", {}),
+                      ("copy", dict(offload_mode="copy")),
+                      ("zero_copy_unshared", dict(prefix_sharing=False))):
+        reset_launch_counts()
+        dev_outs, dev_eng, _, _ = serve(cfg, params_dev, device, prompts,
+                                        **kw, **ekw)
+        launches = launch_counts()
+        s = check_serve(cfg, dev_eng, dev_outs, prompts, kw["max_tokens"])
+        runs[mode] = dev_outs
+        if mode == "zero_copy_unshared":
+            break                   # held against copy mode below
+        cpu_outs, cpu_eng, _, _ = serve(cfg, params_cpu, "cpu", prompts,
+                                        **kw, **ekw)
+        check_serve(cfg, cpu_eng, cpu_outs, prompts, kw["max_tokens"])
+        if device == "cuda":
+            used = (("paged_attention", "flash_attention_fwd")
+                    if mode == "copy"
+                    else ("paged_attention_global", "flash_attention_fwd"))
+            assert all(launches[k] > 0 for k in used), launches
+            assert all(n == 0 for k, n in launches.items()
+                       if k not in used), launches
+        same = dev_outs == cpu_outs
+        emit("phase4 cuda-vs-cpu", arch=cfg.name, dtype=cfg.activation_dtype,
+             device=device, offload_mode=mode, requests=len(prompts),
+             identical_tokens=same, launches=launches,
+             staging_copies=s["staging_copies"],
+             shared_admissions=s["shared_admissions"],
+             cow_page_copies=s["cow_page_copies"])
+        assert same, (f"{mode}: greedy tokens differ: {device} {dev_outs} "
+                      f"vs cpu {cpu_outs}")
+    same = runs["copy"] == runs["zero_copy_unshared"]
+    emit("phase4 copy-vs-zero_copy", device=device, prefix_sharing=False,
+         identical_tokens=same)
+    assert same, (f"copy {runs['copy']} vs zero_copy without prefix sharing "
+                  f"{runs['zero_copy_unshared']}")
 
 
 def _to(tree, device):
@@ -439,11 +621,13 @@ def main(argv=None) -> int:
         return 1
     phase_card()
     res = phase_kernels()
-    launches, served = phase_serve()
+    launches, served, zc_outs, zc_figures = phase_serve()
+    copy_launches = phase_copy_serve(*served, zc_outs, zc_figures)
     if args.profile:
         phase_profile(*served)
     phase_cross_check()
     dec, fl = res[("decode", torch.bfloat16)], res[("flash", torch.bfloat16)]
+    slot = res[("slot", torch.bfloat16)]
     kernels = [
         {"name": "paged_attention_global", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -453,7 +637,18 @@ def main(argv=None) -> int:
          "max_abs_err_fp32": res[("decode", torch.float32)]["err"],
          "ms": dec["ms"], "plain_ms": dec["plain_ms"],
          "bound_ms": dec["bound"], "bound_by": dec["by"],
-         "library_ms": None, "sdpa_gathered_ms": dec["sdpa"]},
+         "library_ms": None, "sdpa_gathered_ms": dec["sdpa"],
+         "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
+         "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"]},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:102",
+         "launches": copy_launches["paged_attention"],
+         "max_abs_err": slot["err"],
+         "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
+         "ms": slot["ms"], "plain_ms": slot["plain_ms"],
+         "bound_ms": slot["bound"], "bound_by": slot["by"],
+         "library_ms": None, "sdpa_gathered_ms": slot["sdpa"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",

@@ -1,19 +1,27 @@
 """Serving engine over the paged SVA layer (port of
-``repro/core/serving/engine.py``: ``zero_copy`` offload, fixed scheduler).
+``repro/core/serving/engine.py``: both offload modes, fixed scheduler).
 
-Zero-copy offload at serving granularity (the paper's map-don't-copy result
-applied to KV admission): ONE global physical page pool per KV layer is
-shared by every batch slot. Admission writes block-table rows (ints), and a
-single batched, bucketed prefill scatters KV directly into the shared pool
-through those tables. Decode consumes delta table uploads: only rows whose
-tables changed since the last step are re-sent, with a full upload only on
-epoch invalidation.
+  zero_copy  Zero-copy offload at serving granularity (the paper's
+             map-don't-copy result applied to KV admission): ONE global
+             physical page pool per KV layer is shared by every batch slot.
+             Admission writes block-table rows (ints), and a single batched,
+             bucketed prefill scatters KV directly into the shared pool
+             through those tables. Decode consumes delta table uploads: only
+             rows whose tables changed since the last step are re-sent, with
+             a full upload only on epoch invalidation.
 
-Copy-on-write prefix sharing: admission maps a prompt's already-resident
-prefix pages via refcount++ in the manager's PrefixIndex; the batched
-prefill feeds only each prompt's suffix, reading the prefix's KV back out of
-the shared pool and scattering through ``write_tables`` whose shared
-entries are NULLed. A decode append into a page another sequence still maps
+  copy       The staging baseline (paper Fig. 2's memcpy mode), over
+             per-slot pools: every admission materializes a fresh
+             single-sequence cache, prefills into it at the prompt's exact
+             length, duplicates it on the device (the staging copy), and
+             copies it into its batch slot. Decode re-uploads every table
+             each step.
+
+Copy-on-write prefix sharing (zero_copy only): admission maps a prompt's
+already-resident prefix pages via refcount++ in the manager's PrefixIndex;
+the batched prefill feeds only each prompt's suffix, reading the prefix's KV
+back out of the shared pool and scattering through ``write_tables`` whose
+shared entries are NULLed. A decode append into a page another sequence still maps
 queues a CoW page copy, executed here as one batched pool-to-pool copy.
 
 The host-side layer (``core/sva``: page pool, IOMMU, IOTLB, prefix index,
@@ -21,9 +29,9 @@ svasan) is a byte copy of the reference's, so admission, translation and
 statistics match it step for step. The pools are updated in place (the JAX
 engine donates its cache to each jitted step instead).
 
-Not ported here: ``offload_mode="copy"``, ``scheduler="continuous"`` and
-archs with per-slot state (sliding-window rings, recurrent state,
-cross-KV); each raises NotImplementedError.
+Not ported here: ``scheduler="continuous"`` and archs with per-slot state
+(sliding-window rings, recurrent state, cross-KV); each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sva.iommu import (AutoTuneConfig, PrefetchConfig,
                                         TLBConfig, default_autotune_candidates)
 from repro_torch.core.sva.kv_manager import PagedKVManager
-from repro_torch.models.model import (forward_decode, forward_prefill,
-                                      init_cache, install_tables)
+from repro_torch.models.model import (Cache, forward_decode,
+                                      forward_prefill, init_cache,
+                                      install_tables)
 from repro_torch.models.params import resolve_device, torch_dtype
 
 
@@ -59,6 +68,15 @@ class Request:
     first_token_step: Optional[int] = None
 
 
+def _write_slot(batch_cache: Cache, single_cache: Cache, slot: int) -> None:
+    """Copy one sequence's prefilled per-slot cache (batch 1) into batch slot
+    ``slot`` of every layer, in place: the staging baseline's O(cache-size)
+    admission walk."""
+    for bkv, skv in zip(batch_cache, single_cache):
+        for dst, src in zip(bkv, skv):
+            dst[slot].copy_(src[0])
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
                  page_size: int = 8, offload_mode: str = "zero_copy",
@@ -73,15 +91,15 @@ class ServingEngine:
         if scheduler not in ("fixed", "continuous"):
             raise ValueError(f"scheduler={scheduler!r} "
                              "(expected 'fixed' or 'continuous')")
-        if scheduler == "continuous":
-            raise NotImplementedError("scheduler='continuous' is not ported "
-                                      "yet (fixed only)")
         if offload_mode not in ("zero_copy", "copy"):
             raise ValueError(f"offload_mode={offload_mode!r} "
                              "(expected 'zero_copy' or 'copy')")
-        if offload_mode == "copy":
-            raise NotImplementedError("offload_mode='copy' is not ported yet "
-                                      "(zero_copy only)")
+        if scheduler == "continuous":
+            if offload_mode != "zero_copy":
+                raise NotImplementedError(
+                    "continuous scheduling requires offload_mode='zero_copy'")
+            raise NotImplementedError("scheduler='continuous' is not ported "
+                                      "yet (fixed only)")
         if (cfg.is_encdec or cfg.n_image_tokens
                 or any(k != "attn_mlp" for k in cfg.layer_kinds())):
             raise NotImplementedError(
@@ -90,12 +108,13 @@ class ServingEngine:
                 "not ported; the port serves dense attn_mlp decoders")
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
-        self.n_slots, self.page_size = n_slots, page_size
+        self.n_slots, self.max_len, self.page_size = n_slots, max_len, page_size
+        self.offload_mode = offload_mode
         self.eos = eos_token
         self.max_pages = -(-max_len // page_size)
         kv_bytes = (2 * cfg.n_kv_heads * cfg.d_head * len(cfg.layer_kinds())
                     * torch_dtype(cfg.activation_dtype).itemsize)
-        self._can_share = prefix_sharing
+        self._can_share = offload_mode == "zero_copy" and prefix_sharing
         # Adaptive translation front-end (both default-off): IOTLB
         # prefetching and online geometry auto-tuning.
         prefetch = PrefetchConfig(cfg.serve_tlb_prefetch_policy,
@@ -150,14 +169,18 @@ class ServingEngine:
                         "admit_table_bytes": 0,
                         "prefill_tokens_saved": 0, "shared_admissions": 0,
                         "cow_page_copies": 0}
-        self.null_page = n_slots * self.max_pages
-        self.cache = init_cache(cfg, n_slots, max_len, page_size,
-                                global_pages=self.null_page,
-                                device=self.device)
-        self._tables_dev = torch.full((n_slots, self.max_pages),
-                                      self.null_page, dtype=torch.int32,
-                                      device=self.device)
-        self._epoch_seen = -1
+        if offload_mode == "zero_copy":
+            self.null_page = n_slots * self.max_pages
+            self.cache = init_cache(cfg, n_slots, max_len, page_size,
+                                    global_pages=self.null_page,
+                                    device=self.device)
+            self._tables_dev = torch.full((n_slots, self.max_pages),
+                                          self.null_page, dtype=torch.int32,
+                                          device=self.device)
+            self._epoch_seen = -1
+        else:
+            self.cache = init_cache(cfg, n_slots, max_len, page_size,
+                                    device=self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -213,8 +236,9 @@ class ServingEngine:
 
     # --------------------------------------------------------------- admission
     def _admit(self):
-        self._apply_cow()   # queued page copies must land before any new
-                            # prefill can recycle their source pages
+        if self.offload_mode == "zero_copy":
+            self._apply_cow()   # queued page copies must land before any
+                                # new prefill can recycle their source pages
         admitted: List = []
         while self.queue:
             req = self.queue[0]
@@ -226,6 +250,10 @@ class ServingEngine:
             if st is None:
                 break                      # no slot/pages: wait
             self.queue.popleft()
+            if self.offload_mode == "copy":
+                self._prefill_into_slot(req, st.slot)
+                self.active[req.req_id] = req
+                continue
             if self.translation_trace is not None:
                 self.translation_trace.append(
                     ("map", list(st.pages[st.shared_pages:]),
@@ -303,6 +331,46 @@ class ServingEngine:
         self.metrics["prefill_reqs"] += len(group)
         self.metrics["prefill_s"] += time.perf_counter() - t0
 
+    def _prefill_into_slot(self, req: Request, slot: int):
+        """Copy-mode baseline: materialize a fresh single-sequence cache,
+        prefill it at the prompt's exact length, duplicate it on the device
+        (the staging copy), then copy it into batch slot ``slot``."""
+        t0 = time.perf_counter()
+        single = init_cache(self.cfg, 1, self.max_len, self.page_size,
+                            device=self.device)
+        single = self._map_tables(single, self.mgr.tables[slot:slot + 1],
+                                  np.zeros(1, np.int32))
+        batch = {"tokens": self._dev(np.asarray(req.prompt, np.int64)[None])}
+        with torch.no_grad():
+            logits, single = forward_prefill(self.cfg, self.params, batch,
+                                             single)
+        # The staging copy: a real device duplicate of every leaf.
+        single = [type(kv)(*(t.clone() for t in kv)) for kv in single]
+        self.metrics["staging_copies"] += 1
+        _write_slot(self.cache, single, slot)
+        first = int(np.argmax(logits[0, -1].float().cpu().numpy()))
+        self.mgr.append_token(req.req_id, first)
+        req.first_token_at = time.perf_counter()
+        req.first_token_step = self._step_count
+        self.metrics["prefills"] += 1
+        self.metrics["prefill_reqs"] += 1
+        self.metrics["prefill_s"] += time.perf_counter() - t0
+
+    def _map_tables(self, cache: Cache, tables: np.ndarray,
+                    lengths: np.ndarray) -> Cache:
+        """Install per-slot block tables and lengths into a PER-SLOT cache
+        (the copy-baseline path). Rejects, instead of wrapping, table entries
+        past a layer's pool: wrapping page indices would alias distinct
+        logical pages onto one physical page and corrupt KV."""
+        n_pages = cache[0].block_table.shape[-1]    # every layer alike
+        sub = tables[..., :n_pages]
+        if sub.size and int(sub.max()) >= n_pages:
+            raise ValueError(
+                f"block-table entry {int(sub.max())} out of range for a "
+                f"{n_pages}-page pool; refusing to wrap page indices")
+        return install_tables(cache, self._dev(sub.astype(np.int32)),
+                              self._dev(lengths.astype(np.int32)))
+
     # --------------------------------------------------------------- CoW
     def _cow_copy_pages(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """One batched physical page duplication in every layer's pools:
@@ -370,16 +438,24 @@ class ServingEngine:
             st = self.mgr.seqs[rid]
             last[st.slot, 0] = st.tokens[-1] if st.tokens else \
                 (req.prompt[-1] if req.prompt else 0)
-        self._apply_cow()       # duplicated pages must exist before the
-                                # decode writes/reads through new tables
-        self._upload_tables()
-        if self._translation_stats:
-            accesses = self.mgr.translate_step()
-            if self.translation_trace is not None:
-                self.translation_trace.append(
-                    ("step", accesses, int(kv_len.sum())))
         pos = self._dev(kv_len)
-        cache = install_tables(self.cache, self._tables_dev, pos)
+        if self.offload_mode == "zero_copy":
+            self._apply_cow()   # duplicated pages must exist before the
+                                # decode writes/reads through new tables
+            self._upload_tables()
+            if self._translation_stats:
+                accesses = self.mgr.translate_step()
+                if self.translation_trace is not None:
+                    self.translation_trace.append(
+                        ("step", accesses, int(kv_len.sum())))
+            cache = install_tables(self.cache, self._tables_dev, pos)
+        else:
+            # copy baseline: full table re-upload + re-map every step
+            tables = self.mgr.device_tables()
+            cache = self._map_tables(self.cache, tables, kv_len)
+            self.metrics["table_uploads_full"] += 1
+            self.metrics["table_rows_uploaded"] += self.n_slots
+            self.metrics["table_upload_bytes"] += int(tables.nbytes)
         with torch.no_grad():
             logits, self.cache = forward_decode(self.cfg, self.params,
                                                 self._dev(last), pos, cache)

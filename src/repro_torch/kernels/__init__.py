@@ -1,9 +1,14 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``), each with a plain
-PyTorch version beside it and a launch counter on its wrapper."""
+PyTorch version beside it and a launch counter on its wrapper.
+
+The per-slot wrapper is reached as ``kernels.paged_attention.ops.
+paged_attention`` (here the name ``paged_attention`` is its subpackage)."""
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.paged_attention import ops as _paged
 from repro_torch.kernels.paged_attention.ops import paged_attention_global
 
 KERNELS = {"paged_attention_global": paged_attention_global,
+           "paged_attention": _paged.paged_attention,
            "flash_attention_fwd": flash_attention_fwd}
 
 

@@ -1,8 +1,18 @@
-// One-token GQA decode attention over ONE shared KV page pool, read through
-// per-sequence block tables (the zero-copy serving layout).
+// One-token GQA decode attention over a paged KV cache, read through
+// per-sequence block tables, in the two layouts the serving engine uses:
+//   global    ONE shared pool (total, page, Hkv, D); table (B, P) entries
+//             index it, NULL (>= total) marks an unallocated entry (the
+//             zero-copy layout).
+//   per-slot  one pool per sequence (B, n_pages, page, Hkv, D); table
+//             (B, n_pages) is a permutation of slot b's own pages (the copy
+//             baseline's layout).
+// Both run the same device code: slot b's pages start at page
+// b * slot_pages of the pool, with slot_pages = 0 for the global layout
+// and n_pages for the per-slot one.
 //
 // Replaces: src/repro/kernels/paged_attention/kernel.py:paged_attention_global
-// (Pallas, scalar-prefetched block table driving each page's DMA).
+// and :paged_attention (Pallas, scalar-prefetched block table driving each
+// page's DMA).
 //
 // What bounds it on the H100: bytes. Each (sequence, KV head) reads its
 // valid tokens' K and V once (2 * len * D elements) and does 4 * G * len * D
@@ -18,11 +28,11 @@
 // (m, l, acc) in shared memory in fp32. The splits (flash-decoding) put
 // enough blocks on the card at small batch; a second small kernel merges
 // their partial (m, l, acc).
-// Pages at or past ``length`` are never loaded. A NULL table entry
-// (>= total pages) is read as a zero page, never dereferenced and never
-// clamped to page 0: an inactive slot's all-NULL row then yields exactly
-// what the plain version yields. Scores are masked to -inf before the max,
-// so a row of length 0 returns zeros, not NaN.
+// Pages at or past ``length`` are never loaded. A table entry outside the
+// slot's pages (a global NULL, >= total) is read as a zero page, never
+// dereferenced and never clamped to page 0: an inactive slot's all-NULL row
+// then yields exactly what the plain version yields. Scores are masked to
+// -inf before the max, so a row of length 0 returns zeros, not NaN.
 //
 // Kept simple on purpose: scalar fp32 FMAs, no cp.async/TMA double
 // buffering of the page loads.
@@ -62,8 +72,9 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool, const int32_t* __restrict__ table,
                     const int32_t* __restrict__ lengths, float* __restrict__ part,
-                    int total, int page, int hkv, int d, int g, int n_table,
-                    int pages_per_tile, int n_split, float scale, float softcap) {
+                    int total, int slot_pages, int page, int hkv, int d, int g,
+                    int n_table, int pages_per_tile, int n_split, float scale,
+                    float softcap) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -123,8 +134,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         if (i < tc * d && pos < len) {
           const int entry = e_s[tt / page];
           if (entry >= 0 && entry < total) {
-            const size_t off =
-                (((size_t)entry * page + pos % page) * hkv + h) * d + (i - tt * d);
+            const size_t pg = (size_t)b * slot_pages + entry;
+            const size_t off = ((pg * page + pos % page) * hkv + h) * d + (i - tt * d);
             kx[u] = to_f(k_pool[off]);
             vx[u] = to_f(v_pool[off]);
           }
@@ -229,8 +240,8 @@ __global__ void paged_decode_combine(const float* __restrict__ part, T* __restri
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
            const void* lengths, void* part, void* out, int b, int hkv, int g, int d,
-           int total, int page, int n_table, int n_split, float scale, float softcap,
-           cudaStream_t stream) {
+           int total, int slot_pages, int page, int n_table, int n_split, float scale,
+           float softcap, cudaStream_t stream) {
   // About 64 tokens of K and V per tile (whole pages), ~32 KB of fp32 tiles.
   int pages_per_tile = (64 + page - 1) / page;
   if (pages_per_tile > n_table) pages_per_tile = n_table;
@@ -247,8 +258,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(lengths), static_cast<float*>(part), total, page,
-      hkv, d, g, n_table, pages_per_tile, n_split, scale, softcap);
+      static_cast<const int32_t*>(lengths), static_cast<float*>(part), total,
+      slot_pages, page, hkv, d, g, n_table, pages_per_tile, n_split, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   paged_decode_combine<T><<<b * hkv * g, 64, 0, stream>>>(
@@ -256,25 +267,45 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means no softcap. part is
-// fp32 scratch of b * hkv * g * n_split * (d + 2) floats.
-// Returns the cudaError_t of the launches (0 = success).
-extern "C" int paged_attention_global_launch(
-    const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* lengths, void* part, void* out, int dtype, int b, int hkv, int g,
-    int d, int total, int page, int n_table, int n_split, float scale, float softcap,
-    void* stream) {
+// Both layouts, with slot_pages as above. Returns the cudaError_t of the
+// launches (0 = success).
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* table,
+             const void* lengths, void* part, void* out, int dtype, int b, int hkv,
+             int g, int d, int total, int slot_pages, int page, int n_table,
+             int n_split, float scale, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b == 0) return 0;
   if (n_split < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k_pool, v_pool, table, lengths, part, out, b, hkv, g, d,
-                         total, page, n_table, n_split, scale, softcap, s);
+                         total, slot_pages, page, n_table, n_split, scale, softcap, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, part, out, b, hkv,
-                                 g, d, total, page, n_table, n_split, scale, softcap,
-                                 s);
+                                 g, d, total, slot_pages, page, n_table, n_split, scale,
+                                 softcap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means no softcap. part is
+// fp32 scratch of b * hkv * g * n_split * (d + 2) floats.
+// Global layout: pools (total, page, hkv, d), table (b, n_table).
+extern "C" int paged_attention_global_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* lengths, void* part, void* out, int dtype, int b, int hkv, int g,
+    int d, int total, int page, int n_table, int n_split, float scale, float softcap,
+    void* stream) {
+  return dispatch(q, k_pool, v_pool, table, lengths, part, out, dtype, b, hkv, g, d,
+                  total, 0, page, n_table, n_split, scale, softcap, stream);
+}
+
+// Per-slot layout: pools (b, n_pages, page, hkv, d), table (b, n_pages).
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* lengths, void* part, void* out, int dtype, int b, int hkv, int g,
+    int d, int n_pages, int page, int n_split, float scale, float softcap,
+    void* stream) {
+  return dispatch(q, k_pool, v_pool, table, lengths, part, out, dtype, b, hkv, g, d,
+                  n_pages, n_pages, page, n_pages, n_split, scale, softcap, stream);
 }

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the paged decode-attention kernel (global layout).
+"""Plain PyTorch versions of the paged decode-attention kernels.
 
-Written after ``repro/kernels/paged_attention/ref.py::paged_attention_global_ref``
+Written after ``repro/kernels/paged_attention/ref.py`` (``paged_attention_ref``
+for the per-slot layout, ``paged_attention_global_ref`` for the shared pool)
 with the mask-before-max softmax of ``repro/models/attention.py::
 paged_decode_attention``: invalid positions are masked to -inf before the
 max, so a row of length 0 yields zeros (the JAX oracle's plain softmax
@@ -23,17 +24,25 @@ def gather_global_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor
     return g.masked_fill(null[..., None, None, None], 0)
 
 
-def paged_attention_global_ref(q: torch.Tensor, k_pool: torch.Tensor,
-                               v_pool: torch.Tensor, block_table: torch.Tensor,
-                               lengths: torch.Tensor, *,
-                               softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, D); pools: (total, page, Hkv, D); table: (B, P) int32 with
-    NULL entries (>= total) as zero pages; lengths: (B,). -> (B, Hq, D)."""
+def gather_slot_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B, n_pages, page, Hkv, D) logical view of per-slot pools (B, n_pages,
+    page, Hkv, D) through (B, n_pages) tables: slot b's logical page p is
+    its own physical page ``table[b, p]``. Entries >= n_pages read as zero
+    pages, never as an out-of-bounds index."""
+    n_pages = pool.shape[1]
+    tbl = table.long()
+    null = tbl >= n_pages
+    rows = torch.arange(pool.shape[0], device=pool.device)[:, None]
+    g = pool[rows, torch.where(null, 0, tbl)]
+    return g.masked_fill(null[..., None, None, None], 0)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """q: (B, Hq, D); k, v: logical (B, P, page, Hkv, D); the first
+    ``lengths[b]`` tokens of row b are valid. -> (B, Hq, D)."""
     B, Hq, D = q.shape
-    _, page, Hkv, _ = k_pool.shape
-    P = block_table.shape[1]
-    k = gather_global_pages(k_pool, block_table)
-    v = gather_global_pages(v_pool, block_table)
+    _, P, page, Hkv, _ = k.shape
     qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
     s = torch.einsum("bhgd,bpthd->bhgpt", qg, k.float()) * (D ** -0.5)
     if softcap is not None:
@@ -50,3 +59,24 @@ def paged_attention_global_ref(q: torch.Tensor, k_pool: torch.Tensor,
     o = torch.einsum("bhgpt,bpthd->bhgd", p, v.float())
     o = o / torch.clamp(l[..., 0], min=1e-20)
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_table: torch.Tensor,
+                        lengths: torch.Tensor, *,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, D); pools: (B, n_pages, page, Hkv, D) per slot; table:
+    (B, n_pages) int32 (entries >= n_pages as zero pages); lengths: (B,).
+    -> (B, Hq, D)."""
+    return _attend(q, gather_slot_pages(k_pool, block_table),
+                   gather_slot_pages(v_pool, block_table), lengths, softcap)
+
+
+def paged_attention_global_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, block_table: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, D); pools: (total, page, Hkv, D); table: (B, P) int32 with
+    NULL entries (>= total) as zero pages; lengths: (B,). -> (B, Hq, D)."""
+    return _attend(q, gather_global_pages(k_pool, block_table),
+                   gather_global_pages(v_pool, block_table), lengths, softcap)

@@ -1,11 +1,12 @@
-"""Serving launcher: the zero-copy paged engine of the PyTorch port.
+"""Serving launcher: the paged engine of the PyTorch port.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
-      --smoke --device cpu --requests 8 --max-tokens 12
+      --smoke --device cpu --requests 8 --max-tokens 12 \
+      --offload-mode zero_copy     # or: copy
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
-output as ``repro.launch.serve``; ``--offload-mode copy`` is not ported and
-raises.
+output as ``repro.launch.serve``: ``zero_copy`` shows ``staging_copies: 0``,
+``copy`` (the staging baseline) one staging copy per request.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Attention on the serving path (port of ``repro/models/attention.py``,
-main-path subset): GQA projections, flash attention for prefill, the
-GLOBAL paged KV pool with its append, decode attention and prefix-context
-attention.
+serving subset): GQA projections, flash attention for prefill, the paged KV
+cache in both layouts (the GLOBAL shared pool of zero-copy serving and the
+PER-SLOT pools of the copy baseline) with its append and decode attention,
+and prefix-context attention.
 
 ``flash_attention`` and ``paged_decode_attention`` run the hand-written CUDA
 kernels for tensors on a CUDA device and their plain versions on the CPU
@@ -9,8 +10,8 @@ kernels for tensors on a CUDA device and their plain versions on the CPU
 plain PyTorch on both, as its JAX original is dense XLA code.
 
 In-place updates: JAX returns new pools from every write (and the engine
-donates the cache). Here ``paged_append`` writes the shared pools in place
-and returns a PagedKV that holds the same pool tensors.
+donates the cache). Here ``paged_append`` writes the pools in place and
+returns a PagedKV that holds the same pool tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
-from repro_torch.kernels.paged_attention.ops import paged_attention_global
+from repro_torch.kernels.paged_attention.ops import paged_decode
 from repro_torch.kernels.paged_attention.ref import \
     gather_global_pages as _gather
 
@@ -63,12 +64,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ------------------------------------------------------------ paged KV cache
 
 class PagedKV(NamedTuple):
-    """The GLOBAL (zero-copy serving) layout: ONE physical pool shared by all
-    slots.
+    """A paged KV cache in one of two layouts, told apart by rank
+    (``is_global_layout``):
+
+    GLOBAL (zero-copy serving): ONE physical pool shared by all slots.
       k_pool / v_pool: (total_pages, page, Hkv, D)
       block_table:     (B, max_pages) int32 into the pool; entries >=
                        total_pages are the NULL page (writes dropped, reads
                        zero) marking unallocated table slots.
+    PER-SLOT (the copy baseline): one pool per sequence.
+      k_pool / v_pool: (B, n_pages, page, Hkv, D)
+      block_table:     (B, n_pages) int32, a permutation of slot b's own
+                       pages (logical -> physical).
+
       length:          (B,) int32 tokens currently valid per sequence.
     """
     k_pool: torch.Tensor
@@ -83,7 +91,16 @@ class PagedKV(NamedTuple):
     @property
     def capacity(self) -> int:
         """Per-sequence token capacity."""
-        return self.block_table.shape[-1] * self.page_size
+        if is_global_layout(self):
+            return self.block_table.shape[-1] * self.page_size
+        return self.k_pool.shape[1] * self.k_pool.shape[2]
+
+
+def is_global_layout(kv: PagedKV) -> bool:
+    """True for the shared global pool: a (total, page, H, D) pool beside a
+    (B, P) table (+2 ranks); per-slot pools carry (pages, page, H, D) behind
+    the table's (B, P) dims (+3 ranks)."""
+    return kv.k_pool.dim() == kv.block_table.dim() + 2
 
 
 def gather_global_pages(kv: PagedKV):
@@ -92,14 +109,23 @@ def gather_global_pages(kv: PagedKV):
     return _gather(kv.k_pool, kv.block_table), _gather(kv.v_pool, kv.block_table)
 
 
+def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Per-slot pools (B, n_pages, page, H, D) gathered through (B, n_pages)
+    tables into logical order -> (B, S, H, D)."""
+    B, n_pages, page, H, D = pool.shape
+    g = torch.take_along_dim(pool, table.long()[:, :, None, None, None], dim=1)
+    return g.reshape(B, n_pages * page, H, D)
+
+
 def paged_decode_attention(q: torch.Tensor, kv: PagedKV, *,
                            softcap: Optional[float] = None) -> torch.Tensor:
-    """One-token decode over the global pool. q: (B, 1, Hq, D)."""
+    """One-token decode through the block table, in either layout (the
+    per-slot or the global kernel). q: (B, 1, Hq, D)."""
     B = q.shape[0]
     lengths = torch.broadcast_to(kv.length, (B,)).to(torch.int32).contiguous()
-    out = paged_attention_global(q[:, 0].contiguous(), kv.k_pool, kv.v_pool,
-                                 kv.block_table.to(torch.int32).contiguous(),
-                                 lengths, softcap=softcap)
+    out = paged_decode(q[:, 0].contiguous(), kv.k_pool, kv.v_pool,
+                       kv.block_table.to(torch.int32).contiguous(), lengths,
+                       softcap=softcap)
     return out[:, None]
 
 
@@ -155,16 +181,24 @@ def _live_rows(phys: torch.Tensor, total: int) -> torch.Tensor:
 def paged_append(kv: PagedKV, k_new: torch.Tensor, v_new: torch.Tensor
                  ) -> PagedKV:
     """Write one token's K/V (B, 1, Hkv, D) at position ``length`` through the
-    block table, in place. Writes through NULL entries are dropped."""
+    block table, in place; the write is rolling modulo the capacity. Global
+    layout: writes through NULL entries are dropped. Per-slot layout: the
+    tables are permutations, so every row writes (an inactive slot writes
+    one stale token, which its next admission overwrites)."""
     B = k_new.shape[0]
     page = kv.page_size
     length_b = torch.broadcast_to(kv.length, (B,)).long() % kv.capacity
     logical_page = length_b // page
     slot = length_b % page
     phys = torch.gather(kv.block_table.long(), 1, logical_page[:, None])[:, 0]
-    rows = _live_rows(phys, kv.k_pool.shape[0])
-    kv.k_pool[phys[rows], slot[rows]] = k_new[rows, 0].to(kv.k_pool.dtype)
-    kv.v_pool[phys[rows], slot[rows]] = v_new[rows, 0].to(kv.v_pool.dtype)
+    if is_global_layout(kv):
+        rows = _live_rows(phys, kv.k_pool.shape[0])
+        idx = (phys[rows], slot[rows])
+    else:
+        rows = torch.arange(B, device=phys.device)
+        idx = (rows, phys, slot)
+    kv.k_pool[idx] = k_new[rows, 0].to(kv.k_pool.dtype)
+    kv.v_pool[idx] = v_new[rows, 0].to(kv.v_pool.dtype)
     return kv._replace(length=kv.length + 1)
 
 

@@ -3,7 +3,9 @@
 Two execution modes reach a layer here:
   prefill  a right-padded batch of prompts; KV is scattered into the shared
            global pool through per-sequence block tables (zero-copy), or,
-           with a cached prefix, only the suffix is computed
+           with a cached prefix, only the suffix is computed; or, on a
+           per-slot cache (the copy baseline), written into each slot's own
+           pages through its permutation table
   decode   one token per sequence: append through the table, then attend
            over the pool through it
 """
@@ -44,7 +46,8 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
         kv_new = attn.paged_append(kv, k, v)
         o = attn.paged_decode_attention(q, kv_new, softcap=cfg.attn_softcap)
         return attn.out_proj(p, o), kv_new
-    if ctx.kv_prefix_lens is not None:
+    if ctx.kv_prefix_lens is not None and kv is not None \
+            and attn.is_global_layout(kv):
         # Suffix-only prefill (CoW prefix sharing): row b's token 0 sits at
         # logical position kv_prefix_lens[b]; the skipped prefix's KV is
         # read back from the shared pool pages instead of being recomputed.
@@ -66,7 +69,56 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
     y = attn.out_proj(p, o)
     if kv is None:
         return y, None
-    return y, _prefill_write_global(kv, k, v, ctx, S)
+    if attn.is_global_layout(kv):
+        return y, _prefill_write_global(kv, k, v, ctx, S)
+    return y, _prefill_write_slots(kv, k, v, ctx, S)
+
+
+def _prefill_write_slots(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
+                         ) -> attn.PagedKV:
+    """Write a prefill's KV into PER-SLOT pools (B, n_pages, page, H, D)
+    through each row's permutation table, in place. Every page of every row
+    is rewritten.
+
+    Ring alignment: token t lives at slot t % eff (eff = the pool's
+    capacity), so the decode append, which writes position
+    ``length % eff``, overwrites the OLDEST resident token.
+    """
+    B = k.shape[0]
+    n_pages, page = kv.k_pool.shape[1], kv.k_pool.shape[2]
+    eff = n_pages * page
+    dev = k.device
+    # Physical page j of row b holds logical page inv[b, j].
+    inv = torch.argsort(kv.block_table.long(), dim=1)
+
+    def write(pool, kv_seq):
+        feat = kv_seq.shape[2:]
+        if ctx.seq_lengths is not None:
+            # Right-padded batched prefill: per row, keep each sequence's
+            # LAST min(len, eff) REAL tokens ring-aligned and zero the rest.
+            lens = torch.broadcast_to(ctx.seq_lengths, (B,)).long()
+            start = torch.clamp(lens - eff, min=0)[:, None]       # (B, 1)
+            i = torch.arange(eff, device=dev)[None, :]
+            idx = start + torch.remainder(i - start, eff)          # (B, eff)
+            valid = idx < lens[:, None]
+            idx = torch.clamp(idx, max=max(S - 1, 0))
+            seg = torch.gather(kv_seq, 1, idx[:, :, None, None].expand(
+                -1, -1, *feat))
+            seg = torch.where(valid[:, :, None, None], seg, 0)
+        elif eff < S:                      # pool shorter than the prompt:
+            seg = torch.roll(kv_seq[:, -eff:], (S - eff) % eff, dims=1)
+        elif eff > S:                      # pool capacity > prompt: pad
+            seg = torch.cat([kv_seq, kv_seq.new_zeros((B, eff - S, *feat))],
+                            dim=1)
+        else:
+            seg = kv_seq
+        pages = seg.reshape(B, n_pages, page, *feat)
+        pool.copy_(torch.take_along_dim(pages, inv[:, :, None, None, None],
+                                        dim=1))
+
+    write(kv.k_pool, k)
+    write(kv.v_pool, v)
+    return kv._replace(length=torch.full_like(kv.length, min(S, eff)))
 
 
 def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int

@@ -1,10 +1,11 @@
 """Model assembly (port of ``repro/models/model.py``, serving subset):
 embedding -> blocks (a Python loop) -> final norm -> tied head.
 
-The cache is a list with one global-layout :class:`PagedKV` per layer (the
-JAX package stacks the same leaves under a leading ``(n_blocks,)`` axis).
+The cache is a list with one :class:`PagedKV` per layer, in the global or the
+per-slot layout (the JAX package stacks the same leaves under a leading
+``(n_blocks,)`` axis).
 
-  init_cache(cfg, batch, max_len, page_size, global_pages, device)
+  init_cache(cfg, batch, max_len, page_size, global_pages=None, device)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
 """
@@ -24,16 +25,23 @@ Cache = List[attn.PagedKV]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
-               global_pages: int, device="cuda") -> Cache:
-    """Zero-filled global-layout cache: per layer, one pool of
-    ``global_pages`` pages shared by all ``batch`` slots, every table entry
-    NULL (== global_pages) until the engine uploads real rows, lengths 0."""
+               global_pages: Optional[int] = None, device="cuda") -> Cache:
+    """Zero-filled cache, lengths 0. With ``global_pages``: per layer, one
+    pool of that many pages shared by all ``batch`` slots, every table entry
+    NULL (== global_pages) until the engine uploads real rows. Without it:
+    per-slot pools (batch, n_pages, page, Hkv, D) and identity tables."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.activation_dtype)
     n_pages = -(-max_len // page_size)
-    shape = (global_pages, page_size, cfg.n_kv_heads, cfg.d_head)
-    table = torch.full((batch, n_pages), global_pages, dtype=torch.int32,
-                       device=dev)
+    tail = (page_size, cfg.n_kv_heads, cfg.d_head)
+    if global_pages is not None:
+        shape = (global_pages, *tail)
+        table = torch.full((batch, n_pages), global_pages, dtype=torch.int32,
+                           device=dev)
+    else:
+        shape = (batch, n_pages, *tail)
+        table = torch.arange(n_pages, dtype=torch.int32, device=dev) \
+            .expand(batch, n_pages).contiguous()
     length = torch.zeros((batch,), dtype=torch.int32, device=dev)
     return [attn.PagedKV(torch.zeros(shape, dtype=dt, device=dev),
                          torch.zeros(shape, dtype=dt, device=dev),

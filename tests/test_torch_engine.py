@@ -1,7 +1,7 @@
-"""The port's zero-copy serving engine against the JAX ServingEngine (fixed
-scheduler, zero_copy) on the shared conformance workloads: the same tokens,
-the same ``stats()`` apart from wall-clock fields, and the same translation
-trace, with the same weights on both sides."""
+"""The port's serving engine against the JAX ServingEngine (fixed
+scheduler, zero_copy and copy offload) on the shared conformance workloads:
+the same tokens, the same ``stats()`` apart from wall-clock fields, and the
+same translation trace, with the same weights on both sides."""
 import dataclasses
 
 import jax
@@ -119,12 +119,105 @@ def test_cuda_device_raises_without_a_card(setup):
         ServingEngine(tcfg, tparams, n_slots=2, max_len=32)
 
 
-@pytest.mark.parametrize("kw", [dict(offload_mode="copy"),
+@pytest.mark.parametrize("kw", [dict(offload_mode="copy",
+                                     scheduler="continuous"),
                                 dict(scheduler="continuous")])
 def test_unported_modes_raise(setup, kw):
     _, tcfg, _, tparams = setup
     with pytest.raises(NotImplementedError):
         ServingEngine(tcfg, tparams, n_slots=2, max_len=32, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arrival", [1, 3])
+@pytest.mark.parametrize("name", ["prefix", "pressure"])
+def test_copy_engine_matches_jax_engine(setup, name, arrival):
+    """Copy mode: per-slot pools, exact-length B=1 prefill, staging copy,
+    full table upload every step; and the same batch-cache pools after the
+    serve (a staging copy or slot write that aliased would corrupt them)."""
+    wl = _workload(name, setup[0].vocab_size, ARRIVAL_CASES[arrival])
+    jeng, teng = _engines(setup, offload_mode="copy")
+    _assert_same(jeng, teng, wl)
+    st = teng.stats()
+    assert st["staging_copies"] == len(wl.prompts)
+    assert st["sva"]["bytes_copied"] > 0 and st["sva"]["bytes_mapped"] == 0
+    assert st["table_uploads_full"] == st["decode_steps"]
+    jkv = jeng.cache["blocks"]["0"]["kv"]
+    for pool, name_ in ((jkv.k_pool, "k_pool"), (jkv.v_pool, "v_pool")):
+        tpool = np.stack([getattr(kv, name_).numpy() for kv in teng.cache])
+        np.testing.assert_allclose(tpool, np.asarray(pool), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_copy_mode_same_tokens_as_zero_copy(setup):
+    """Copy-based admission gives the zero-copy engine's tokens but pays a
+    staging copy per admission."""
+    _, tcfg, _, tparams = setup
+    wl = pressure_workload(setup[0].vocab_size, arrivals=ARRIVAL_CASES[1])
+    kw = dict(ENGINE_KW, device="cpu", prefix_sharing=False)
+    zc = ServingEngine(tcfg, tparams, **kw)
+    cp = ServingEngine(tcfg, tparams, offload_mode="copy", **kw)
+    assert drive(cp, wl)[0] == drive(zc, wl)[0]
+    assert cp.stats()["staging_copies"] > 0
+    assert zc.stats()["staging_copies"] == 0
+
+
+def test_copy_mode_stages_a_real_copy(setup, monkeypatch):
+    """What reaches the slot write is a device duplicate of the prefilled
+    single-sequence cache, never the prefill's own tensors."""
+    from repro_torch.core.serving import engine as eng_mod
+    _, tcfg, _, tparams = setup
+    prefilled, written = [], []
+    real_prefill, real_write = eng_mod.forward_prefill, eng_mod._write_slot
+
+    def prefill(*a, **k):
+        logits, cache = real_prefill(*a, **k)
+        prefilled.extend(t.data_ptr() for kv in cache for t in kv)
+        return logits, cache
+
+    def write_slot(batch_cache, single, slot):
+        written.extend(t.data_ptr() for kv in single for t in kv)
+        return real_write(batch_cache, single, slot)
+
+    monkeypatch.setattr(eng_mod, "forward_prefill", prefill)
+    monkeypatch.setattr(eng_mod, "_write_slot", write_slot)
+    eng = ServingEngine(tcfg, tparams, n_slots=2, max_len=32, page_size=8,
+                        offload_mode="copy", device="cpu")
+    eng.submit([3, 1, 4, 1, 5], max_tokens=2)
+    eng.run()
+    assert eng.stats()["staging_copies"] == 1
+    assert written and not set(written) & set(prefilled)
+
+
+def test_copy_mode_single_slot_writes_its_slot(setup):
+    """With one slot the batch cache and the single-sequence cache have the
+    same shape; the slot write must still happen (the JAX ``_write_slot``
+    skips leaves of equal shape, so its copy mode decodes over an empty
+    cache there), so copy gives zero-copy's tokens."""
+    _, tcfg, _, tparams = setup
+    prompts = [[11, 4, 9, 30, 2], [87, 23, 1, 5]]
+    outs = []
+    for mode in ("zero_copy", "copy"):
+        eng = ServingEngine(tcfg, tparams, n_slots=1, max_len=32, page_size=8,
+                            offload_mode=mode, device="cpu")
+        ids = [eng.submit(p, max_tokens=5) for p in prompts]
+        done = eng.run()
+        outs.append([done[i].out_tokens for i in ids])
+    assert outs[0] == outs[1]
+
+
+def test_copy_mode_constructs_per_slot_cache(setup):
+    _, tcfg, _, tparams = setup
+    eng = ServingEngine(tcfg, tparams, n_slots=3, max_len=32, page_size=8,
+                        offload_mode="copy", device="cpu")
+    assert len(eng.cache) == tcfg.n_layers
+    for kv in eng.cache:
+        assert tuple(kv.k_pool.shape) == (3, 4, 8, tcfg.n_kv_heads,
+                                          tcfg.d_head)
+        assert kv.block_table.tolist() == [[0, 1, 2, 3]] * 3
+        assert kv.length.tolist() == [0, 0, 0]
+    with pytest.raises(ValueError, match="refusing to wrap"):
+        eng._map_tables(eng.cache, np.array([[0, 1, 2, 4]] * 3, np.int32),
+                        np.zeros(3, np.int32))
 
 
 def test_per_slot_state_archs_raise(setup):
@@ -141,3 +234,11 @@ def test_serve_cli_on_cpu(capsys):
                        "--prompt-len", "9"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and '"staging_copies": 0' in out
+
+
+def test_serve_cli_copy_mode_on_cpu(capsys):
+    assert serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                       "--slots", "2", "--max-tokens", "3",
+                       "--prompt-len", "9", "--offload-mode", "copy"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 3 and '"staging_copies": 3' in out

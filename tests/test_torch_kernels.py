@@ -15,15 +15,21 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.paged_attention.kernel import \
+    paged_attention as pallas_slot  # noqa: E402
+from repro.kernels.paged_attention.kernel import \
     paged_attention_global as pallas_global  # noqa: E402
 from repro.kernels.paged_attention.ref import \
     paged_attention_global_ref as jax_global_ref  # noqa: E402
+from repro.kernels.paged_attention.ref import \
+    paged_attention_ref as jax_slot_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import (flash_attention_fwd, launch_counts,  # noqa: E402
                                  paged_attention_global, reset_launch_counts)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import \
-    paged_attention_global_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    paged_attention, paged_decode)
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_global_ref, paged_attention_ref)
 from repro_torch.models import attention as tattn  # noqa: E402
 
 ATOL = 1e-5
@@ -58,6 +64,18 @@ def _paged_inputs(seed=0):
     return q, kp, vp, tbl, lens
 
 
+def _slot_inputs(seed=0):
+    """Per-slot pools (B, P, PAGE, HKV, D) with a random permutation table
+    per row; lengths: partial, a length-0 row, a full row, and 1."""
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, HQ, D)).astype(np.float32)
+    kp = r.standard_normal((B, P, PAGE, HKV, D)).astype(np.float32)
+    vp = r.standard_normal((B, P, PAGE, HKV, D)).astype(np.float32)
+    tbl = np.stack([r.permutation(P) for _ in range(B)]).astype(np.int32)
+    lens = np.array([3 * PAGE - 5, 2 * PAGE + 3, 0, 4 * PAGE, 1], np.int32)
+    return q, kp, vp, tbl, lens
+
+
 @pytest.mark.parametrize("softcap", [None, 30.0])
 def test_paged_plain_matches_jax_oracle(softcap):
     q, kp, vp, tbl, lens = _paged_inputs()
@@ -85,6 +103,108 @@ def test_paged_plain_matches_pallas_interpret(residency, softcap):
     assert (out[4] == 0).all()
     if residency == "smem":
         assert not np.allclose(pal[4], 0)
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_global_hbm_residency_matches_pallas_interpret(softcap):
+    """The LLC-off baseline: pages gathered out of the shared pool, then the
+    per-slot kernel on an identity table; every row, the all-NULL one
+    included (the gather zeroes NULL pages on both sides)."""
+    q, kp, vp, tbl, lens = _paged_inputs(6)
+    out = paged_attention_global(_t(q), _t(kp), _t(vp), _t(tbl), _t(lens),
+                                 softcap=softcap, table_residency="hbm")
+    pal = np.asarray(pallas_global(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                   softcap=softcap, table_residency="hbm",
+                                   interpret=True))
+    np.testing.assert_allclose(out.numpy(), pal, atol=ATOL)
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_slot_plain_matches_jax_oracle(softcap):
+    q, kp, vp, tbl, lens = _slot_inputs()
+    out = paged_attention(_t(q), _t(kp), _t(vp), _t(tbl), _t(lens),
+                          softcap=softcap).numpy()
+    ref = np.asarray(jax_slot_ref(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                  softcap=softcap))
+    live = [0, 1, 3, 4]            # the JAX oracle gives NaN at length 0
+    np.testing.assert_allclose(out[live], ref[live], atol=ATOL)
+    assert np.isnan(ref[2]).all() and (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("residency", ["smem", "hbm"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_slot_plain_matches_pallas_interpret(residency, softcap):
+    q, kp, vp, tbl, lens = _slot_inputs(1)
+    out = paged_attention(_t(q), _t(kp), _t(vp), _t(tbl), _t(lens),
+                          softcap=softcap, table_residency=residency).numpy()
+    pal = np.asarray(pallas_slot(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                 softcap=softcap, table_residency=residency,
+                                 interpret=True))
+    np.testing.assert_allclose(out, pal, atol=ATOL)
+    assert (out[2] == 0).all()
+
+
+def test_slot_entries_past_the_pool_read_zero_pages():
+    """A table entry >= n_pages is a zero page, never an index."""
+    q, kp, vp, tbl, lens = _slot_inputs(2)
+    bad = tbl.copy()
+    bad[0, 1] = P + 3
+    kz, vz = kp.copy(), vp.copy()
+    kz[0, tbl[0, 1]] = 0
+    vz[0, tbl[0, 1]] = 0
+    for residency in ("smem", "hbm"):
+        out = paged_attention(_t(q), _t(kp), _t(vp), _t(bad), _t(lens),
+                              table_residency=residency)
+        ref = paged_attention(_t(q), _t(kz), _t(vz), _t(tbl), _t(lens))
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+def test_paged_decode_dispatches_on_pool_rank():
+    sq, skp, svp, stbl, slens = map(_t, _slot_inputs(3))
+    gq, gkp, gvp, gtbl, glens = map(_t, _paged_inputs(3))
+    assert torch.equal(paged_decode(sq, skp, svp, stbl, slens, softcap=20.0),
+                       paged_attention_ref(sq, skp, svp, stbl, slens,
+                                           softcap=20.0))
+    assert torch.equal(paged_decode(gq, gkp, gvp, gtbl, glens),
+                       paged_attention_global_ref(gq, gkp, gvp, gtbl, glens))
+
+
+def test_slot_decode_attention_matches_jax_model():
+    """The per-slot model function: JAX attends in physical order through
+    the inverse table, the port through the table in logical order."""
+    q, kp, vp, tbl, lens = _slot_inputs(4)
+    jkv = jattn.PagedKV(jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+                        jnp.asarray(lens))
+    tkv = tattn.PagedKV(_t(kp), _t(vp), _t(tbl), _t(lens))
+    assert not tattn.is_global_layout(tkv) and tkv.capacity == P * PAGE
+    for cap in (None, 30.0):
+        ref = np.asarray(jattn.paged_decode_attention(
+            jnp.asarray(q)[:, None], jkv, softcap=cap))
+        out = tattn.paged_decode_attention(_t(q)[:, None], tkv,
+                                           softcap=cap).numpy()
+        np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_slot_gather_and_append_match_jax_model():
+    """Per-slot append, exact pools and lengths; a row at capacity wraps to
+    position 0 and the length-0 row writes its page ``tbl[b, 0]``."""
+    q, kp, vp, tbl, lens = _slot_inputs(5)
+    lens = np.array([21, 19, 0, 4 * PAGE, 1], np.int32)
+    r = np.random.default_rng(5)
+    kn = r.standard_normal((B, 1, HKV, D)).astype(np.float32)
+    vn = r.standard_normal((B, 1, HKV, D)).astype(np.float32)
+    jkv = jattn.PagedKV(jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+                        jnp.asarray(lens))
+    tkv = tattn.PagedKV(_t(kp.copy()), _t(vp.copy()), _t(tbl), _t(lens))
+    np.testing.assert_array_equal(
+        tattn.gather_pages(tkv.k_pool, tkv.block_table).numpy(),
+        np.asarray(jattn.gather_pages(jkv.k_pool, jkv.block_table)))
+    jn = jattn.paged_append(jkv, jnp.asarray(kn), jnp.asarray(vn))
+    tn = tattn.paged_append(tkv, _t(kn), _t(vn))
+    assert tn.k_pool is tkv.k_pool              # written in place
+    np.testing.assert_array_equal(tn.k_pool.numpy(), np.asarray(jn.k_pool))
+    np.testing.assert_array_equal(tn.v_pool.numpy(), np.asarray(jn.v_pool))
+    np.testing.assert_array_equal(tn.length.numpy(), np.asarray(jn.length))
 
 
 def test_paged_decode_attention_matches_jax_model():
@@ -180,7 +300,20 @@ def test_flash_plain_matches_dense_oracle(causal, softcap, gqa):
 
 
 def test_wrappers_reject_bad_inputs():
+    sq, skp, svp, stbl, slens = map(_t, _slot_inputs())
+    with pytest.raises(ValueError):
+        paged_attention(sq, skp[:3], svp[:3], stbl, slens)
+    with pytest.raises(ValueError):
+        paged_attention(sq, skp, svp, stbl[:, :2].contiguous(), slens)
+    with pytest.raises(ValueError):
+        paged_attention(sq, skp, svp, stbl, slens, table_residency="vmem")
+    with pytest.raises(TypeError):
+        paged_attention(sq.double(), skp, svp, stbl, slens)
     q, kp, vp, tbl, lens = map(_t, _paged_inputs())
+    with pytest.raises(ValueError):
+        paged_attention(q, kp, vp, tbl, lens)          # a global pool
+    with pytest.raises(ValueError):
+        paged_attention_global(q, kp, vp, tbl, lens, table_residency="vmem")
     with pytest.raises(TypeError):
         paged_attention_global(q.double(), kp, vp, tbl, lens)
     with pytest.raises(TypeError):
@@ -204,9 +337,12 @@ def test_cpu_path_launches_no_kernel():
     reset_launch_counts()
     q, kp, vp, tbl, lens = map(_t, _paged_inputs())
     paged_attention_global(q, kp, vp, tbl, lens)
+    paged_attention_global(q, kp, vp, tbl, lens, table_residency="hbm")
+    paged_attention(*map(_t, _slot_inputs()))
     x = torch.zeros(1, 8, 4, 16)
     flash_attention_fwd(x, x, x)
     assert launch_counts() == {"paged_attention_global": 0,
+                               "paged_attention": 0,
                                "flash_attention_fwd": 0}
 
 
@@ -220,6 +356,22 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
     ref = paged_attention_global_ref(q, kp, vp, tbl, lens, softcap=30.0)
     torch.cuda.synchronize()
     assert paged_attention_global.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("residency", ["smem", "hbm"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_slot_kernel_matches_plain_on_card(cuda, dtype, tol, residency):
+    dt = getattr(torch, dtype)
+    q, kp, vp, tbl, lens = (_t(a).to(cuda) for a in _slot_inputs(6))
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, tbl, lens, softcap=30.0,
+                          table_residency=residency)
+    ref = paged_attention_ref(q, kp, vp, tbl, lens, softcap=30.0)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert (out[2] == 0).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 

@@ -1,8 +1,9 @@
 """Smoke llama3.2-1b (fp32) in the port against the JAX model, with the same
 weights (JAX ``init_params`` -> numpy -> ``from_jax_params``): prefill
 logits over right-padded rows, a prefix-continuation prefill through
-``write_tables``, a decode step, and the shared KV pools after each, at
-atol 1e-4 / rtol 1e-4."""
+``write_tables``, a decode step, and the shared KV pools after each; then
+the per-slot layout of the copy baseline (each branch of its prefill write,
+then a decode step), at atol 1e-4 / rtol 1e-4."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,10 +18,13 @@ from repro.models import forward_decode as j_decode  # noqa: E402
 from repro.models import forward_prefill as j_prefill  # noqa: E402
 from repro.models import init_cache as j_init_cache  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
+from repro.models.model import \
+    set_cache_length as j_set_cache_length  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import (forward_decode, forward_prefill,  # noqa: E402
                                 from_jax_params, init_cache, init_params)
-from repro_torch.models.model import install_tables  # noqa: E402
+from repro_torch.models.model import (install_tables,  # noqa: E402
+                                      set_cache_length)
 from repro_torch.models.params import count_params, model_specs  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -176,3 +180,74 @@ def test_from_jax_params_rejects_wrong_shapes(models):
     tree["final_ln"] = tree["final_ln"][:-1]
     with pytest.raises(ValueError):
         from_jax_params(tcfg, tree, device="cpu")
+
+
+# ------------------------------------------------ per-slot (copy-mode) layout
+
+def _slot_caches(models, batch, max_len, seed):
+    """JAX and port per-slot caches of ``batch`` slots, both mapped through
+    the same random permutation tables, lengths 0."""
+    from repro.core.serving.engine import _map_tables as j_map_tables
+    cfg, tcfg, _, _ = models
+    n_pages = max_len // PAGE
+    r = np.random.default_rng(seed)
+    tables = np.stack([r.permutation(n_pages)
+                       for _ in range(batch)]).astype(np.int32)
+    zeros = np.zeros((batch,), np.int32)
+    jcache = j_map_tables(j_init_cache(cfg, batch, max_len, PAGE,
+                                       per_seq=True), tables, zeros)
+    tcache = install_tables(init_cache(tcfg, batch, max_len, PAGE,
+                                       device="cpu"),
+                            torch.from_numpy(tables), torch.from_numpy(zeros))
+    return jcache, tcache, tables
+
+
+# (max_len, S, lengths): right-padded rows with and without a row longer
+# than the pool, then one exact-length prompt shorter than, as long as and
+# longer than the pool (the ``eff > S``, ``eff == S`` and ``eff < S``
+# branches).
+SLOT_PREFILLS = [(32, 16, (12, 7, 16)), (16, 24, (24, 9, 20)),
+                 (32, 13, None), (32, 32, None), (16, 21, None)]
+
+
+@pytest.mark.parametrize("max_len,S,lengths", SLOT_PREFILLS)
+def test_slot_prefill_write_then_decode(models, max_len, S, lengths):
+    """Per-slot prefill through permutation tables, then one decode step with
+    an inactive (length-0) slot beside the live ones: logits, pools and
+    lengths against the JAX model."""
+    cfg, tcfg, jp, tp = models
+    B = len(lengths) if lengths is not None else 1
+    jcache, tcache, tables = _slot_caches(models, B + 1, max_len, S)
+    r = np.random.default_rng(S)
+    tokens = r.integers(0, cfg.vocab_size, (B + 1, S)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(tokens)}
+    tb = {"tokens": torch.from_numpy(tokens).long()}
+    if lengths is not None:
+        lens = np.array(lengths + (0,), np.int32)
+        tokens[np.arange(S)[None, :] >= lens[:, None]] = 0
+        jb = {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lens)}
+        tb = {"tokens": torch.from_numpy(tokens).long(),
+              "lengths": torch.from_numpy(lens)}
+    jl, jcache = j_prefill(cfg, jp, jb, jcache)
+    tl, tcache = forward_prefill(tcfg, tp, tb, tcache)
+    live = slice(0, B)
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], **TOL)
+    jk, jv = _j_pools(jcache)
+    tk, tv = _t_pools(tcache)
+    np.testing.assert_allclose(tk, jk, **TOL)
+    np.testing.assert_allclose(tv, jv, **TOL)
+    # one decode step; the last slot is inactive (length 0)
+    kv_len = (np.array(lengths + (0,), np.int32) if lengths is not None
+              else np.array([S, 0], np.int32))
+    tok = r.integers(0, cfg.vocab_size, (B + 1, 1)).astype(np.int32)
+    jl, jcache = j_decode(cfg, jp, jnp.asarray(tok), jnp.asarray(kv_len),
+                          j_set_cache_length(jcache, jnp.asarray(kv_len)))
+    tl, tc = forward_decode(tcfg, tp, torch.from_numpy(tok).long(),
+                            torch.from_numpy(kv_len),
+                            set_cache_length(tcache, torch.from_numpy(kv_len)))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    jk, jv = _j_pools(jcache)
+    tk, tv = _t_pools(tc)
+    np.testing.assert_allclose(tk, jk, **TOL)
+    np.testing.assert_allclose(tv, jv, **TOL)
+    assert tc[0].length.tolist() == (kv_len + 1).tolist()
