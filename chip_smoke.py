@@ -18,6 +18,11 @@ Phases (each prints one line; any failure exits non-zero):
   4. the smoke-reduced llama3.2-1b (fp32) served on cuda and on cpu over the
      same seeded workload, in zero_copy and in copy mode: greedy tokens must
      be identical, and copy must equal zero_copy without prefix sharing.
+  5. the paper's kernels (gemm, gesummv, axpy, heat3d) through their entry
+     points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
+     at sizes far past the 50 MB L2, fp32 and bf16: each output against its
+     plain version at the stated tolerance, launch counts, CUDA-event times
+     of kernel, plain version and library yardstick, and each bound.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -606,6 +611,156 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# ------------------------------------------------------------------ phase 5
+
+# The paper's sizes (repro/core/simulator/paper_targets.py SIZES) and sizes
+# whose working sets are far past the H100's 50 MB L2.
+PAPER_SIZES = {"gemm": 128, "gesummv": 512, "axpy": 32768, "heat3d": 64}
+H100_SIZES = {"gemm": 8192, "gesummv": 16384, "axpy": 1 << 28, "heat3d": 512}
+HEAT3D_STEPS = 10
+GESUMMV_ALPHA, GESUMMV_BETA, AXPY_A = 1.5, -0.5, 2.5
+
+
+def _paper_tol(name: str, dtype, k: int) -> tuple:
+    """(atol, rtol) of |kernel - plain| <= atol + rtol * |plain|. axpy and
+    heat3d round as their plain versions do: bit-equal. gemm and gesummv
+    sum K products in fp32 in another order (and, for bf16 gemm, on the
+    tensor cores). In fp32 the roundings of K partial sums, each up to
+    about sqrt(K) in size, add up to about 2**-24 * K: 2**-20 * K leaves
+    16x room. In bf16 the output may round the other way: one rounding
+    step (2**-7 of it) plus half a step at its typical size, sqrt(K)."""
+    if name in ("axpy", "heat3d_step"):
+        return 0.0, 0.0
+    if dtype == torch.float32:
+        return 2.0 ** -20 * k, 1e-5
+    return 2.0 ** -8 * k ** 0.5, 2.0 ** -7
+
+
+def _paper_case(name: str, size: int, dtype, g) -> dict:
+    """Inputs, entry point, kernel wrapper, plain version, library call,
+    bytes and flops of one paper-kernel case, on the card."""
+    from repro_torch.kernels import axpy, gemm, gesummv, heat3d_step
+    from repro_torch.kernels.axpy.ops import axpy_op
+    from repro_torch.kernels.axpy.ref import axpy_ref
+    from repro_torch.kernels.gemm.ops import matmul
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.gesummv.ops import gesummv_op
+    from repro_torch.kernels.gesummv.ref import gesummv_ref
+    from repro_torch.kernels.heat3d.ops import heat3d
+    from repro_torch.kernels.heat3d.ref import C0, C1, heat3d_step_ref
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    it = torch.tensor([], dtype=dtype).element_size()
+    if name == "gemm":
+        a, b = mk(size, size), mk(size, size)
+        return dict(k=size, entry=lambda: matmul(a, b), launches=1,
+                    kernel=lambda: gemm(a, b), plain=lambda: gemm_ref(a, b),
+                    library=lambda: torch.matmul(a, b),
+                    nbytes=3 * size * size * it, flops=2 * size ** 3)
+    if name == "gesummv":
+        A, B, x = mk(size, size), mk(size, size), mk(size)
+        args = (GESUMMV_ALPHA, GESUMMV_BETA, A, B, x)
+        return dict(k=size, entry=lambda: gesummv_op(*args), launches=1,
+                    kernel=lambda: gesummv(*args),
+                    plain=lambda: gesummv_ref(*args),
+                    two_mv=lambda: (torch.mv(A, x), torch.mv(B, x)),
+                    nbytes=(2 * size * size + 2 * size) * it,
+                    flops=4 * size * size + 3 * size)
+    if name == "axpy":
+        x, y = mk(size), mk(size)
+        return dict(k=1, entry=lambda: axpy_op(AXPY_A, x, y), launches=1,
+                    kernel=lambda: axpy(AXPY_A, x, y),
+                    plain=lambda: axpy_ref(AXPY_A, x, y),
+                    library=lambda: torch.add(y, x, alpha=AXPY_A),
+                    nbytes=3 * size * it, flops=2 * size)
+    u = mk(size, size, size)
+    w = torch.zeros(1, 1, 3, 3, 3, device="cuda", dtype=dtype)
+    w[0, 0, 1, 1, 1] = C0
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[(0, 0) + idx] = C1
+    u5 = u[None, None]
+
+    def plain_steps():
+        v = u
+        for _ in range(HEAT3D_STEPS):
+            v = heat3d_step_ref(v)
+        return v
+    return dict(k=1, entry=lambda: heat3d(u, steps=HEAT3D_STEPS),
+                launches=HEAT3D_STEPS, entry_plain=plain_steps,
+                kernel=lambda: heat3d_step(u), plain=lambda: heat3d_step_ref(u),
+                library=lambda: torch.nn.functional.conv3d(u5, w),
+                nbytes=2 * size ** 3 * it, flops=8 * (size - 2) ** 3)
+
+
+def phase_paper_kernels() -> dict:
+    """Phase 5: each paper kernel's entry point on the card, counted, and
+    held against its plain version; then kernel, plain and library timed.
+    Counts are reset just before each entry-point call and read just after
+    it; the comparison and timing launches come after that read."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    names = {"gemm": "gemm", "gesummv": "gesummv", "axpy": "axpy",
+             "heat3d": "heat3d_step"}
+    res = {}
+    for label, sizes in (("paper", PAPER_SIZES), ("h100", H100_SIZES)):
+        for short, name in names.items():
+            size = sizes[short]
+            for dtype in (torch.float32, torch.bfloat16):
+                case = _paper_case(short, size, dtype, g)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                out = case["entry"]()
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                assert launches[name] == case["launches"], launches
+                assert all(n == 0 for k, n in launches.items() if k != name), \
+                    launches
+                ref = case.get("entry_plain", case["plain"])()
+                torch.cuda.synchronize()
+                assert out.shape == ref.shape and out.dtype == ref.dtype
+                assert torch.isfinite(out).all(), f"{name}: non-finite"
+                atol, rtol = _paper_tol(name, dtype, case["k"])
+                diff = (out.float() - ref.float()).abs()
+                err = diff.max().item()
+                bad = int((diff > atol + rtol * ref.float().abs()).sum())
+                del diff, out, ref
+                assert bad == 0, (f"{name} {label} {dtype}: {bad} elements "
+                                  f"off, max abs err {err}")
+                big = label == "h100"
+                iters = 3 if (big and short == "gemm") else 20
+                warm = 1 if (big and short == "gemm") else 3
+                ms = cuda_ms(case["kernel"], warm, iters)
+                plain = cuda_ms(case["plain"], 1, min(iters, 5))
+                lib = (cuda_ms(case["library"], warm, iters)
+                       if "library" in case else None)
+                two_mv = (cuda_ms(case["two_mv"], warm, iters)
+                          if "two_mv" in case else None)
+                bound, by = _bound(case["nbytes"], case["flops"], dtype)
+                row = dict(size=size, dtype=str(dtype), launches=launches[name],
+                           max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
+                           plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, bytes=case["nbytes"],
+                           flops=case["flops"])
+                if two_mv is not None:
+                    row["two_mv_ms"] = two_mv
+                if short == "heat3d" and dtype == torch.float32:
+                    # the yardstick computes the same stencil on the interior
+                    conv = case["library"]()[0, 0]
+                    row["library_max_abs_err"] = (
+                        conv - case["plain"]()[1:-1, 1:-1, 1:-1]).abs().max().item()
+                    assert row["library_max_abs_err"] <= 1e-5, row
+                if short == "heat3d":
+                    row["steps"] = HEAT3D_STEPS
+                    row["ms_all_steps"] = cuda_ms(case["entry"], 1, 3)
+                emit(f"phase5 paper {name}", sizes=label, **row)
+                res[(name, label, dtype)] = row
+                del case
+                torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -626,6 +781,7 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(*served)
     phase_cross_check()
+    paper = phase_paper_kernels()
     dec, fl = res[("decode", torch.bfloat16)], res[("flash", torch.bfloat16)]
     slot = res[("slot", torch.bfloat16)]
     kernels = [
@@ -659,6 +815,29 @@ def main(argv=None) -> int:
          "bound_ms": fl["bound"], "bound_by": fl["by"],
          "library_ms": fl["sdpa"]},
     ]
+    replaces = {"gemm": "src/repro/kernels/gemm/kernel.py:35",
+                "gesummv": "src/repro/kernels/gesummv/kernel.py:26",
+                "axpy": "src/repro/kernels/axpy/kernel.py:15",
+                "heat3d_step": "src/repro/kernels/heat3d/kernel.py:25"}
+    for name, where in replaces.items():
+        main_row = paper[(name, "h100", torch.bfloat16)]
+        rows = [r for (n, _, _), r in paper.items() if n == name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name.split('_')[0]}.cu",
+            "replaces": where,
+            "launches": sum(r["launches"] for r in rows),
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+            "size": main_row["size"], "dtype": main_row["dtype"],
+            **({"two_mv_ms": main_row["two_mv_ms"]}
+               if "two_mv_ms" in main_row else {}),
+            "cases": [{k: r[k] for k in ("size", "dtype", "launches",
+                                         "max_abs_err", "ms", "plain_ms",
+                                         "library_ms", "two_mv_ms",
+                                         "bound_ms", "bound_by") if k in r}
+                      for r in rows]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

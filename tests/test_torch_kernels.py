@@ -343,7 +343,8 @@ def test_cpu_path_launches_no_kernel():
     flash_attention_fwd(x, x, x)
     assert launch_counts() == {"paged_attention_global": 0,
                                "paged_attention": 0,
-                               "flash_attention_fwd": 0}
+                               "flash_attention_fwd": 0, "gemm": 0,
+                               "gesummv": 0, "axpy": 0, "heat3d_step": 0}
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
