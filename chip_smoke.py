@@ -22,7 +22,10 @@ Phases (each prints one line; any failure exits non-zero):
      points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
      at sizes far past the 50 MB L2, fp32 and bf16: each output against its
      plain version at the stated tolerance, launch counts, CUDA-event times
-     of kernel, plain version and library yardstick, and each bound.
+     of kernel, plain version and library yardstick, and each bound. Then
+     mergesort (block_sort and the merge kernels) at n = 65536 and 2^26 in
+     fp32, bf16 and int32, plus NaN cases: bit for bit against its plain
+     version, as values against torch.sort, launch counts, times, bounds.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -615,8 +618,10 @@ def _to(tree, device):
 
 # The paper's sizes (repro/core/simulator/paper_targets.py SIZES) and sizes
 # whose working sets are far past the H100's 50 MB L2.
-PAPER_SIZES = {"gemm": 128, "gesummv": 512, "axpy": 32768, "heat3d": 64}
-H100_SIZES = {"gemm": 8192, "gesummv": 16384, "axpy": 1 << 28, "heat3d": 512}
+PAPER_SIZES = {"gemm": 128, "gesummv": 512, "axpy": 32768, "heat3d": 64,
+               "mergesort": 65536}
+H100_SIZES = {"gemm": 8192, "gesummv": 16384, "axpy": 1 << 28, "heat3d": 512,
+              "mergesort": 1 << 26}
 HEAT3D_STEPS = 10
 GESUMMV_ALPHA, GESUMMV_BETA, AXPY_A = 1.5, -0.5, 2.5
 
@@ -761,7 +766,181 @@ def phase_paper_kernels() -> dict:
     return res
 
 
+SORT_BLOCK = 1024
+SORT_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+# One compare-exchange counted as one operation at the fp32 rate outside the
+# tensor cores: a generous floor, far under the bytes bound at every size.
+SORT_OPS_PER_S = PEAK_FLOPS[torch.float32]
+SORT_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.int32: torch.int32}
+
+
+def _sort_input(n: int, dtype, g, nan: bool = False):
+    """Normals (x1000, rounded, for int32); a quarter of the places tied to
+    64 integer values; one in 16 from -0.0, +0.0, -inf, +inf (int32: 0,
+    -1 and the two extremes); with ``nan``, one NaN at n/3."""
+    dev = "cuda"
+    x = torch.randn(n, generator=g, device=dev)
+    if dtype == torch.int32:
+        x = (x * 1000).round()
+    ties = torch.rand(n, generator=g, device=dev) < 0.25
+    x = torch.where(ties, torch.randint(0, 64, (n,), generator=g,
+                                        device=dev).float(), x).to(dtype)
+    pool = (torch.tensor([0, -1, -2 ** 31, 2 ** 31 - 1], dtype=dtype,
+                         device=dev) if dtype == torch.int32 else
+            torch.tensor([-0.0, 0.0, -float("inf"), float("inf")],
+                         dtype=dtype, device=dev))
+    at = torch.rand(n, generator=g, device=dev) < 1 / 16
+    pick = torch.randint(0, 4, (n,), generator=g, device=dev)
+    x = torch.where(at, pool[pick], x)
+    if nan:
+        x[n // 3] = float("nan")
+    return x.contiguous()
+
+
+def _sort_case(label: str, n: int, dtype, g, nan: bool) -> dict:
+    """One mergesort case: the entry point counted and held bit for bit
+    against its plain version (and as values against torch.sort, without
+    NaN); then, without NaN, every time and bound."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mergesort.ops import (block_sort,
+                                                   launch_counts_of,
+                                                   merge_stage, merge_tile,
+                                                   mergesort, tile_of)
+    from repro_torch.kernels.mergesort.ref import (block_sort_ref,
+                                                   mergesort_ref, stages)
+    x = _sort_input(n, dtype, g, nan)
+    keep = x.clone()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = mergesort(x, block=SORT_BLOCK)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = launch_counts_of(n, SORT_BLOCK)
+    assert all(launches[k] == want.get(k, 0) for k in launches), \
+        (launches, want)
+    big = n >= 1 << 20
+    ref = None
+
+    def plain():
+        nonlocal ref
+        ref = mergesort_ref(x, SORT_BLOCK)
+    plain_ms = cuda_ms(plain, 0, 1) if big else cuda_ms(plain, 1, 3)
+    bits = SORT_BITS[dtype]
+    bit_equal = torch.equal(out.view(bits), ref.view(bits))
+    assert bit_equal, f"mergesort {label} {dtype} nan={nan}: not bit-equal"
+    assert torch.equal(x.view(bits), keep.view(bits)), "input written"
+    diff = (out.double() - ref.double()).abs()
+    err = torch.nan_to_num(diff, nan=0.0).max().item()
+    row = dict(n=n, dtype=str(dtype), block=SORT_BLOCK, nan=nan,
+               launches={k: launches[k] for k in want}, bit_equal=bit_equal,
+               max_abs_err=err, plain_ms=plain_ms)
+    if not nan:
+        row["equals_torch_sort"] = torch.equal(out, torch.sort(x).values)
+        assert row["equals_torch_sort"], f"mergesort {label} {dtype}"
+    del diff, out, ref
+    torch.cuda.empty_cache()
+    if nan:
+        return row
+    it = x.element_size()
+    one_pass = 2 * n * it / HBM_BYTES_PER_S * 1e3
+    total = sum(want.values())
+    tile = tile_of(n)
+    iters = 10 if big else 20
+    row.update(
+        ms=cuda_ms(lambda: block_sort(x, block=SORT_BLOCK), 3, iters),
+        block_sort_plain_ms=cuda_ms(lambda: block_sort_ref(x, SORT_BLOCK),
+                                    *((0, 1) if big else (1, 5))),
+        library_ms=cuda_ms(lambda: torch.sort(
+            x.view(-1, SORT_BLOCK), dim=1).values, 3, iters),
+        entry_ms=cuda_ms(lambda: mergesort(x, block=SORT_BLOCK), 2, iters),
+        sort_ms=cuda_ms(lambda: torch.sort(x).values, 3, iters),
+        entry_bound_ms=total * one_pass, entry_launches=total,
+        one_pass_ms=one_pass)
+    # block_sort: each element read and written once; n/2 compare-exchanges
+    # in each of the log2(B)(log2(B)+1)/2 stages of a block of B
+    stages_b = sum(range(1, SORT_BLOCK.bit_length()))
+    ops_ms = n // 2 * stages_b / SORT_OPS_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = max((one_pass, "bytes"),
+                                           (ops_ms, "operations"))
+    # one launch of each merge kernel alone, in place on a copy: the last
+    # level's stage at j = tile, then its tile merge
+    y = x.clone()
+    row.update(
+        merge_stage_ms=cuda_ms(lambda: merge_stage(
+            y, k=n, j=tile, block=SORT_BLOCK), 3, iters),
+        merge_stage_plain_ms=cuda_ms(lambda: stages(
+            y, n, SORT_BLOCK, tile, tile), 1, 3),
+        merge_tile_ms=cuda_ms(lambda: merge_tile(
+            y, k=n, block=SORT_BLOCK, tile=tile), 3, iters),
+        merge_tile_plain_ms=cuda_ms(lambda: stages(
+            y, n, SORT_BLOCK, tile // 2), 1, 3))
+    del y, x, keep
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mergesort() -> dict:
+    """Phase 5, mergesort: the entry point at the paper's size and at 2^26
+    in fp32, bf16 and int32, and with a NaN in fp32 and bf16 at the paper's
+    size. Counts are reset just before each entry-point call and read just
+    after it; the comparison and timing launches come after that read."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    res = {}
+    cases = [(label, sizes["mergesort"], dtype, False)
+             for label, sizes in (("paper", PAPER_SIZES), ("h100", H100_SIZES))
+             for dtype in SORT_DTYPES]
+    cases += [("paper", PAPER_SIZES["mergesort"], dtype, True)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for label, n, dtype, nan in cases:
+        row = _sort_case(label, n, dtype, g, nan)
+        emit("phase5 paper mergesort", sizes=label, **row)
+        res[(label, dtype, nan)] = row
+    return res
+
+
 # ------------------------------------------------------------------ main
+
+def _sort_rows(sort: dict) -> list:
+    """The kernels-line rows of block_sort and the merge kernels: fp32 at
+    2^26 as the main row, launches summed over phase 5's mergesort calls."""
+    main_row = sort[("h100", torch.float32, False)]
+    rows = list(sort.values())
+    cases = [{k: r[k] for k in ("n", "dtype", "nan", "launches",
+                                 "max_abs_err", "ms", "plain_ms",
+                                 "block_sort_plain_ms", "library_ms",
+                                 "entry_ms", "sort_ms", "bound_ms",
+                                 "entry_bound_ms", "merge_stage_ms",
+                                 "merge_tile_ms") if k in r}
+             for r in rows]
+    out = [{
+        "name": "block_sort", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mergesort.cu",
+        "replaces": "src/repro/kernels/mergesort/kernel.py:46",
+        "launches": sum(r["launches"]["block_sort"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"], "plain_ms": main_row["block_sort_plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"], "n": main_row["n"],
+        "dtype": main_row["dtype"],
+        "mergesort_ms": main_row["entry_ms"],
+        "mergesort_plain_ms": main_row["plain_ms"],
+        "mergesort_bound_ms": main_row["entry_bound_ms"],
+        "torch_sort_ms": main_row["sort_ms"], "cases": cases}]
+    for name in ("merge_stage", "merge_tile"):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mergesort.cu",
+            "replaces": "src/repro/kernels/mergesort/ops.py:16",
+            "launches": sum(r["launches"][name] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row[f"{name}_ms"],
+            "plain_ms": main_row[f"{name}_plain_ms"],
+            "bound_ms": main_row["one_pass_ms"], "bound_by": "bytes",
+            "library_ms": None, "n": main_row["n"],
+            "dtype": main_row["dtype"]})
+    return out
+
 
 def main(argv=None) -> int:
     import argparse
@@ -782,6 +961,7 @@ def main(argv=None) -> int:
         phase_profile(*served)
     phase_cross_check()
     paper = phase_paper_kernels()
+    sort = phase_mergesort()
     dec, fl = res[("decode", torch.bfloat16)], res[("flash", torch.bfloat16)]
     slot = res[("slot", torch.bfloat16)]
     kernels = [
@@ -838,6 +1018,7 @@ def main(argv=None) -> int:
                                          "library_ms", "two_mv_ms",
                                          "bound_ms", "bound_by") if k in r}
                       for r in rows]})
+    kernels += _sort_rows(sort)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

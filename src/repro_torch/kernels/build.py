@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("paged_attention", "flash_attention", "gemm", "gesummv", "axpy",
-           "heat3d")
+           "heat3d", "mergesort")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

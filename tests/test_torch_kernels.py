@@ -344,7 +344,9 @@ def test_cpu_path_launches_no_kernel():
     assert launch_counts() == {"paged_attention_global": 0,
                                "paged_attention": 0,
                                "flash_attention_fwd": 0, "gemm": 0,
-                               "gesummv": 0, "axpy": 0, "heat3d_step": 0}
+                               "gesummv": 0, "axpy": 0, "heat3d_step": 0,
+                               "block_sort": 0, "merge_stage": 0,
+                               "merge_tile": 0}
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
