@@ -801,12 +801,14 @@ def _sort_input(n: int, dtype, g, nan: bool = False):
 def _sort_case(label: str, n: int, dtype, g, nan: bool) -> dict:
     """One mergesort case: the entry point counted and held bit for bit
     against its plain version (and as values against torch.sort, without
-    NaN); then, without NaN, every time and bound."""
+    NaN); then, without NaN, every time and bound; with a NaN at 2^26, the
+    entry point's time (its tiles and passes with the NaN take the exact
+    compare)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.mergesort.ops import (block_sort,
+    from repro_torch.kernels.mergesort.ops import (R, _sort_tiles, block_sort,
                                                    launch_counts_of,
                                                    merge_stage, merge_tile,
-                                                   mergesort, tile_of)
+                                                   mergesort, plan, tile_of)
     from repro_torch.kernels.mergesort.ref import (block_sort_ref,
                                                    mergesort_ref, stages)
     x = _sort_input(n, dtype, g, nan)
@@ -832,21 +834,26 @@ def _sort_case(label: str, n: int, dtype, g, nan: bool) -> dict:
     assert torch.equal(x.view(bits), keep.view(bits)), "input written"
     diff = (out.double() - ref.double()).abs()
     err = torch.nan_to_num(diff, nan=0.0).max().item()
+    it = x.element_size()
+    one_pass = 2 * n * it / HBM_BYTES_PER_S * 1e3
+    total = sum(want.values())
+    tile = tile_of(n)
+    iters = 10 if big else 20
     row = dict(n=n, dtype=str(dtype), block=SORT_BLOCK, nan=nan,
                launches={k: launches[k] for k in want}, bit_equal=bit_equal,
-               max_abs_err=err, plain_ms=plain_ms)
+               max_abs_err=err, plain_ms=plain_ms, tile=tile, r=R,
+               passes=want["merge_stage"], entry_launches=total,
+               entry_bound_ms=total * one_pass, one_pass_ms=one_pass)
     if not nan:
         row["equals_torch_sort"] = torch.equal(out, torch.sort(x).values)
         assert row["equals_torch_sort"], f"mergesort {label} {dtype}"
     del diff, out, ref
     torch.cuda.empty_cache()
     if nan:
+        if big:
+            row["entry_ms"] = cuda_ms(
+                lambda: mergesort(x, block=SORT_BLOCK), 2, iters)
         return row
-    it = x.element_size()
-    one_pass = 2 * n * it / HBM_BYTES_PER_S * 1e3
-    total = sum(want.values())
-    tile = tile_of(n)
-    iters = 10 if big else 20
     row.update(
         ms=cuda_ms(lambda: block_sort(x, block=SORT_BLOCK), 3, iters),
         block_sort_plain_ms=cuda_ms(lambda: block_sort_ref(x, SORT_BLOCK),
@@ -854,23 +861,30 @@ def _sort_case(label: str, n: int, dtype, g, nan: bool) -> dict:
         library_ms=cuda_ms(lambda: torch.sort(
             x.view(-1, SORT_BLOCK), dim=1).values, 3, iters),
         entry_ms=cuda_ms(lambda: mergesort(x, block=SORT_BLOCK), 2, iters),
-        sort_ms=cuda_ms(lambda: torch.sort(x).values, 3, iters),
-        entry_bound_ms=total * one_pass, entry_launches=total,
-        one_pass_ms=one_pass)
+        sort_ms=cuda_ms(lambda: torch.sort(x).values, 3, iters))
     # block_sort: each element read and written once; n/2 compare-exchanges
     # in each of the log2(B)(log2(B)+1)/2 stages of a block of B
     stages_b = sum(range(1, SORT_BLOCK.bit_length()))
     ops_ms = n // 2 * stages_b / SORT_OPS_PER_S * 1e3
     row["bound_ms"], row["bound_by"] = max((one_pass, "bytes"),
                                            (ops_ms, "operations"))
-    # one launch of each merge kernel alone, in place on a copy: the last
-    # level's stage at j = tile, then its tile merge
+    # the launches of the full sort alone, in place on a copy: its block
+    # sort (every level up to the tile), the last level's first pass (the
+    # flip and R stages) and second pass where it has one, and its tile
     y = x.clone()
+    passes = [s for s in plan(n, SORT_BLOCK, tile, True) if s[0] ==
+              "merge_stage" and s[1] == n]
+    row["ladder_block_sort_ms"] = cuda_ms(lambda: _sort_tiles(
+        x, y, SORT_BLOCK, tile, min(tile, n)), 3, iters)
+    for name, step in zip(("merge_stage", "merge_stage_noflip"), passes):
+        _, k, j_hi, j_lo, flip = step
+        row[f"{name}_ms"] = cuda_ms(lambda: merge_stage(
+            y, k=k, j_hi=j_hi, j_lo=j_lo, block=SORT_BLOCK, flip=flip), 3,
+            iters)
+        row[f"{name}_stages"] = (j_hi // j_lo).bit_length()
+        row[f"{name}_plain_ms"] = cuda_ms(lambda: stages(
+            y, k, SORT_BLOCK, j_hi, j_lo, flip), 1, 3)
     row.update(
-        merge_stage_ms=cuda_ms(lambda: merge_stage(
-            y, k=n, j=tile, block=SORT_BLOCK), 3, iters),
-        merge_stage_plain_ms=cuda_ms(lambda: stages(
-            y, n, SORT_BLOCK, tile, tile), 1, 3),
         merge_tile_ms=cuda_ms(lambda: merge_tile(
             y, k=n, block=SORT_BLOCK, tile=tile), 3, iters),
         merge_tile_plain_ms=cuda_ms(lambda: stages(
@@ -883,7 +897,7 @@ def _sort_case(label: str, n: int, dtype, g, nan: bool) -> dict:
 def phase_mergesort() -> dict:
     """Phase 5, mergesort: the entry point at the paper's size and at 2^26
     in fp32, bf16 and int32, and with a NaN in fp32 and bf16 at the paper's
-    size. Counts are reset just before each entry-point call and read just
+    size and in fp32 at 2^26. Counts are reset just before each entry-point call and read just
     after it; the comparison and timing launches come after that read."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     res = {}
@@ -892,6 +906,7 @@ def phase_mergesort() -> dict:
              for dtype in SORT_DTYPES]
     cases += [("paper", PAPER_SIZES["mergesort"], dtype, True)
               for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(("h100", H100_SIZES["mergesort"], torch.float32, True))
     for label, n, dtype, nan in cases:
         row = _sort_case(label, n, dtype, g, nan)
         emit("phase5 paper mergesort", sizes=label, **row)
@@ -906,11 +921,12 @@ def _sort_rows(sort: dict) -> list:
     2^26 as the main row, launches summed over phase 5's mergesort calls."""
     main_row = sort[("h100", torch.float32, False)]
     rows = list(sort.values())
-    cases = [{k: r[k] for k in ("n", "dtype", "nan", "launches",
-                                 "max_abs_err", "ms", "plain_ms",
+    cases = [{k: r[k] for k in ("n", "dtype", "nan", "launches", "tile", "r",
+                                 "passes", "max_abs_err", "ms", "plain_ms",
                                  "block_sort_plain_ms", "library_ms",
                                  "entry_ms", "sort_ms", "bound_ms",
-                                 "entry_bound_ms", "merge_stage_ms",
+                                 "entry_bound_ms", "ladder_block_sort_ms",
+                                 "merge_stage_ms", "merge_stage_noflip_ms",
                                  "merge_tile_ms") if k in r}
              for r in rows]
     out = [{

@@ -8,19 +8,23 @@ TPU knobs and have no counterpart here. Both return a new tensor and never
 write their input.
 
 On the card the network of the plain versions runs as three kernels, with
-the same pairs in the same order of levels and stages:
+the same pairs in the same order of levels and stages (``plan`` lists the
+launches):
 
-- ``block_sort`` (its ``.launches``): one CTA per tile of ``TILE``
-  elements in shared memory runs levels 2..min(block, TILE);
-- ``merge_stage``: one stage at a stride j >= TILE over the whole array;
-  the first stage of a ladder level reads its upper half mirrored, which
-  is the level's flip;
-- ``merge_tile``: the stages j < TILE of one level, a tile per CTA.
+- ``block_sort`` (its ``.launches``): one CTA per tile (``tile_of``: TILE
+  elements, or a small tile where TILE does not divide n) runs every level
+  that fits a tile, 2..min(tile, block) for the block sort and, in a full
+  sort, also the ladder's levels up to the tile;
+- ``merge_stage``: one pass over the whole array that runs up to ``R``
+  consecutive stages j_hi..j_lo >= tile of one level in registers; a
+  ladder level's first pass also does the level's flip;
+- ``merge_tile``: the stages j < tile of one level above the tile, a tile
+  per CTA.
 
-Levels above the tile (of the block sort where block > TILE, and of the
-ladder) are ``merge_stage`` launches down to j = TILE, then one
-``merge_tile``. ``merge_stage`` and ``merge_tile`` work in place on the
-sort's own output and count their launches too.
+Each unit of work (a tile, a pass's thread) compares on unsigned keys
+where its elements hold no NaN and exactly where they do, so the output is
+the same bits either way. ``merge_stage`` and ``merge_tile`` work in place
+on the sort's own output and count their launches too.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ import torch
 from repro_torch.kernels.mergesort.ref import (block_sort_ref, mergesort_ref,
                                                stages)
 
-TILE = 8192       # elements a CTA sorts in shared memory (kMaxTile in .cu)
+TILE = 16384      # elements a CTA sorts (kMaxTile in .cu)
+SMALL_TILE = 512  # the largest other tile (kSmallTile in .cu)
+R = 4             # stages a merge_stage pass fuses (kMaxStages in .cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _fns = {}
 
@@ -44,8 +50,8 @@ def _launch_fn(name: str):
         fn = getattr(load("mergesort"), f"mergesort_{name}_launch")
         ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = {"block_sort": [p, p, i, ll, i, i, ll, p],
-                       "merge_stage": [p, i, ll, ll, ll, ll, i, p],
-                       "merge_tile": [p, i, ll, i, ll, ll, i, p]}[name]
+                       "merge_stage": [p, i, ll, ll, ll, ll, ll, i, p],
+                       "merge_tile": [p, i, ll, i, ll, ll, p]}[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -81,27 +87,29 @@ def _check(x, block: int, *, pow2_n: bool) -> int:
 
 
 def tile_of(n: int) -> int:
-    """The tile a CTA holds: TILE, or the largest power of two dividing n
-    where that is smaller."""
-    return min(TILE, n & -n)
+    """The tile a CTA holds: TILE where it divides n, else the largest
+    power of two up to SMALL_TILE that does."""
+    return TILE if n % TILE == 0 else min(SMALL_TILE, n & -n)
 
 
-def plan(n: int, block: int, tile: int, ladder: bool
+def plan(n: int, block: int, tile: int, ladder: bool, r: int = R
          ) -> Iterator[Tuple]:
-    """The kernel launches of the sort of n elements: ("block_sort", kmax),
-    ("merge_stage", k, j, flip) and ("merge_tile", k, flip), in order.
+    """The kernel launches of the sort of n elements, in order:
+    ("block_sort", kmax) for the levels 2..kmax that fit a tile,
+    ("merge_stage", k, j_hi, j_lo, flip) for up to ``r`` stages of level k
+    at strides >= tile, and ("merge_tile", k) for the rest of level k.
+    Levels above ``block`` are the ladder's, whose first stage is flipped.
     Without ``ladder``, the block sort alone."""
-    if min(block, tile) >= 2:
-        yield ("block_sort", min(block, tile))
-    levels = [(k, False) for k in _pow2_range(2 * tile, block)]
-    if ladder:
-        levels += [(k, True) for k in _pow2_range(2 * block, n)]
-    for k, flip in levels:
-        j = k // 2
-        while j >= tile:
-            yield ("merge_stage", k, j, flip and j == k // 2)
-            j //= 2
-        yield ("merge_tile", k, flip and j == k // 2)
+    top = n if ladder else block
+    if min(tile, top) >= 2:
+        yield ("block_sort", min(tile, top))
+    for k in _pow2_range(2 * tile, top):
+        j_hi, flip = k // 2, k > block
+        while j_hi >= tile:
+            j_lo = max(tile, j_hi >> (r - 1))
+            yield ("merge_stage", k, j_hi, j_lo, flip)
+            j_hi, flip = j_lo // 2, False
+        yield ("merge_tile", k)
 
 
 def _pow2_range(lo: int, hi: int) -> Iterator[int]:
@@ -132,11 +140,12 @@ def _raise_if(err: int, name: str) -> None:
 
 
 def _sort_tiles(x, out, block: int, tile: int, kmax: int) -> None:
-    """Levels 2..kmax of the block sort, each tile of ``tile`` elements of x
-    sorted into out: the ``block_sort`` kernel."""
+    """Levels 2..kmax of the network (kmax <= tile; the levels above
+    ``block`` flipped), each tile of ``tile`` elements of x sorted into
+    out: the ``block_sort`` kernel."""
     if x.device.type == "cpu":
         for k in _pow2_range(2, kmax):
-            x = stages(x, k, block, k // 2)
+            x = stages(x, k, block, k // 2, flip=k > block)
         out.copy_(x)
         return
     _raise_if(_launch_fn("block_sort")(
@@ -145,42 +154,43 @@ def _sort_tiles(x, out, block: int, tile: int, kmax: int) -> None:
     block_sort.launches += 1
 
 
-def merge_stage(x: torch.Tensor, *, k: int, j: int, block: int,
+def merge_stage(x: torch.Tensor, *, k: int, j_hi: int, j_lo: int, block: int,
                 flip: bool = False) -> None:
-    """Stage j of level k of the network, over all of x, in place (see
-    ``ref.stages``); with ``flip`` (j == k/2) the level's odd half-blocks
-    are read reversed. On the card, one launch of the ``merge_stage``
-    kernel."""
+    """Stages j = j_hi, j_hi/2, .., j_lo of level k, over all of x, in
+    place (see ``ref.stages``); with ``flip`` (j_hi == k/2) the level's odd
+    half-blocks are read reversed first. On the card, one launch of the
+    ``merge_stage`` kernel: one pass of at most 4 stages, j_lo at least two
+    16-byte vectors, x 16-byte aligned."""
     if x.device.type == "cpu":
-        x.copy_(stages(x, k, block, j, j, flip))
+        x.copy_(stages(x, k, block, j_hi, j_lo, flip))
         return
     _raise_if(_launch_fn("merge_stage")(
-        x.data_ptr(), _DTYPES[x.dtype], x.numel(), k, j, block, int(flip),
-        _stream(x)), "merge_stage")
+        x.data_ptr(), _DTYPES[x.dtype], x.numel(), k, j_hi, j_lo, block,
+        int(flip), _stream(x)), "merge_stage")
     merge_stage.launches += 1
 
 
-def merge_tile(x: torch.Tensor, *, k: int, block: int, tile: int,
-               flip: bool = False) -> None:
-    """Stages j = min(k, tile)/2..1 of level k, in place, each tile of
-    ``tile`` elements on its own; with ``flip`` (k <= tile) the level's odd
-    half-blocks are read reversed. On the card, one launch of the
+def merge_tile(x: torch.Tensor, *, k: int, block: int, tile: int) -> None:
+    """Stages j = tile/2..1 of level k > tile, in place, each tile of
+    ``tile`` elements on its own. On the card, one launch of the
     ``merge_tile`` kernel."""
     if x.device.type == "cpu":
-        x.copy_(stages(x, k, block, min(k, tile) // 2, 1, flip))
+        x.copy_(stages(x, k, block, tile // 2, 1))
         return
     _raise_if(_launch_fn("merge_tile")(
-        x.data_ptr(), _DTYPES[x.dtype], x.numel(), tile, k, block, int(flip),
+        x.data_ptr(), _DTYPES[x.dtype], x.numel(), tile, k, block,
         _stream(x)), "merge_tile")
     merge_tile.launches += 1
 
 
-def network(x: torch.Tensor, block: int, tile: int, ladder: bool
-            ) -> torch.Tensor:
+def network(x: torch.Tensor, block: int, tile: int, ladder: bool,
+            r: int = R) -> torch.Tensor:
     """The sort as the kernels run it, launch by launch (``plan``), into a
     new tensor. On the CPU each launch is its kernel's plain version, which
     holds the plan against ``block_sort_ref`` / ``mergesort_ref``."""
-    steps = list(plan(x.numel(), block, tile, ladder))
+    steps = list(plan(x.numel(), block, tile, ladder, r))
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        x = x.clone()                   # the kernels read 16-byte vectors
     # the block sort writes all of out; without it the merges start from x
     out = (torch.empty_like(x) if steps and steps[0][0] == "block_sort"
            else x.clone())
@@ -188,11 +198,11 @@ def network(x: torch.Tensor, block: int, tile: int, ladder: bool
         if step[0] == "block_sort":
             _sort_tiles(x, out, block, tile, step[1])
         elif step[0] == "merge_stage":
-            _, k, j, flip = step
-            merge_stage(out, k=k, j=j, block=block, flip=flip)
+            _, k, j_hi, j_lo, flip = step
+            merge_stage(out, k=k, j_hi=j_hi, j_lo=j_lo, block=block,
+                        flip=flip)
         else:
-            _, k, flip = step
-            merge_tile(out, k=k, block=block, tile=tile, flip=flip)
+            merge_tile(out, k=step[1], block=block, tile=tile)
     return out
 
 

@@ -85,6 +85,42 @@ def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _pick(a, b, False)
 
 
+def to_key(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned key the kernels compare where a unit of work holds no
+    NaN, as int64: the float's bits with the sign bit set where it was
+    clear and all bits flipped where it was set (-0.0 just below +0.0);
+    an int32's bits with the sign bit flipped. A bijection on the bits."""
+    ity, mag, _ = _BITS[x.dtype]
+    width = 8 * x.element_size()
+    u = x.view(ity).to(torch.int64) & ((1 << width) - 1)
+    top = 1 << (width - 1)
+    if mag is None:
+        return u ^ top
+    return torch.where(u & top != 0, u ^ ((1 << width) - 1), u | top)
+
+
+def from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``to_key``."""
+    ity, mag, _ = _BITS[dtype]
+    width = 8 * torch.empty((), dtype=dtype).element_size()
+    top = 1 << (width - 1)
+    u = (k ^ top if mag is None else
+         torch.where(k & top != 0, k ^ top, k ^ ((1 << width) - 1)))
+    u = torch.where(u >= top, u - (1 << width), u)
+    return u.to(ity).view(dtype)
+
+
+def key_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' fast compare: the smaller key. Equal to ``minimum``
+    bit for bit where neither input is NaN."""
+    return from_key(torch.minimum(to_key(a), to_key(b)), a.dtype)
+
+
+def key_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The larger key; equal to ``maximum`` where neither input is NaN."""
+    return from_key(torch.maximum(to_key(a), to_key(b)), a.dtype)
+
+
 def compare_exchange(a: torch.Tensor, b: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(minimum(a, b), maximum(a, b)), elementwise."""

@@ -22,9 +22,11 @@ from repro.kernels.mergesort.kernel import block_sort as pallas_block_sort  # no
 from repro.kernels.mergesort.ops import mergesort as jax_mergesort  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.mergesort.ops import (  # noqa: E402
-    TILE, block_sort, launch_counts_of, mergesort, network)
+    R, SMALL_TILE, TILE, block_sort, launch_counts_of, mergesort, network,
+    plan, tile_of)
 from repro_torch.kernels.mergesort.ref import (  # noqa: E402
-    block_sort_ref, compare_exchange, maximum, mergesort_ref, minimum)
+    block_sort_ref, compare_exchange, key_maximum, key_minimum, maximum,
+    mergesort_ref, minimum)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, np.int32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, np.int16),
@@ -198,34 +200,115 @@ def test_block_sort_takes_n_a_multiple_of_block():
                           pallas_block_sort(ja, block=block, interpret=True))
 
 
+@pytest.mark.parametrize("r", sorted({1, 2, 3, R}))
 @pytest.mark.parametrize("tile", [2, 4, 16, 64])
 @pytest.mark.parametrize("n,block", [(2, 1), (64, 1), (256, 4), (256, 64),
                                      (512, 256), (1024, 1024)])
-def test_launch_plan_matches_plain_on_cpu(n, block, tile):
+def test_launch_plan_matches_plain_on_cpu(n, block, tile, r):
     """The kernels' launches, each run as its plain version, give the plain
-    sort bit for bit, at tiles below, at and above the block."""
+    sort bit for bit, at tiles below, at and above the block, with passes
+    of up to r fused stages."""
     for dtype in ("float32", "bfloat16"):
         _, tx = _pair(_values("special", n, dtype, n + tile), dtype)
         tx[n // 3] = float("nan")
         tile_n = min(tile, n)
-        _assert_bit_equal(network(tx, block, tile_n, ladder=False),
+        _assert_bit_equal(network(tx, block, tile_n, ladder=False, r=r),
                           block_sort_ref(tx, block))
-        _assert_bit_equal(network(tx, block, tile_n, ladder=True),
+        _assert_bit_equal(network(tx, block, tile_n, ladder=True, r=r),
                           mergesort_ref(tx, block))
 
 
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_plan_fuses_each_levels_global_stages_into_passes(r):
+    """Every stage at a stride >= tile runs in exactly one pass of at most
+    r stages, the flip in a ladder level's first pass only."""
+    n, block, tile = 1 << 26, 1024, TILE
+    done = []
+    for step in plan(n, block, tile, True, r):
+        if step[0] != "merge_stage":
+            continue
+        _, k, j_hi, j_lo, flip = step
+        assert tile <= j_lo <= j_hi < k and (j_hi // j_lo).bit_length() <= r
+        assert flip == (j_hi == k // 2 and k > block)
+        j = j_hi
+        while j >= j_lo:
+            done.append((k, j))
+            j //= 2
+    lt = TILE.bit_length() - 1
+    want = [(1 << lk, 1 << lj) for lk in range(lt + 1, 27)
+            for lj in range(lk - 1, lt - 1, -1)]
+    assert done == want
+
+
 def test_launch_counts_of_the_main_path():
-    # n = 2^26, blocks of 1024, tiles of 8192: one block sort; levels
-    # 2^11..2^13 fit a tile; level 2^(13+m) has m global stages
-    assert TILE == 8192
+    # n = 2^26, blocks of 1024, tiles of 16384, passes of 4 stages: one
+    # block sort runs levels 2^1..2^14 (the ladder's 2^11..2^14 too);
+    # level 2^(14+m) has m global stages in ceil(m/4) passes and a tile
+    assert TILE == 16384 and R == 4
     assert launch_counts_of(1 << 26, 1024) == {
-        "block_sort": 1, "merge_stage": sum(range(1, 14)), "merge_tile": 16}
+        "block_sort": 1, "merge_stage": sum(-(-m // 4) for m in range(1, 13)),
+        "merge_tile": 12}
+    assert launch_counts_of(1 << 26, 1024)["merge_stage"] == 24
     assert launch_counts_of(65536, 1024) == {
-        "block_sort": 1, "merge_stage": 6, "merge_tile": 6}
+        "block_sort": 1, "merge_stage": 2, "merge_tile": 2}
     assert launch_counts_of(1 << 16, 1 << 15, ladder=False) == {
-        "block_sort": 1, "merge_stage": 1 + 2, "merge_tile": 2}
+        "block_sort": 1, "merge_stage": 1, "merge_tile": 1}
+    assert launch_counts_of(1 << 18, 1 << 18, ladder=False) == {
+        "block_sort": 1, "merge_stage": 4, "merge_tile": 4}
     assert launch_counts_of(1, 1) == {
         "block_sort": 0, "merge_stage": 0, "merge_tile": 0}
+    passes = {r: sum(s[0] == "merge_stage" for s in plan(
+        1 << 26, 1024, TILE, True, r)) for r in (1, 2, 3, 4)}
+    assert passes == {1: 78, 2: 42, 3: 30, 4: 24}
+
+
+def test_tile_of_takes_the_full_tile_or_a_small_one():
+    """The kernels take a tile of TILE or a power of two up to SMALL_TILE
+    (the largest that divides n)."""
+    assert SMALL_TILE == 512
+    assert tile_of(1 << 26) == tile_of(65536) == tile_of(5 * TILE) == TILE
+    assert tile_of(3 * 8192) == tile_of(8192) == SMALL_TILE
+    assert tile_of(24) == 8 and tile_of(2) == 2 and tile_of(1) == 1
+
+
+def _no_nan_specials(dtype: str) -> np.ndarray:
+    """+-0, +-inf, the smallest and largest subnormals and normals, the
+    largest finite value, +-1 and some normals, as the dtype's bits; for
+    int32 its extremes and their neighbours, 0 and +-1."""
+    if dtype == "int32":
+        return np.array([I32.min, I32.min + 1, -1, 0, 1, I32.max - 1,
+                         I32.max, 123456789, -987654321], np.int32)
+    if dtype == "float32":
+        bits = [0x0, 0x1, 0x7FFFFF, 0x800000, 0x7F7FFFFF, 0x7F800000,
+                0x3F800000, 0x12345678, 0x4B000001]
+        a = np.array(bits + [b | 0x80000000 for b in bits], np.uint32)
+        return a.view(np.int32)
+    bits = [0x0, 0x1, 0x7F, 0x80, 0x7F7F, 0x7F80, 0x3F80, 0x1234, 0x4B01]
+    a = np.array(bits + [b | 0x8000 for b in bits], np.uint16)
+    return a.view(np.int16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_key_compare_equals_exact_without_nan(dtype):
+    """The kernels' fast compare (unsigned min/max of a key) against
+    ``minimum`` / ``maximum`` bit for bit: every ordered pair of the
+    specials, and for bf16 every non-NaN bit pattern against each special."""
+    _, tdt, ity = DTYPES[dtype]
+    sp = _no_nan_specials(dtype)
+    a, b = np.repeat(sp, sp.size), np.tile(sp, sp.size)
+    if dtype == "bfloat16":
+        every = np.arange(-(1 << 15), 1 << 15).astype(np.int16)
+        every = every[(every.view(np.uint16) & 0x7FFF) <= 0x7F80]
+        a = np.concatenate([a, np.repeat(every, sp.size),
+                            np.tile(sp, every.size)])
+        b = np.concatenate([b, np.tile(sp, every.size),
+                            np.repeat(every, sp.size)])
+    ta = torch.from_numpy(a.astype(ity)).view(tdt)
+    tb = torch.from_numpy(b.astype(ity)).view(tdt)
+    if dtype != "int32":
+        assert not (torch.isnan(ta).any() or torch.isnan(tb).any())
+    _assert_bit_equal(key_minimum(ta, tb), minimum(ta, tb))
+    _assert_bit_equal(key_maximum(ta, tb), maximum(ta, tb))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -267,12 +350,20 @@ def test_cpu_path_launches_no_kernel():
 
 def _card_inputs(dev):
     """(label, tensor, block) on the card: every dtype with ties, +-0 and
-    +-inf, a NaN, n = 1 and 2, blocks below, at and above the tile
-    (2^15 >= 2^15), and the paper's size."""
+    +-inf, a NaN, n = 1 and 2, tiles below TILE, blocks below, at and above
+    the tile (2^15 and 2^17 > 2^14), the paper's size; and n = 2^20 with a
+    NaN in three of its 64 tiles, so that tiles and passes take both
+    compares in one sort."""
     out = []
+    for dtype in ("float32", "bfloat16"):
+        n = 1 << 20
+        _, tx = _pair(_values("special", n, dtype, n), dtype)
+        tx[[5, 7 * TILE + 123, n - TILE // 2]] = float("nan")
+        out.append((f"{dtype} nan in 3 tiles n={n}", tx.to(dev), 1024))
     for dtype in DTYPES:
         for n, block in ((1, 1), (2, 2), (8, 2), (4096, 64), (1 << 15, 1024),
                          (1 << 16, 1 << 13), (1 << 17, 1 << 15),
+                         (1 << 18, 1 << 17),
                          (1 << 16, 1024)):
             kinds = ("special", "ties") + (() if dtype == "int32" else ("nan",))
             for kind in kinds:
@@ -298,6 +389,16 @@ def test_mergesort_matches_plain_on_card(cuda):
             assert out.data_ptr() != x.data_ptr()
             _assert_bit_equal(out, ref(x, min(block, x.numel())))
         assert torch.equal(x.view(torch.uint8), keep.view(torch.uint8)), label
+
+
+def test_unaligned_input_on_card(cuda):
+    """A view that does not start on a 16-byte boundary is sorted from an
+    aligned copy: the kernels read 16-byte vectors."""
+    _, tx = _pair(_values("special", 4097, "float32", 9), "float32")
+    x = tx.to(cuda)[1:]
+    assert x.data_ptr() % 16
+    _assert_bit_equal(mergesort(x, block=64), mergesort_ref(x, 64))
+    _assert_bit_equal(block_sort(x, block=64), block_sort_ref(x, 64))
 
 
 def test_block_sort_n_a_multiple_of_block_on_card(cuda):
