@@ -7,12 +7,15 @@ Phases (each prints one line; any failure exits non-zero):
      every ``src/repro_torch/kernels/csrc/*.cu``.
   2. kernels vs their plain PyTorch versions at the serving path's shapes
      (Hq=32, Hkv=8, D=64, page 16), fp32 and bf16, plus small mask cases:
-     the global and the per-slot paged decode and flash prefill;
-     CUDA-event times of kernel, plain version and the library yardstick,
-     each kernel's bound, and the global decode's "hbm" table residency
-     against "smem".
+     the global and the per-slot paged decode and flash prefill (bf16 also
+     at head dims 128 and 256, on the wgmma kernel); CUDA-event times of
+     kernel, plain version and the library yardstick, each kernel's bound,
+     and the global decode's "hbm" table residency against "smem". Flash
+     is also timed at 4096 tokens in llama3.2-1b's, qwen2-7b's and
+     gemma2-2b's widths, with the kernel's device time from torch.profiler.
   3. full-width llama3.2-1b (bf16, random seeded weights) served by the
-     zero-copy paged engine: prefix sharing, CoW, launch counters.
+     zero-copy paged engine: prefix sharing, CoW, launch counters (every
+     flash launch a wgmma one).
   3c. the same requests served by the copy-mode engine (the staging
      baseline over per-slot pools), beside phase 3's figures.
   4. the smoke-reduced llama3.2-1b (fp32) served on cuda and on cpu over the
@@ -213,9 +216,8 @@ def _flash_flops(B, Sq, Skv, Hq, D, causal, window, q_offset):
 
 
 def phase_kernels() -> dict:
-    from repro_torch.kernels import flash_attention_fwd, paged_attention_global
+    from repro_torch.kernels import paged_attention_global
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention.ref import (
         gather_global_pages, gather_slot_pages, paged_attention_global_ref,
         paged_attention_ref)
@@ -294,47 +296,139 @@ def phase_kernels() -> dict:
              bound_by=by, bytes=nbytes, flops=flops)
         res[("slot", dtype)] = dict(err=max(errs), ms=ms, plain_ms=plain,
                                     sdpa=sdpa, bound=bound, by=by)
-    # ---- flash prefill: main shape, then small mask cases
+    res["flash_cases"] = _flash_cases()
+    res["flash_timed"] = _flash_timed()
+    return res
+
+
+# Flash prefill. Small mask cases in fp32 and bf16 (head dims 16 and 32 on
+# the CUDA-core kernel, 64 in fp32 too; bf16 at 64 on the wgmma kernel),
+# then bf16 only at the wgmma kernel's head dims 128 and 256.
+FLASH_CASES = [(2, 100, 100, 8, 2, 64, True, None, 30.0, 0),
+               (2, 128, 128, 8, 2, 64, True, 48, None, 0),
+               (2, 100, 164, 8, 2, 64, True, None, None, 64),
+               (2, 96, 96, 4, 4, 64, False, None, None, 0),
+               (2, 80, 80, 4, 2, 16, True, 24, 20.0, 0),
+               (1, 70, 90, 4, 1, 32, True, None, None, 20)]
+FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
+                    (1, 130, 130, 4, 4, 128, False, None, None, 0),
+                    (2, 77, 141, 4, 2, 256, True, 48, 50.0, 64),
+                    (1, 200, 260, 8, 4, 256, True, None, 50.0, 60)]
+# Timed shapes (B, Sq, Skv, Hq, Hkv, D), causal: the serve's prefill, then
+# llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
+# without its softcap: SDPA has none). bf16; the first also in fp32.
+FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D),
+               (1, 4096, 4096, 32, 8, 64),
+               (1, 4096, 4096, 28, 4, 128),
+               (1, 4096, 4096, 8, 4, 256)]
+
+
+def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    return mk(B, Sq, Hq, Dh), mk(B, Skv, Hkv, Dh), mk(B, Skv, Hkv, Dh)
+
+
+def _flash_check(q, k, v, kw) -> float:
+    """Kernel against its plain version; returns the max abs error."""
+    from repro_torch.kernels import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    wgmma = flash_attention_fwd.wgmma_launches
+    out = flash_attention_fwd(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    want = kernel_for(q.dtype, q.shape[-1]) == "wgmma"
+    assert flash_attention_fwd.wgmma_launches == wgmma + want, "wgmma count"
+    assert torch.isfinite(out).all(), "flash kernel: non-finite"
+    assert err <= TOL[q.dtype], f"flash {q.dtype} {kw} {tuple(q.shape)}: {err}"
+    return err
+
+
+def _flash_cases() -> list:
+    from repro_torch.kernels.flash_attention.ops import kernel_for
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    cases = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D, True, None, None, 0),
-             (2, 100, 100, 8, 2, 64, True, None, 30.0, 0),
-             (2, 128, 128, 8, 2, 64, True, 48, None, 0),
-             (2, 100, 164, 8, 2, 64, True, None, None, 64),
-             (2, 96, 96, 4, 4, 64, False, None, None, 0),
-             (2, 80, 80, 4, 2, 16, True, 24, 20.0, 0),
-             (1, 70, 90, 4, 1, 32, True, None, None, 20)]
+    rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, Sq, Skv, Hq, Hkv, Dh, causal, window, cap, qoff) in cases:
-            mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
-            q, k, v = mk(B, Sq, Hq, Dh), mk(B, Skv, Hkv, Dh), mk(B, Skv, Hkv, Dh)
+        for (B, Sq, Skv, Hq, Hkv, Dh, causal, window, cap, qoff) in (
+                FLASH_CASES + (FLASH_WIDE_CASES if dtype == torch.bfloat16
+                               else [])):
+            q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
-            out = flash_attention_fwd(q, k, v, **kw)
-            ref = flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            assert torch.isfinite(out).all(), "flash kernel: non-finite"
-            assert err <= TOL[dtype], f"flash {dtype} {kw} S={Sq}: err {err}"
-            emit("phase2 flash", dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq,
-                 Hkv=Hkv, D=Dh, max_abs_err=err, tol=TOL[dtype], **kw)
-            if (B, Sq) != (FLASH_B, FLASH_S):
-                continue
-            ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw))
-            plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), iters=5)
+            err = _flash_check(q, k, v, kw)
+            row = dict(dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
+                       D=Dh, kernel=kernel_for(dtype, Dh), max_abs_err=err,
+                       tol=TOL[dtype], **kw)
+            emit("phase2 flash", **row)
+            rows.append(row)
+    return rows
+
+
+def _kernel_device_ms(fn, name: str, iters: int = 20):
+    """(mean device ms, launches recorded) of the kernels whose name holds
+    ``name`` over ``iters`` calls of ``fn``, from torch.profiler: the
+    kernel alone, without the wrapper's host work. The profiler can record
+    fewer launches than there were calls; the mean is over those it
+    recorded, and None if it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in evs)
+    if count == 0:
+        return None, 0
+    return sum(_device_us(e) for e in evs) / count / 1e3, count
+
+
+def _flash_timed() -> list:
+    """CUDA-event ms of one call, the kernel's device ms, the plain
+    version's and SDPA's (K/V repeated to Hq beforehand) ms, and the bound,
+    at each timed shape: one row each, the serve's shape first (fp32, then
+    bf16)."""
+    from repro_torch.kernels import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for i, (B, Sq, Skv, Hq, Hkv, Dh) in enumerate(FLASH_TIMED):
+        for dtype in ((torch.float32, torch.bfloat16) if i == 0
+                      else (torch.bfloat16,)):
+            q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
+            kw = dict(causal=True, window=None, softcap=None, q_offset=0)
+            err = _flash_check(q, k, v, kw)
+            kind = kernel_for(dtype, Dh)
+            call = lambda: flash_attention_fwd(q, k, v, **kw)
+            ms = cuda_ms(call)
+            dev, dev_n = _kernel_device_ms(
+                call, "flash_fwd_wgmma_kernel" if kind == "wgmma"
+                else "flash_fwd_kernel<")
+            plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                            warmup=1, iters=5 if i == 0 else 3)
             G = Hq // Hkv
             qt = q.transpose(1, 2).contiguous()
             kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
             vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
             sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
-            flops = _flash_flops(B, Sq, Skv, Hq, Dh, causal, window, qoff)
+            del qt, kt, vt
+            flops = _flash_flops(B, Sq, Skv, Hq, Dh, True, None, 0)
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             bound, by = _bound(nbytes, flops, dtype)
-            emit("phase2 flash timing", dtype=str(dtype), ms=ms, plain_ms=plain,
-                 library_ms=sdpa, bound_ms=bound, bound_by=by, flops=flops,
-                 bytes=nbytes)
-            res[("flash", dtype)] = dict(err=err, ms=ms, plain_ms=plain,
-                                         sdpa=sdpa, bound=bound, by=by)
-    return res
+            row = dict(dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
+                       D=Dh, kernel=kind, max_abs_err=err, ms=ms,
+                       device_ms=dev, device_launches_recorded=dev_n,
+                       plain_ms=plain, library_ms=sdpa,
+                       bound_ms=bound, bound_by=by,
+                       bound_share=bound / ms,
+                       device_bound_share=None if dev is None else bound / dev,
+                       flops=flops, bytes=nbytes)
+            emit("phase2 flash timing", **row)
+            rows.append(row)
+    return rows
 
 
 # ------------------------------------------------------------------ phase 3
@@ -401,7 +495,7 @@ def check_serve(cfg, eng, outs, prompts, max_tokens) -> dict:
 
 def phase_serve() -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import init_params
     cfg = get_config("llama3.2-1b")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -414,7 +508,7 @@ def phase_serve() -> dict:
     reset_launch_counts()
     outs, eng, done, wall = serve(cfg, params, "cuda", prompts, new_tokens,
                                   n_slots, max_len, PAGE)
-    launches = launch_counts()
+    launches = _serve_launches()
     s = check_serve(cfg, eng, outs, prompts, new_tokens)
     steps = s["decode_steps"]
     assert launches["paged_attention_global"] == cfg.n_layers * steps, launches
@@ -447,6 +541,17 @@ def phase_serve() -> dict:
             outs, figures)
 
 
+def _serve_launches() -> dict:
+    """Launch counts of a bf16 serve since the last reset, with the flash
+    kernel's wgmma launches; every flash launch must be one."""
+    from repro_torch.kernels import flash_attention_fwd, launch_counts
+    launches = launch_counts()
+    launches["flash_attention_fwd_wgmma"] = flash_attention_fwd.wgmma_launches
+    assert (launches["flash_attention_fwd_wgmma"]
+            == launches["flash_attention_fwd"]), launches
+    return launches
+
+
 def _serve_figures(s, done, wall) -> dict:
     ttft = [(r.first_token_at - r.submitted_at) * 1e3 for r in done.values()]
     return dict(wall_s=wall, tokens_per_s=s["tokens"] / wall,
@@ -462,12 +567,12 @@ def phase_copy_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
     per-slot decode kernel, a full table upload every step. Served in turns
     with zero-copy (phase 3's serve, copy, copy, zero-copy), so the two
     modes' figures share the host's state."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     run = lambda **kw: serve(cfg, params, "cuda", prompts, new_tokens,
                              n_slots, max_len, PAGE, **kw)
     reset_launch_counts()
     outs, eng, done, wall = run(offload_mode="copy")
-    launches = launch_counts()
+    launches = _serve_launches()
     s = check_serve(cfg, eng, outs, prompts, new_tokens)
     steps = s["decode_steps"]
     assert s["staging_copies"] == n_slots == len(prompts), s["staging_copies"]
@@ -978,7 +1083,9 @@ def main(argv=None) -> int:
     phase_cross_check()
     paper = phase_paper_kernels()
     sort = phase_mergesort()
-    dec, fl = res[("decode", torch.bfloat16)], res[("flash", torch.bfloat16)]
+    dec = res[("decode", torch.bfloat16)]
+    flash_rows = res["flash_cases"] + res["flash_timed"]
+    fl = res["flash_timed"][1]          # bf16 at the serve's shape
     slot = res[("slot", torch.bfloat16)]
     kernels = [
         {"name": "paged_attention_global", "route": "cuda",
@@ -1005,11 +1112,14 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
          "launches": launches["flash_attention_fwd"],
-         "max_abs_err": fl["err"],
-         "max_abs_err_fp32": res[("flash", torch.float32)]["err"],
-         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-         "bound_ms": fl["bound"], "bound_by": fl["by"],
-         "library_ms": fl["sdpa"]},
+         "wgmma_launches": launches["flash_attention_fwd_wgmma"],
+         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                            if r["dtype"] == str(torch.bfloat16)),
+         "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows
+                                 if r["dtype"] == str(torch.float32)),
+         **{k: fl[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+         "cases": flash_rows},
     ]
     replaces = {"gemm": "src/repro/kernels/gemm/kernel.py:35",
                 "gesummv": "src/repro/kernels/gesummv/kernel.py:26",

@@ -31,3 +31,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention_fwd.wgmma_launches = 0

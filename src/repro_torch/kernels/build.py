@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``, named
-by a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused. Sources are compiled in parallel (one ``nvcc`` per
-source, all started together). Nothing is built or loaded at import time:
-the first launch of a kernel builds its library.
+by a hash of its source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Sources are compiled in parallel (one ``nvcc`` per source, all started
+together). Nothing is built or loaded at import time: the first launch of
+a kernel builds its library.
 """
 from __future__ import annotations
 
@@ -39,8 +40,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -10,23 +10,48 @@
 // What bounds it on the H100: operations. A causal prefill at S=512, D=64
 // does ~S/2 * 4 * D flops per query row on data read once, far above the
 // ~295 flops/byte ridge; the floor is its causal flops over the bf16
-// tensor-core peak (989 TFLOP/s).
+// tensor-core peak (989 TFLOP/s), which only wgmma reaches.
 //
-// Design: one block per (q tile of 64 rows, q head, batch row); each thread
-// owns one query row, with its q and fp32 accumulator in registers (head
-// dims 16, 32 and 64). K/V tiles of 32 rows are staged in shared memory as fp32 and
-// read as warp-wide broadcasts. KV tiles wholly above the causal diagonal
-// or wholly outside the window are skipped. GQA is native: q head h reads
-// KV head h / G, with no repeated copy of K/V. As in the reference, the
-// probabilities are rounded to the value type before the P @ V product.
+// Two kernels; ops.py picks one by (dtype, head dim) alone.
 //
-// Kept simple on purpose: the products run on the CUDA cores in fp32, not on
-// the tensor cores, so it stays far from the bound. wgmma with TMA-fed
-// tiles is the path to the bound and is left to later work.
+// flash_fwd_wgmma_kernel (bf16, head dims 64, 128, 256): one CTA per
+// (128 query rows, q head, batch row), three warpgroups. The third is the
+// producer: it gives up registers (setmaxnreg) and one thread issues TMA
+// loads, the Q tile once and K/V tiles of 64 rows through a ring of 2-3
+// stages, each stage a full/empty mbarrier pair. Tiles are 64-column slabs
+// with 128-byte swizzle (a head dim of 128 or 256 is 2 or 4 slabs). The two
+// consumer warpgroups take the registers and own 64 query rows each; both
+// read every K/V tile, which halves K/V traffic through shared memory per
+// flop against one. Per tile a consumer runs S = Q K^T as wgmma from shared
+// memory (K stored (kv, D) is the K-major B operand), the online softmax
+// on the accumulator fragment (row max and sum over a quad with two
+// shuffles; masks only on tiles that straddle an edge), rounds P to bf16
+// in registers, where the m64n64 accumulator layout is the A fragment of
+// the next product, and runs O += P V as wgmma with V (stored (kv, D), so
+// MN-major) under the transpose bit. KV tiles wholly outside the causal
+// or window range are never loaded. Later work: overlap of one warpgroup's
+// softmax with the other's products (ping-pong), and of the softmax with
+// the next tile's S inside a warpgroup.
+//
+// flash_fwd_kernel (fp32 at head dims 16, 32, 64; bf16 at 16, 32): one
+// block per (64 query rows, q head, batch row); each thread owns one query
+// row, with its q and fp32 accumulator in registers. K/V tiles of 32 rows
+// are staged in shared memory as fp32 and read as warp-wide broadcasts;
+// the products are fp32 FMAs on the CUDA cores (fp32 stays fp32: TF32
+// would not hold the fp32 tolerance). KV tiles wholly above the causal
+// diagonal or outside the window are skipped.
+//
+// In both, GQA is native: q head h reads KV head h / G, with no repeated
+// copy of K/V. As in the reference, the probabilities are rounded to the
+// value type before the P @ V product, and the row sum adds them unrounded.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -175,8 +200,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int b, in
                                   q_offset, scale, softcap, stream);
     case 32: return launch<T, 32>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
                                   q_offset, scale, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
-                                  q_offset, scale, softcap, stream);
+    case 64:   // bf16 at 64 runs the wgmma kernel
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 64>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
+                             q_offset, scale, softcap, stream);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -184,8 +212,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int b, in
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D), all
-// contiguous. dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0
-// mean none. Returns the cudaError_t of the launch (0 = success).
+// contiguous. dtype: 0 = float32 (d 16, 32, 64), 1 = bfloat16 (d 16, 32).
+// window <= 0 and softcap <= 0 mean none. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           void* out, int dtype, int b, int s_q, int s_kv,
                                           int hq, int hkv, int d, int causal, int window,
@@ -200,4 +229,293 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
     return dispatch_d<__nv_bfloat16>(q, k, v, out, b, s_q, s_kv, hq, hkv, d, causal,
                                      window, q_offset, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------ wgmma
+
+namespace {
+
+constexpr int kRowsWG = 64;                 // query rows per consumer warpgroup
+constexpr int kConsumers = 2;               // consumer warpgroups per CTA
+constexpr int kBQW = kRowsWG * kConsumers;  // query rows per CTA
+constexpr int kBKW = 64;                    // KV rows per tile
+constexpr int kThreadsW = 128 * (kConsumers + 1);
+constexpr int kSlabQ = kBQW * 128;          // bytes of one 64-column slab
+constexpr int kSlabKV = kBKW * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WgCfg {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kQBytes = kSlabs * kSlabQ;
+  static constexpr int kKVBytes = kSlabs * kSlabKV;  // K or V, one stage
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKVBytes;
+  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+};
+
+struct TileRange {
+  int t0, t1;
+};
+
+// The KV tiles that query rows [lo, lo + n) can see; empty if n <= 0.
+__device__ __forceinline__ TileRange kv_tiles(int lo, int n, int s_kv, int causal,
+                                              int window, int q_offset) {
+  if (n <= 0) return {0, 0};
+  int end = s_kv;
+  if (causal) end = min(s_kv, max(0, lo + n + q_offset));
+  int begin = 0;
+  if (window > 0) begin = max(0, lo + q_offset - window + 1);
+  const int t0 = begin / kBKW;
+  return {t0, max(t0, (end + kBKW - 1) / kBKW)};
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsW, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out, int s_q, int s_kv, int hq,
+                       int hkv, int causal, int window, int q_offset, float scale,
+                       float softcap) {
+  using C = WgCfg<D>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // [slab][kBQW][64]
+  const uint32_t k_s = q_s + C::kQBytes;  // [stage][slab][kBKW][64]
+  const uint32_t v_s = k_s + C::kStages * C::kKVBytes;
+  const uint32_t q_bar = q_s + C::kBarOff;
+  const uint32_t full_bar = q_bar + 8;                  // [stage]
+  const uint32_t empty_bar = full_bar + 8 * C::kStages;  // [stage]
+
+  const int q0 = blockIdx.x * kBQW;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const TileRange cta = kv_tiles(q0, min(kBQW, s_q - q0), s_kv, causal, window,
+                                 q_offset);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < C::kStages; ++st) {
+      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(empty_bar + 8 * st, 128 * kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full
+    regs_dec<24>();
+    if (threadIdx.x == 128 * kConsumers) {
+      const int hk = h / (hq / hkv);
+      mbar_arrive_expect_tx(q_bar, C::kQBytes);
+#pragma unroll
+      for (int s = 0; s < C::kSlabs; ++s)
+        tma_load_4d(q_s + s * kSlabQ, &tm_q, q_bar, 64 * s, h, q0, b);
+      for (int t = cta.t0, i = 0; t < cta.t1; ++t, ++i) {
+        const int st = i % C::kStages;
+        mbar_wait(empty_bar + 8 * st, ((i / C::kStages) & 1) ^ 1);
+        const uint32_t full = full_bar + 8 * st;
+        mbar_arrive_expect_tx(full, 2 * C::kKVBytes);
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s) {
+          const uint32_t off = st * C::kKVBytes + s * kSlabKV;
+          tma_load_4d(k_s + off, &tm_k, full, 64 * s, hk, t * kBKW, b);
+          tma_load_4d(v_s + off, &tm_v, full, 64 * s, hk, t * kBKW, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    regs_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int qw = q0 + kRowsWG * wg;
+    const TileRange mine = kv_tiles(qw, min(kRowsWG, s_q - qw), s_kv, causal, window,
+                                    q_offset);
+    // This thread's accumulator rows are row0 and row0 + 8; in each group of
+    // 8 columns it holds columns c0 and c0 + 1. Register i of a 64-column
+    // fragment is row row0 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + c0 +
+    // (i & 1).
+    const int row0 = qw + warp * 16 + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const uint32_t q_wg = q_s + wg * (kRowsWG * 128);
+
+    float o[C::kSlabs][32];
+#pragma unroll
+    for (int s = 0; s < C::kSlabs; ++s)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[s][i] = 0.f;
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_bar, 0);
+    for (int t = cta.t0, i = 0; t < cta.t1; ++t, ++i) {
+      const int st = i % C::kStages;
+      mbar_wait(full_bar + 8 * st, (i / C::kStages) & 1);
+      if (t >= mine.t0 && t < mine.t1) {
+        const uint32_t k_t = k_s + st * C::kKVBytes;
+        const uint32_t v_t = v_s + st * C::kKVBytes;
+        // S = Q K^T: K steps of 16 columns, 4 to a 128-byte slab row.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_m64n64k16_ss(sc, desc_sw128(q_wg + (kk / 4) * kSlabQ + off),
+                             desc_sw128(k_t + (kk / 4) * kSlabKV + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // Scale, softcap, then the masks, in the reference's order.
+        const int j0 = t * kBKW;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          float x = sc[r] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          sc[r] = x;
+        }
+        const bool edge = j0 + kBKW > s_kv ||
+                          (causal && j0 + kBKW - 1 > qw + q_offset) ||
+                          (window > 0 && qw + kRowsWG - 1 + q_offset - j0 >= window);
+        if (edge) {
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            const int j = j0 + 8 * (r >> 2) + c0 + (r & 1);
+            const int qp = row0 + 8 * ((r >> 1) & 1) + q_offset;
+            bool ok = j < s_kv;
+            if (causal) ok = ok && j <= qp;
+            if (window > 0) ok = ok && (qp - j) < window;
+            if (!ok) sc[r] = -INFINITY;
+          }
+        }
+        // Online softmax: row max over the quad, the m_safe/corr rule of
+        // the reference, p unrounded into the row sum.
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int r = 0; r < 32; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
+        float msafe[2], corr[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+          mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+          msafe[x] = isinf(mx[x]) ? 0.f : mx[x];
+          corr[x] = isinf(m[x]) ? 0.f : exp2f((m[x] - msafe[x]) * kLog2e);
+          m[x] = mx[x];
+          l[x] *= corr[x];
+        }
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const int x = (r >> 1) & 1;
+          const float p = exp2f((sc[r] - msafe[x]) * kLog2e);
+          l[x] += p;
+          sc[r] = p;
+        }
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s)
+#pragma unroll
+          for (int r = 0; r < 32; ++r) o[s][r] *= corr[(r >> 1) & 1];
+        // P in bf16 as the A fragments of O += P V, one per 16 KV rows.
+        uint32_t pa[kBKW / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBKW / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s) fence_regs(o[s]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBKW / 16; ++kk)
+#pragma unroll
+          for (int s = 0; s < C::kSlabs; ++s)
+            wgmma_m64n64k16_rs_tn(o[s], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3],
+                                  desc_sw128(v_t + s * kSlabKV + kk * 16 * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s) fence_regs(o[s]);
+      }
+      mbar_arrive(empty_bar + 8 * st);
+    }
+
+    // Epilogue: the quad's row sums, then O / max(l, 1e-20) in bf16.
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+      const int row = row0 + 8 * x;
+      if (row < s_q) {
+        const float den = fmaxf(l[x], 1e-20f);
+        __nv_bfloat16* orow = out + (((size_t)b * s_q + row) * hq + h) * D;
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s)
+#pragma unroll
+          for (int g = 0; g < 8; ++g)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 64 * s + 8 * g + c0) =
+                __floats2bfloat162_rn(o[s][4 * g + 2 * x] / den,
+                                      o[s][4 * g + 2 * x + 1] / den);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b,
+                 int s_q, int s_kv, int hq, int hkv, int causal, int window,
+                 int q_offset, float scale, float softcap, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int e = hopper::encode_bshd_bf16(&tq, q, b, s_q, hq, D, kBQW);
+  if (e == 0) e = hopper::encode_bshd_bf16(&tk, k, b, s_kv, hkv, D, kBKW);
+  if (e == 0) e = hopper::encode_bshd_bf16(&tv, v, b, s_kv, hkv, D, kBKW);
+  if (e != 0) return e;
+  constexpr int smem = WgCfg<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((s_q + kBQW - 1) / kBQW, hq, b);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreadsW, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s_q, s_kv, hq, hkv, causal, window,
+      q_offset, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 only. q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D),
+// all contiguous with 16-byte-aligned bases; d is 64, 128 or 256. window
+// <= 0 and softcap <= 0 mean none. Returns the cudaError_t of the launch
+// (0 = success), or a negative code when a tensor map cannot be encoded
+// (-1: the CUDA driver has no encoder; -(1000 + CUresult): the map is
+// refused).
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                            void* out, int b, int s_q, int s_kv,
+                                            int hq, int hkv, int d, int causal,
+                                            int window, int q_offset, float scale,
+                                            float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b == 0 || s_q == 0) return 0;
+  switch (d) {
+    case 64: return launch_wgmma<64>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+                                     window, q_offset, scale, softcap, s);
+    case 128: return launch_wgmma<128>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+                                       window, q_offset, scale, softcap, s);
+    case 256: return launch_wgmma<256>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+                                       window, q_offset, scale, softcap, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,9 +1,11 @@
 """Wrapper of the flash-attention forward CUDA kernel.
 
 ``flash_attention_fwd`` takes the plain version for tensors on the CPU and
-launches ``csrc/flash_attention.cu`` for tensors on a CUDA device; it never
-falls back from one to the other. ``flash_attention_fwd.launches`` counts
-kernel launches.
+launches one of the two kernels of ``csrc/flash_attention.cu`` for tensors
+on a CUDA device, chosen by ``kernel_for(dtype, head_dim)`` alone; it never
+falls back from one to another. ``flash_attention_fwd.launches`` counts
+every kernel launch, ``flash_attention_fwd.wgmma_launches`` those of the
+wgmma kernel.
 """
 from __future__ import annotations
 
@@ -15,20 +17,44 @@ import torch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64)
-_launcher = None
+# (dtype, head dim) -> kernel: "wgmma" is the TMA-fed tensor-core kernel
+# (bf16 only), "simt" the one-thread-a-row kernel on the CUDA cores.
+_KERNEL_FOR = {**{(torch.float32, d): "simt" for d in (16, 32, 64)},
+               **{(torch.bfloat16, d): "simt" for d in (16, 32)},
+               **{(torch.bfloat16, d): "wgmma" for d in (64, 128, 256)}}
+_launchers = {}
 
 
-def _launch_fn():
-    global _launcher
-    if _launcher is None:
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim) on the card: "wgmma" or
+    "simt". Raises TypeError for a dtype no kernel takes and ValueError for
+    a head dim the dtype's kernels do not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no flash kernel takes {dtype}")
+    kind = _KERNEL_FOR.get((dtype, head_dim))
+    if kind is None:
+        dims = sorted(d for t, d in _KERNEL_FOR if t == dtype)
+        raise ValueError(f"head dim {head_dim} not supported in {dtype} "
+                         f"(the kernels take {dims})")
+    return kind
+
+
+def _launch_fn(kind: str):
+    fn = _launchers.get(kind)
+    if fn is None:
         from repro_torch.kernels.build import load
-        fn = load("flash_attention").flash_attention_fwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        lib = load("flash_attention")
+        if kind == "wgmma":
+            fn = lib.flash_attention_wgmma_launch
+            n_int = 9
+        else:
+            fn = lib.flash_attention_fwd_launch
+            n_int = 10                          # and the dtype code
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _launcher = fn
-    return _launcher
+        _launchers[kind] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -63,28 +89,35 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset,
                                    kv_chunk=kv_chunk, q_chunk=q_chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported (kernel takes "
-                         f"{HEAD_DIMS})")
+    kind = kernel_for(q.dtype, D)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     if window is not None and window <= 0:
         raise ValueError(f"window={window} must be positive")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv,
-                       D, int(bool(causal)),
-                       int(window) if window is not None else 0,
-                       int(q_offset), D ** -0.5,
-                       softcap if softcap is not None else 0.0, stream)
+    if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the wgmma kernel's TMA loads need q, k, v and out "
+                         "at 16-byte-aligned addresses")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if kind == "simt":
+        args.append(_DTYPES[q.dtype])
+    args += [B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+             int(window) if window is not None else 0, int(q_offset),
+             D ** -0.5, softcap if softcap is not None else 0.0,
+             torch.cuda.current_stream(q.device).cuda_stream]
+    err = _launch_fn(kind)(*args)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        what = ("a TMA tensor map was refused" if err < 0
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_fwd ({kind} kernel) launch "
+                           f"failed: {what} (code {err})")
     flash_attention_fwd.launches += 1
+    if kind == "wgmma":
+        flash_attention_fwd.wgmma_launches += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.wgmma_launches = 0

@@ -7,6 +7,8 @@ functions of ``repro/models/attention.py``, at fp32 atol 1e-5. The CUDA
 kernels themselves are held against the plain versions by the tests marked
 by the ``cuda`` fixture (skipped without a card) and by ``chip_smoke.py``.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro.kernels.paged_attention.ref import \
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import (flash_attention_fwd, launch_counts,  # noqa: E402
                                  paged_attention_global, reset_launch_counts)
+from repro_torch.kernels.flash_attention.ops import kernel_for  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     paged_attention, paged_decode)
@@ -267,7 +270,19 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+# The wgmma kernel's head dims (64, 128, 256): GQA, sizes that are no
+# multiple of its 64-row tiles, window, softcap 50.0 and q_offset (the last
+# case's reaches past Skv - Sq).
+FLASH_WIDE_CASES = [
+    (1, 70, 70, 4, 2, 64, True, None, None, 0, (35, 14)),
+    (2, 65, 65, 4, 4, 128, False, None, None, 0, (13, 65)),
+    (1, 100, 100, 4, 1, 128, True, 48, 50.0, 0, (50, 20)),
+    (1, 48, 80, 8, 2, 256, True, 16, None, 40, (40, 16)),
+    (1, 37, 101, 2, 1, 256, True, None, 50.0, 70, (101, 37)),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_WIDE_CASES)
 def test_flash_plain_matches_jax_model(case):
     B_, Sq, Skv, Hq, Hkv, D_, causal, window, cap, qoff, (kvc, qc) = case
     r = np.random.default_rng(Sq + Skv)
@@ -331,6 +346,46 @@ def test_wrappers_reject_bad_inputs():
                             x.transpose(1, 2))
     with pytest.raises(TypeError):
         flash_attention_fwd(x.half(), x.half(), x.half())
+    # fp32 at head dim 128: no kernel takes it. The plain version would;
+    # off the CPU the wrapper refuses before it looks for a card.
+    y = torch.zeros(1, 8, 4, 128, device="meta")
+    with pytest.raises(ValueError, match="head dim 128"):
+        flash_attention_fwd(y, y, y)
+
+
+@pytest.mark.parametrize("dtype,head_dim,kind", [
+    ("float32", 16, "simt"), ("float32", 32, "simt"), ("float32", 64, "simt"),
+    ("bfloat16", 16, "simt"), ("bfloat16", 32, "simt"),
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("bfloat16", 256, "wgmma")])
+def test_flash_kernel_for(dtype, head_dim, kind):
+    assert kernel_for(getattr(torch, dtype), head_dim) == kind
+
+
+@pytest.mark.parametrize("dtype,head_dim,exc", [
+    ("bfloat16", 48, ValueError), ("float32", 128, ValueError),
+    ("float32", 256, ValueError), ("bfloat16", 8, ValueError),
+    ("float16", 64, TypeError), ("float16", 128, TypeError)])
+def test_flash_kernel_for_rejects(dtype, head_dim, exc):
+    with pytest.raises(exc):
+        kernel_for(getattr(torch, dtype), head_dim)
+
+
+def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
+    """An edited or added ``csrc/*.cuh`` renames every library, so a stale
+    build is never loaded; the same files give the same path."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    assert {n: build.library_path(n) for n in build.SOURCES} == before
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(edited[n] != before[n] for n in build.SOURCES)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.library_path("flash_attention") != edited["flash_attention"]
 
 
 def test_cpu_path_launches_no_kernel():
@@ -378,18 +433,50 @@ def test_slot_kernel_matches_plain_on_card(cuda, dtype, tol, residency):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_kernel_matches_plain_on_card(cuda, case):
+# bf16 cases of the wgmma kernel on the card: ragged Sq/Skv, non-causal,
+# window, softcap, q_offset past Skv - Sq, and rows that see no key (the
+# fifth case's rows 27..69: a window of 8 back from q_pos >= 127 finds no
+# key of 0..119), which must come out 0.
+FLASH_CARD_BF16 = [
+    (2, 100, 100, 8, 2, 64, True, None, 50.0, 0),
+    (1, 130, 130, 4, 4, 128, False, None, None, 0),
+    (2, 77, 141, 4, 2, 256, True, 48, 50.0, 64),
+    (1, 65, 200, 4, 1, 128, True, None, None, 150),
+    (1, 70, 120, 2, 1, 64, True, 8, None, 100),
+    (2, 129, 129, 2, 2, 256, False, 32, None, 0),
+    (1, 200, 260, 8, 2, 64, True, 100, None, 60),
+]
+
+
+@pytest.mark.parametrize("dtype,case", [("float32", c) for c in FLASH_CASES]
+                         + [("bfloat16", c) for c in FLASH_CARD_BF16])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, case):
     torch.backends.cuda.matmul.allow_tf32 = False
-    B_, Sq, Skv, Hq, Hkv, D_, causal, window, cap, qoff, _ = case
-    if D_ not in (16, 32, 64):
+    B_, Sq, Skv, Hq, Hkv, D_, causal, window, cap, qoff = case[:10]
+    dt = getattr(torch, dtype)
+    if dt == torch.float32 and D_ not in (16, 32, 64):
         pytest.skip(f"kernel head dims are 16/32/64, not {D_}")
     g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(B_, Sq, Hq, D_, generator=g, device=cuda)
-    k = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda)
-    v = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda)
+    q = torch.randn(B_, Sq, Hq, D_, generator=g, device=cuda).to(dt)
+    k = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda).to(dt)
+    v = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda).to(dt)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
+    wgmma = flash_attention_fwd.wgmma_launches
     out = flash_attention_fwd(q, k, v, **kw)
     ref = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 1e-4
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert flash_attention_fwd.wgmma_launches == wgmma + (
+        kernel_for(dt, D_) == "wgmma")
+    qp = torch.arange(Sq, device=cuda)[:, None] + qoff
+    kp = torch.arange(Skv, device=cuda)[None, :]
+    sees = torch.ones(Sq, Skv, dtype=torch.bool, device=cuda)
+    if causal:
+        sees &= kp <= qp
+    if window is not None:
+        sees &= qp - kp < window
+    blind = ~sees.any(dim=1)
+    assert (out[:, blind] == 0).all()
+    if case == FLASH_CARD_BF16[4]:
+        assert 0 < blind.sum().item() < Sq

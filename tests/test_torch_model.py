@@ -3,7 +3,11 @@ weights (JAX ``init_params`` -> numpy -> ``from_jax_params``): prefill
 logits over right-padded rows, a prefix-continuation prefill through
 ``write_tables``, a decode step, and the shared KV pools after each; then
 the per-slot layout of the copy baseline (each branch of its prefill write,
-then a decode step), at atol 1e-4 / rtol 1e-4."""
+then a decode step), at atol 1e-4 / rtol 1e-4. Last, the same smoke model
+in bf16 (the dtype the serving path runs in), prefill and decode logits at
+a bf16 tolerance."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,7 +72,7 @@ def _prefill_both(models, tokens, lengths, tables, jcache, tcache,
     jcache = _merge_prefill_view(jcache, view, jnp.arange(len(lengths)))
     tl, _ = forward_prefill(tcfg, tp, tb, install_tables(
         tcache, torch.from_numpy(tables), tb["lengths"]))
-    return np.asarray(jl), tl.numpy(), jcache
+    return np.asarray(jl), tl.float().numpy(), jcache
 
 
 @pytest.fixture(scope="module")
@@ -251,3 +255,68 @@ def test_slot_prefill_write_then_decode(models, max_len, S, lengths):
     np.testing.assert_allclose(tk, jk, **TOL)
     np.testing.assert_allclose(tv, jv, **TOL)
     assert tc[0].length.tolist() == (kv_len + 1).tolist()
+
+
+# ------------------------------------------------------------ bf16 model
+
+# The logits are bf16, and the two frameworks round the same bf16 values at
+# other points (matmul sums, the softmax, the norms), so a logit may land a
+# few rounding steps away: bf16 keeps 8 significant bits, a step of 2**-8
+# at the logits' size here (|logit| < 1). 2**-6 allows four such steps.
+BF16_TOL = dict(atol=2.0 ** -6, rtol=2.0 ** -6)
+
+
+@pytest.fixture(scope="module")
+def bf16_served():
+    """The smoke llama3.2-1b with bf16 weights and activations in both
+    models (JAX weights -> numpy -> the port): right-padded prefill of three
+    prompts beside an empty slot, then one decode step of all four slots."""
+    bf = dict(param_dtype="bfloat16", activation_dtype="bfloat16")
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("llama3.2-1b")), **bf)
+    tcfg = dataclasses.replace(
+        reduce_for_smoke(tconfigs.get_config("llama3.2-1b")), **bf)
+    jp = j_init_params(cfg, jax.random.key(0))
+    tp = from_jax_params(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    r = np.random.default_rng(0)
+    lengths = np.array([12, 7, 16, 0], np.int32)
+    tokens = np.zeros((4, 16), np.int32)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = r.integers(0, cfg.vocab_size, n)
+    tables = np.full((4, P), TOTAL, np.int32)
+    tables[0, :2], tables[1, :1], tables[2, :2] = [5, 2], [9], [0, 14]
+    jcache = j_init_cache(cfg, SLOTS, MAX_LEN, PAGE, per_seq=True,
+                          global_pages=TOTAL)
+    tcache = init_cache(tcfg, SLOTS, MAX_LEN, PAGE, global_pages=TOTAL,
+                        device="cpu")
+    jl, tl, jcache = _prefill_both((cfg, tcfg, jp, tp), tokens, lengths,
+                                   tables, jcache, tcache)
+    tok = r.integers(0, cfg.vocab_size, (SLOTS, 1)).astype(np.int32)
+    jc = _install_tables(jcache, jnp.asarray(tables), jnp.asarray(lengths))
+    jd, jc = j_decode(cfg, jp, jnp.asarray(tok), jnp.asarray(lengths), jc)
+    tc = install_tables(tcache, torch.from_numpy(tables),
+                        torch.from_numpy(lengths))
+    td, tc = forward_decode(tcfg, tp, torch.from_numpy(tok).long(),
+                            torch.from_numpy(lengths), tc)
+    return dict(prefill=(jl, tl), decode=(np.asarray(jd), td),
+                tcache=tcache, jcache=jc)
+
+
+def _f32(a):
+    return (a.float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a).astype(np.float32))
+
+
+def test_bf16_prefill_logits(bf16_served):
+    jl, tl = bf16_served["prefill"]
+    np.testing.assert_allclose(tl[:3], _f32(jl)[:3], **BF16_TOL)
+
+
+def test_bf16_decode_logits(bf16_served):
+    jd, td = bf16_served["decode"]
+    assert td.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(td), _f32(jd), **BF16_TOL)
+    jk, jv = _j_pools(bf16_served["jcache"])
+    tk = np.stack([_f32(kv.k_pool) for kv in bf16_served["tcache"]])
+    tv = np.stack([_f32(kv.v_pool) for kv in bf16_served["tcache"]])
+    np.testing.assert_allclose(tk, _f32(jk), **BF16_TOL)
+    np.testing.assert_allclose(tv, _f32(jv), **BF16_TOL)
