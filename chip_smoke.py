@@ -25,7 +25,12 @@ Phases (each prints one line; any failure exits non-zero):
      points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
      at sizes far past the 50 MB L2, fp32 and bf16: each output against its
      plain version at the stated tolerance, launch counts, CUDA-event times
-     of kernel, plain version and library yardstick, and each bound. Then
+     of kernel, plain version and library yardstick, and each bound; gemm's
+     rows name the kernel that ran (the bf16 call at 8192^3 must be the
+     wgmma one) and its wgmma launches; gemm and axpy are also timed over
+     calls enqueued back to back (the device's time without the host's
+     work between events); one more bf16 gemm at 8192 x 8190 x 8192, whose
+     rows are not 16-byte strides, runs and is held on the mma kernel. Then
      mergesort (block_sort and the merge kernels) at n = 65536 and 2^26 in
      fp32, bf16 and int32, plus NaN cases: bit for bit against its plain
      version, as values against torch.sort, launch counts, times, bounds.
@@ -78,6 +83,23 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """CUDA-event time of ``iters`` calls enqueued back to back, over
+    ``iters``: the host's work for one call overlaps the device's work for
+    the one before, so for a call longer than that work this is the
+    device's time alone."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 # ------------------------------------------------------------------ phase 1
@@ -727,6 +749,8 @@ PAPER_SIZES = {"gemm": 128, "gesummv": 512, "axpy": 32768, "heat3d": 64,
                "mergesort": 65536}
 H100_SIZES = {"gemm": 8192, "gesummv": 16384, "axpy": 1 << 28, "heat3d": 512,
               "mergesort": 1 << 26}
+# bf16 (M, K, N) whose rows of a are not 16-byte strides: the mma kernel.
+GEMM_MMA_SHAPE = (8192, 8190, 8192)
 HEAT3D_STEPS = 10
 GESUMMV_ALPHA, GESUMMV_BETA, AXPY_A = 1.5, -0.5, 2.5
 
@@ -746,13 +770,14 @@ def _paper_tol(name: str, dtype, k: int) -> tuple:
     return 2.0 ** -8 * k ** 0.5, 2.0 ** -7
 
 
-def _paper_case(name: str, size: int, dtype, g) -> dict:
+def _paper_case(name: str, size, dtype, g) -> dict:
     """Inputs, entry point, kernel wrapper, plain version, library call,
-    bytes and flops of one paper-kernel case, on the card."""
+    bytes and flops of one paper-kernel case, on the card. A gemm size is
+    M = K = N, or an (M, K, N) tuple."""
     from repro_torch.kernels import axpy, gemm, gesummv, heat3d_step
     from repro_torch.kernels.axpy.ops import axpy_op
     from repro_torch.kernels.axpy.ref import axpy_ref
-    from repro_torch.kernels.gemm.ops import matmul
+    from repro_torch.kernels.gemm.ops import kernel_for, matmul
     from repro_torch.kernels.gemm.ref import gemm_ref
     from repro_torch.kernels.gesummv.ops import gesummv_op
     from repro_torch.kernels.gesummv.ref import gesummv_ref
@@ -761,11 +786,14 @@ def _paper_case(name: str, size: int, dtype, g) -> dict:
     mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
     it = torch.tensor([], dtype=dtype).element_size()
     if name == "gemm":
-        a, b = mk(size, size), mk(size, size)
-        return dict(k=size, entry=lambda: matmul(a, b), launches=1,
+        m, k, n = (size,) * 3 if isinstance(size, int) else size
+        a, b = mk(m, k), mk(k, n)
+        aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+        return dict(k=k, entry=lambda: matmul(a, b), launches=1,
+                    kind=kernel_for(dtype, m, n, k, aligned),
                     kernel=lambda: gemm(a, b), plain=lambda: gemm_ref(a, b),
                     library=lambda: torch.matmul(a, b),
-                    nbytes=3 * size * size * it, flops=2 * size ** 3)
+                    nbytes=(m * k + k * n + m * n) * it, flops=2 * m * n * k)
     if name == "gesummv":
         A, B, x = mk(size, size), mk(size, size), mk(size)
         args = (GESUMMV_ALPHA, GESUMMV_BETA, A, B, x)
@@ -807,67 +835,88 @@ def phase_paper_kernels() -> dict:
     held against its plain version; then kernel, plain and library timed.
     Counts are reset just before each entry-point call and read just after
     it; the comparison and timing launches come after that read."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import gemm, launch_counts, reset_launch_counts
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     names = {"gemm": "gemm", "gesummv": "gesummv", "axpy": "axpy",
              "heat3d": "heat3d_step"}
+    cases = [(label, short, sizes[short], dtype)
+             for label, sizes in (("paper", PAPER_SIZES), ("h100", H100_SIZES))
+             for short in names for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(("h100_mma", "gemm", GEMM_MMA_SHAPE, torch.bfloat16))
     res = {}
-    for label, sizes in (("paper", PAPER_SIZES), ("h100", H100_SIZES)):
-        for short, name in names.items():
-            size = sizes[short]
-            for dtype in (torch.float32, torch.bfloat16):
-                case = _paper_case(short, size, dtype, g)
-                torch.cuda.synchronize()
-                reset_launch_counts()
-                out = case["entry"]()
-                torch.cuda.synchronize()
-                launches = launch_counts()
-                assert launches[name] == case["launches"], launches
-                assert all(n == 0 for k, n in launches.items() if k != name), \
-                    launches
-                ref = case.get("entry_plain", case["plain"])()
-                torch.cuda.synchronize()
-                assert out.shape == ref.shape and out.dtype == ref.dtype
-                assert torch.isfinite(out).all(), f"{name}: non-finite"
-                atol, rtol = _paper_tol(name, dtype, case["k"])
-                diff = (out.float() - ref.float()).abs()
-                err = diff.max().item()
-                bad = int((diff > atol + rtol * ref.float().abs()).sum())
-                del diff, out, ref
-                assert bad == 0, (f"{name} {label} {dtype}: {bad} elements "
-                                  f"off, max abs err {err}")
-                big = label == "h100"
-                iters = 3 if (big and short == "gemm") else 20
-                warm = 1 if (big and short == "gemm") else 3
-                ms = cuda_ms(case["kernel"], warm, iters)
-                plain = cuda_ms(case["plain"], 1, min(iters, 5))
-                lib = (cuda_ms(case["library"], warm, iters)
-                       if "library" in case else None)
-                two_mv = (cuda_ms(case["two_mv"], warm, iters)
-                          if "two_mv" in case else None)
-                bound, by = _bound(case["nbytes"], case["flops"], dtype)
-                row = dict(size=size, dtype=str(dtype), launches=launches[name],
-                           max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
-                           plain_ms=plain, library_ms=lib, bound_ms=bound,
-                           bound_by=by, bytes=case["nbytes"],
-                           flops=case["flops"])
-                if two_mv is not None:
-                    row["two_mv_ms"] = two_mv
-                if short == "heat3d" and dtype == torch.float32:
-                    # the yardstick computes the same stencil on the interior
-                    conv = case["library"]()[0, 0]
-                    row["library_max_abs_err"] = (
-                        conv - case["plain"]()[1:-1, 1:-1, 1:-1]).abs().max().item()
-                    assert row["library_max_abs_err"] <= 1e-5, row
-                if short == "heat3d":
-                    row["steps"] = HEAT3D_STEPS
-                    row["ms_all_steps"] = cuda_ms(case["entry"], 1, 3)
-                emit(f"phase5 paper {name}", sizes=label, **row)
-                res[(name, label, dtype)] = row
-                del case
-                torch.cuda.empty_cache()
+    for label, short, size, dtype in cases:
+        name = names[short]
+        case = _paper_case(short, size, dtype, g)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = case["entry"]()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        wgmma_launches = gemm.wgmma_launches
+        assert launches[name] == case["launches"], launches
+        if short == "gemm":
+            assert wgmma_launches == (case["kind"] == "wgmma"), \
+                (case["kind"], wgmma_launches)
+            if label == "h100" and dtype == torch.bfloat16:
+                assert case["kind"] == "wgmma", case["kind"]
+            if label == "h100_mma":
+                assert case["kind"] == "mma", case["kind"]
+        assert all(n == 0 for k, n in launches.items() if k != name), \
+            launches
+        ref = case.get("entry_plain", case["plain"])()
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out).all(), f"{name}: non-finite"
+        atol, rtol = _paper_tol(name, dtype, case["k"])
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        bad = int((diff > atol + rtol * ref.float().abs()).sum())
+        del diff, out, ref
+        assert bad == 0, (f"{name} {label} {dtype}: {bad} elements "
+                          f"off, max abs err {err}")
+        # fp32 gemm at the H100 size takes ~25 ms a call
+        slow = label == "h100" and short == "gemm" and \
+            dtype == torch.float32
+        iters = 3 if slow else 20
+        warm = 1 if slow else 3
+        ms = cuda_ms(case["kernel"], warm, iters)
+        plain = cuda_ms(case["plain"], 1, min(iters, 5))
+        lib = (cuda_ms(case["library"], warm, iters)
+               if "library" in case else None)
+        two_mv = (cuda_ms(case["two_mv"], warm, iters)
+                  if "two_mv" in case else None)
+        bound, by = _bound(case["nbytes"], case["flops"], dtype)
+        row = dict(size=size, dtype=str(dtype), launches=launches[name],
+                   max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bound,
+                   bound_by=by, bytes=case["nbytes"],
+                   flops=case["flops"])
+        if two_mv is not None:
+            row["two_mv_ms"] = two_mv
+        if short == "gemm":
+            row["kernel"] = case["kind"]
+            row["wgmma_launches"] = wgmma_launches
+        if short in ("gemm", "axpy"):
+            # without the host's per-call work between the events
+            row["ms_back_to_back"] = back_to_back_ms(
+                case["kernel"], warm, iters)
+            row["library_ms_back_to_back"] = back_to_back_ms(
+                case["library"], warm, iters)
+        if short == "heat3d" and dtype == torch.float32:
+            # the yardstick computes the same stencil on the interior
+            conv = case["library"]()[0, 0]
+            row["library_max_abs_err"] = (
+                conv - case["plain"]()[1:-1, 1:-1, 1:-1]).abs().max().item()
+            assert row["library_max_abs_err"] <= 1e-5, row
+        if short == "heat3d":
+            row["steps"] = HEAT3D_STEPS
+            row["ms_all_steps"] = cuda_ms(case["entry"], 1, 3)
+        emit(f"phase5 paper {name}", sizes=label, **row)
+        res[(name, label, dtype)] = row
+        del case
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1139,9 +1188,17 @@ def main(argv=None) -> int:
             "size": main_row["size"], "dtype": main_row["dtype"],
             **({"two_mv_ms": main_row["two_mv_ms"]}
                if "two_mv_ms" in main_row else {}),
+            **({k: main_row[k] for k in ("kernel", "ms_back_to_back",
+                                         "library_ms_back_to_back")
+                if k in main_row}),
+            **({"wgmma_launches": sum(r["wgmma_launches"] for r in rows)}
+               if name == "gemm" else {}),
             "cases": [{k: r[k] for k in ("size", "dtype", "launches",
+                                         "kernel", "wgmma_launches",
                                          "max_abs_err", "ms", "plain_ms",
                                          "library_ms", "two_mv_ms",
+                                         "ms_back_to_back",
+                                         "library_ms_back_to_back",
                                          "bound_ms", "bound_by") if k in r}
                       for r in rows]})
     kernels += _sort_rows(sort)

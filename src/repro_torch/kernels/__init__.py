@@ -32,3 +32,4 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     flash_attention_fwd.wgmma_launches = 0
+    gemm.wgmma_launches = 0

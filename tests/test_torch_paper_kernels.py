@@ -29,7 +29,7 @@ from repro_torch.kernels import (axpy, gemm, gesummv, heat3d_step,  # noqa: E402
                                  launch_counts, reset_launch_counts)
 from repro_torch.kernels.axpy.ops import axpy_op  # noqa: E402
 from repro_torch.kernels.axpy.ref import axpy_ref  # noqa: E402
-from repro_torch.kernels.gemm.ops import matmul  # noqa: E402
+from repro_torch.kernels.gemm.ops import kernel_for, matmul  # noqa: E402
 from repro_torch.kernels.gemm.ref import gemm_ref  # noqa: E402
 from repro_torch.kernels.gesummv.ops import gesummv_op  # noqa: E402
 from repro_torch.kernels.gesummv.ref import gesummv_ref  # noqa: E402
@@ -62,12 +62,20 @@ def _normal(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
+def _ints(seed, *shape):
+    """Integers in [-4, 4] as float32: their products and sums up to K =
+    4096 are exact in fp32 whatever the order, and exact in bf16."""
+    return np.random.default_rng(seed).integers(-4, 5, shape).astype(np.float32)
+
+
 # ---------------------------------------------------------------- gemm
 
 @pytest.mark.parametrize("m,n,k,bm,bn,bk", [
     (128, 128, 128, 128, 128, 128),
     (256, 512, 384, 64, 128, 128),
     (64, 64, 256, 32, 32, 64),
+    (256, 256, 512, 128, 128, 128),
+    (200, 264, 136, 200, 264, 136),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gemm_matches_jax(m, n, k, bm, bn, bk, dtype):
@@ -82,6 +90,27 @@ def test_gemm_matches_jax(m, n, k, bm, bn, bk, dtype):
     assert torch.equal(out, gemm_ref(ta, tb))
 
 
+@pytest.mark.parametrize("dtype,m,n,k,aligned,kind", [
+    (torch.bfloat16, 128, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 200, 264, 136, True, "wgmma"),
+    (torch.bfloat16, 130, 200, 70, True, "mma"),
+    (torch.bfloat16, 64, 12, 64, True, "mma"),
+    (torch.bfloat16, 64, 64, 128, False, "mma"),
+    (torch.float32, 200, 264, 136, True, "simt"),
+    (torch.float32, 64, 64, 128, False, "simt"),
+    (torch.float16, 128, 128, 128, True, TypeError),
+])
+def test_gemm_kernel_for(dtype, m, n, k, aligned, kind):
+    """The card's kernel is chosen by dtype, shape and alignment alone:
+    wgmma needs 16-byte row strides (K and N multiples of 8) and 16-byte
+    aligned bases for its TMA loads; other bf16 inputs go to mma."""
+    if isinstance(kind, type):
+        with pytest.raises(kind):
+            kernel_for(dtype, m, n, k, aligned)
+    else:
+        assert kernel_for(dtype, m, n, k, aligned) == kind
+
+
 # ---------------------------------------------------------------- axpy
 
 @pytest.mark.parametrize("n,block", [(1024, 1024), (32768, 4096), (4096, 512)])
@@ -93,14 +122,21 @@ def test_axpy_matches_pallas(n, block):
     np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,a", [(4096, 0.1), (1000, 0.1), (4096, 2.5)])
+# Lengths around the kernel's chunking: 8 bf16 to a 16-byte chunk, 4
+# chunks a thread, 256 threads a block (8192 elements a block), and a tail
+# of 5 past the last chunk at 100005 (whose Pallas block is 6667).
+AXPY_EDGE_LENGTHS = (1, 7, 8, 4 * 8 * 256 - 1, 4 * 8 * 256 + 1, 100_005)
+
+
+@pytest.mark.parametrize("n,a", [(4096, 0.1), (1000, 0.1), (4096, 2.5)]
+                         + [(n, 0.1) for n in AXPY_EDGE_LENGTHS])
 def test_axpy_bf16_bit_equal(n, a):
     """The Pallas kernel rounds a to bf16, then the product, then the sum;
     so does the port."""
     jx, tx = _pair(_normal(4, n), "bfloat16")
     jy, ty = _pair(_normal(5, n), "bfloat16")
     out = axpy(a, tx, ty)
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (n,)
     for ref in (pallas_axpy(jnp.asarray(a), jx, jy), jax_axpy_ref(a, jx, jy)):
         np.testing.assert_array_equal(_np(out), _np(ref))
 
@@ -226,28 +262,43 @@ def test_paper_cpu_path_launches_no_kernel():
 
 # ---------------------------------------------------------------- on card
 
+# (m, k, n, inputs) of the card's gemm cases: ragged edges on every kernel;
+# bf16 N = 12 and K = 70 rows are not 16-byte strides (mma), the rest run
+# wgmma: M, N and K off the 128 x 256 x 64 tiles, 187 tiles over at most
+# 132 CTAs (persistent, a partial raster group, one 8-column B slab at the
+# N edge), and K = 4096 on exact integers.
+GEMM_CARD_SHAPES = ((130, 70, 200, _normal), (64, 64, 12, _normal),
+                    (200, 136, 264, _normal), (1400, 136, 4104, _normal),
+                    (1024, 4096, 2048, _ints))
+
+
 def _card_cases(dev):
-    """(name, call of the kernel, call of the plain version, atol, rtol) at
-    small shapes with ragged edges, fp32 and bf16."""
+    """(name, dtype, call of the kernel, call of the plain version, atol,
+    rtol) at small shapes with ragged edges, fp32 and bf16. A gemm case is
+    named after the kernel that takes it: "gemm:<kernel_for>"."""
     out = []
     for dtype, tdt in ((d, DTYPES[d][1]) for d in DTYPES):
-        t = lambda seed, *s: torch.from_numpy(_normal(seed, *s)).to(dev, tdt)
+        t = lambda seed, *s, f=_normal: torch.from_numpy(f(seed, *s)).to(dev, tdt)
         exact = dtype == "float32"
-        a, b = t(20, 130, 70), t(21, 70, 200)
-        out.append(("gemm", dtype, lambda a=a, b=b: gemm(a, b),
-                    lambda a=a, b=b: gemm_ref(a, b),
-                    1e-4, 1e-5 if exact else 2 ** -7))
-        A, B, x = t(22, 77, 300), t(23, 77, 300), t(24, 300)
+        for i, (m, k, n, f) in enumerate(GEMM_CARD_SHAPES):
+            a, b = t(20 + 2 * i, m, k, f=f), t(21 + 2 * i, k, n, f=f)
+            out.append((f"gemm:{kernel_for(tdt, m, n, k)}", dtype,
+                        lambda a=a, b=b: gemm(a, b),
+                        lambda a=a, b=b: gemm_ref(a, b),
+                        1e-4, 1e-5 if exact else 2 ** -7))
+        A, B, x = t(40, 77, 300), t(41, 77, 300), t(42, 300)
         out.append(("gesummv", dtype,
                     lambda A=A, B=B, x=x: gesummv(1.5, -0.5, A, B, x),
                     lambda A=A, B=B, x=x: gesummv_ref(1.5, -0.5, A, B, x),
                     1e-4, 1e-5 if exact else 2 ** -7))
-        x, y = t(25, 1003), t(26, 1003)
-        out.append(("axpy", dtype, lambda x=x, y=y: axpy(0.1, x, y),
-                    lambda x=x, y=y: axpy_ref(0.1, x, y), 0.0, 0.0))
-        out.append(("axpy_unaligned", dtype,
-                    lambda x=x, y=y: axpy(0.1, x[1:], y[1:]),
-                    lambda x=x, y=y: axpy_ref(0.1, x[1:], y[1:]), 0.0, 0.0))
+        for j, n in enumerate((1003,) + AXPY_EDGE_LENGTHS):
+            x, y = t(43 + 2 * j, n + 1), t(44 + 2 * j, n + 1)
+            out.append(("axpy", dtype,
+                        lambda x=x, y=y, n=n: axpy(0.1, x[:n], y[:n]),
+                        lambda x=x, y=y, n=n: axpy_ref(0.1, x[:n], y[:n]), 0.0, 0.0))
+            out.append(("axpy_unaligned", dtype,
+                        lambda x=x, y=y: axpy(0.1, x[1:], y[1:]),
+                        lambda x=x, y=y: axpy_ref(0.1, x[1:], y[1:]), 0.0, 0.0))
         u = t(27, 37, 19, 45)
         out.append(("heat3d_step", dtype, lambda u=u: heat3d_step(u),
                     lambda u=u: heat3d_step_ref(u), 0.0, 0.0))
@@ -257,15 +308,35 @@ def _card_cases(dev):
 def test_paper_kernels_match_plain_on_card(cuda):
     for name, dtype, kern, plain, atol, rtol in _card_cases(cuda):
         before = dict(launch_counts())
+        wgmma_before = gemm.wgmma_launches
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
-        key = name.replace("_unaligned", "")
+        key = name.split(":")[0].replace("_unaligned", "")
         assert launch_counts()[key] == before[key] + 1, name
+        assert gemm.wgmma_launches == wgmma_before + (name == "gemm:wgmma"), name
         assert out.dtype == ref.dtype and out.shape == ref.shape, name
         err = (out.float() - ref.float()).abs()
         bound = atol + rtol * ref.float().abs()
         assert bool((err <= bound).all()), (name, dtype, err.max().item())
+
+
+def test_gemm_misaligned_bf16_runs_mma_on_card(cuda):
+    """A view 8 bytes into its storage has the wgmma kernel's shape but not
+    its alignment: it goes to the mma kernel, chosen before the launch."""
+    m, k, n = 64, 128, 64
+    flat = torch.from_numpy(_normal(60, m * k + 4)).to(cuda, torch.bfloat16)
+    a = flat[4:].view(m, k)
+    b = torch.from_numpy(_normal(61, k, n)).to(cuda, torch.bfloat16)
+    assert kernel_for(a.dtype, m, n, k) == "wgmma" and a.data_ptr() % 16
+    assert kernel_for(a.dtype, m, n, k, aligned=False) == "mma"
+    before, wgmma_before = gemm.launches, gemm.wgmma_launches
+    out = gemm(a, b)
+    torch.cuda.synchronize()
+    assert (gemm.launches, gemm.wgmma_launches) == (before + 1, wgmma_before)
+    torch.testing.assert_close(out, gemm_ref(a, b), atol=1e-4, rtol=2 ** -7)
+    torch.testing.assert_close(gemm(a.clone(), b), gemm_ref(a, b), atol=1e-4,
+                               rtol=2 ** -7)
 
 
 def test_heat3d_keeps_boundary_and_input_on_card(cuda):
