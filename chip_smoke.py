@@ -10,9 +10,12 @@ Phases (each prints one line; any failure exits non-zero):
      the global and the per-slot paged decode and flash prefill (bf16 also
      at head dims 128 and 256, on the wgmma kernel); CUDA-event times of
      kernel, plain version and the library yardstick, each kernel's bound,
-     and the global decode's "hbm" table residency against "smem". Flash
-     is also timed at 4096 tokens in llama3.2-1b's, qwen2-7b's and
-     gemma2-2b's widths, with the kernel's device time from torch.profiler.
+     and the global decode's "hbm" table residency against "smem". The
+     decode rows add the kernel's device time (torch.profiler), the time of
+     calls enqueued back to back and the kernel launches a call, and both
+     decode kernels are also timed at long context past the 50 MB L2
+     (DECODE_LONG). Flash is also timed at 4096 tokens in llama3.2-1b's,
+     qwen2-7b's and gemma2-2b's widths, with its device time.
   3. full-width llama3.2-1b (bf16, random seeded weights) served by the
      zero-copy paged engine: prefix sharing, CoW, launch counters (every
      flash launch a wgmma one).
@@ -37,6 +40,12 @@ Phases (each prints one line; any failure exits non-zero):
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
+
+    python3 chip_smoke.py --decode-only [--src DIR]
+
+builds the decode kernel and runs phase 2's decode rows alone, importing
+repro_torch from DIR (another tree's src/) if given: two trees timed in
+turns, one process each.
 """
 from __future__ import annotations
 
@@ -104,20 +113,21 @@ def back_to_back_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 # ------------------------------------------------------------------ phase 1
 
-def phase_card() -> dict:
+def phase_card(sources=None) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     from repro_torch.kernels.build import SOURCES, build
+    sources = SOURCES if sources is None else sources
     t0 = time.perf_counter()
-    logs = build(SOURCES, ptxas_verbose=True)
+    logs = build(sources, ptxas_verbose=True)
     seconds = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    emit("phase1 card+build", card=card, sources=list(SOURCES),
+    emit("phase1 card+build", card=card, sources=list(sources),
          build_s=round(seconds, 3), ptxas=ptxas)
     return {"card": card}
 
@@ -206,18 +216,23 @@ def _slot_decode_bound(q, kp, table, lengths) -> tuple:
 
 def _sdpa_gathered(q, k, v, lens):
     """The library yardstick: SDPA over logical (B, P, page, Hkv, D) K/V
-    gathered beforehand (the gather, the paged part, is not timed)."""
-    B = q.shape[0]
-    G = HQ // HKV
-    kd = k.reshape(B, -1, HKV, D).repeat_interleave(G, 2).transpose(1, 2) \
+    gathered and repeated to Hq beforehand (the gather, the paged part, is
+    not timed)."""
+    B, Hq, Dh = q.shape
+    Hkv = k.shape[-2]
+    G = Hq // Hkv
+    kd = k.reshape(B, -1, Hkv, Dh).repeat_interleave(G, 2).transpose(1, 2) \
         .contiguous()
-    vd = v.reshape(B, -1, HKV, D).repeat_interleave(G, 2).transpose(1, 2) \
+    vd = v.reshape(B, -1, Hkv, Dh).repeat_interleave(G, 2).transpose(1, 2) \
         .contiguous()
     pos = torch.arange(kd.shape[2], device="cuda")
     mask = (pos[None] < lens[:, None])[:, None, None, :]
     qd = q[:, :, None, :]
-    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
+    del kd, vd
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _bound(nbytes, flops, dtype) -> tuple:
@@ -237,14 +252,126 @@ def _flash_flops(B, Sq, Skv, Hq, D, causal, window, q_offset):
     return 4 * B * Hq * D * int(mask.sum())
 
 
-def phase_kernels() -> dict:
+# Long-context decode past the 50 MB L2, bf16, every row full: (layout, B,
+# Hq, Hkv, D, tokens a row). llama3.2-1b's widths and qwen2-7b's (G = 7)
+# over one shared pool of 8192 pages, then llama3.2-1b's over per-slot
+# pools; 268,435,456 K/V bytes each.
+DECODE_LONG = [("global", 32, 32, 8, 64, 4096),
+               ("global", 16, 28, 4, 128, 8192),
+               ("slot", 32, 32, 8, 64, 4096)]
+DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
+
+
+def _call_device(fn, name: str = DECODE_KERNELS, iters: int = 20) -> tuple:
+    """(device ms a call of the kernels whose name holds ``name``, device
+    launches a call of any kernel, launches recorded) over ``iters`` calls
+    of ``fn``, from torch.profiler: the kernels alone, without the
+    wrapper's host work between them. A session that records none of them
+    (it happens now and then in a long process) is tried again, up to three
+    times; then (None, None, 0)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        mine = [e for e in evs if name in e.key]
+        if mine:
+            dev = sum(_device_us(e) for e in mine) / iters / 1e3
+            return (dev, sum(e.count for e in evs) / iters,
+                    sum(e.count for e in mine))
+    return None, None, 0
+
+
+def _decode_times(call, plain, nbytes, flops, dtype, plain_iters=5) -> dict:
+    """One call's CUDA-event ms, its device ms and launches, the time of
+    calls enqueued back to back, the plain version's ms and the bound."""
+    dev, per_call, recorded = _call_device(call)
+    bound, by = _bound(nbytes, flops, dtype)
+    ms = cuda_ms(call)
+    return dict(ms=ms, device_ms=dev, ms_back_to_back=back_to_back_ms(call),
+                kernel_launches_per_call=per_call,
+                device_launches_recorded=recorded,
+                plain_ms=cuda_ms(plain, warmup=1, iters=plain_iters),
+                bound_ms=bound, bound_by=by, bound_share=bound / ms,
+                device_bound_share=None if dev is None else bound / dev,
+                bytes=nbytes, flops=flops)
+
+
+def _long_decode_inputs(layout, B, Hq, Hkv, Dh, tokens, g):
+    n = tokens // PAGE
+    mk = lambda *sh: torch.randn(*sh, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+    if layout == "global":
+        table = torch.randperm(B * n, generator=g, device="cuda") \
+            .to(torch.int32).view(B, n)
+        shape = (B * n, PAGE, Hkv, Dh)
+    else:
+        table = torch.stack([torch.randperm(n, generator=g, device="cuda")
+                             for _ in range(B)]).to(torch.int32)
+        shape = (B, n, PAGE, Hkv, Dh)
+    lens = torch.full((B,), tokens, dtype=torch.int32, device="cuda")
+    return mk(B, Hq, Dh), mk(*shape), mk(*shape), table, lens
+
+
+def _decode_long() -> list:
+    """Both decode kernels at the DECODE_LONG shapes: error against the
+    plain version (exact zeros are not at stake: every row is full), times
+    beside the byte bound, and SDPA on the gathered K/V."""
     from repro_torch.kernels import paged_attention_global
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import (
         gather_global_pages, gather_slot_pages, paged_attention_global_ref,
         paged_attention_ref)
-    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
-    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for layout, B, Hq, Hkv, Dh, tokens in DECODE_LONG:
+        q, kp, vp, tbl, lens = _long_decode_inputs(layout, B, Hq, Hkv, Dh,
+                                                   tokens, g)
+        fn, ref_fn, gather, bound_fn = (
+            (paged_attention_global, paged_attention_global_ref,
+             gather_global_pages, _decode_bound) if layout == "global" else
+            (paged_attention, paged_attention_ref, gather_slot_pages,
+             _slot_decode_bound))
+        out = fn(q, kp, vp, tbl, lens)
+        ref = ref_fn(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        del ref
+        assert torch.isfinite(out).all(), f"long decode {layout}: non-finite"
+        assert err <= TOL[torch.bfloat16], f"long decode {layout}: err {err}"
+        nbytes, flops = bound_fn(q, kp, tbl, lens)
+        row = dict(layout=layout, dtype=str(torch.bfloat16), B=B, Hq=Hq,
+                   Hkv=Hkv, D=Dh, page=PAGE, tokens=tokens, max_abs_err=err,
+                   tol=TOL[torch.bfloat16],
+                   **_decode_times(lambda: fn(q, kp, vp, tbl, lens),
+                                   lambda: ref_fn(q, kp, vp, tbl, lens),
+                                   nbytes, flops, torch.bfloat16,
+                                   plain_iters=3))
+        row["sdpa_gathered_ms"] = _sdpa_gathered(q, gather(kp, tbl),
+                                                 gather(vp, tbl), lens)
+        emit("phase2 decode long", **row)
+        rows.append(row)
+        del q, kp, vp, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_decode() -> dict:
+    """Phase 2's decode rows: both layouts at the serving shapes (fp32 and
+    bf16, softcap None and 30, exact zeros in the length-0 and all-NULL
+    rows), their times, the "hbm" residency turns, then DECODE_LONG. The
+    serving shapes' K/V fit in the L2: their times are L2-warm."""
+    from repro_torch.kernels import paged_attention_global
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        gather_global_pages, gather_slot_pages, paged_attention_global_ref,
+        paged_attention_ref)
     rng = np.random.default_rng(SEED)
     res = {}
     # ---- paged decode
@@ -263,18 +390,16 @@ def phase_kernels() -> dict:
             assert err <= TOL[dtype], f"decode {dtype} cap={cap}: err {err}"
             emit("phase2 decode", dtype=str(dtype), softcap=cap,
                  max_abs_err=err, tol=TOL[dtype])
-        ms = cuda_ms(lambda: paged_attention_global(q, kp, vp, tbl, lens))
-        plain = cuda_ms(lambda: paged_attention_global_ref(q, kp, vp, tbl, lens),
-                        iters=5)
+        nbytes, flops = _decode_bound(q, kp, tbl, lens)
+        t = _decode_times(
+            lambda: paged_attention_global(q, kp, vp, tbl, lens),
+            lambda: paged_attention_global_ref(q, kp, vp, tbl, lens),
+            nbytes, flops, dtype)
         sdpa = _sdpa_gathered(q, gather_global_pages(kp, tbl),
                               gather_global_pages(vp, tbl), lens)
-        nbytes, flops = _decode_bound(q, kp, tbl, lens)
-        bound, by = _bound(nbytes, flops, dtype)
-        emit("phase2 decode timing", dtype=str(dtype), ms=ms, plain_ms=plain,
-             sdpa_gathered_ms=sdpa, bound_ms=bound, bound_by=by,
-             bytes=nbytes, flops=flops)
-        res[("decode", dtype)] = dict(err=max(errs), ms=ms, plain_ms=plain,
-                                      sdpa=sdpa, bound=bound, by=by)
+        emit("phase2 decode timing", dtype=str(dtype), l2_warm=True,
+             sdpa_gathered_ms=sdpa, **t)
+        res[("decode", dtype)] = dict(err=max(errs), sdpa=sdpa, **t)
         # The LLC-off baseline: pages gathered through the table first, then
         # the per-slot kernel on an identity table. In turns with "smem".
         out = paged_attention_global(q, kp, vp, tbl, lens,
@@ -306,18 +431,23 @@ def phase_kernels() -> dict:
             assert err <= TOL[dtype], f"slot decode {dtype} cap={cap}: err {err}"
             emit("phase2 slot decode", dtype=str(dtype), softcap=cap,
                  max_abs_err=err, tol=TOL[dtype])
-        ms = cuda_ms(lambda: paged_attention(q, kp, vp, tbl, lens))
-        plain = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tbl, lens),
-                        iters=5)
+        nbytes, flops = _slot_decode_bound(q, kp, tbl, lens)
+        t = _decode_times(lambda: paged_attention(q, kp, vp, tbl, lens),
+                          lambda: paged_attention_ref(q, kp, vp, tbl, lens),
+                          nbytes, flops, dtype)
         sdpa = _sdpa_gathered(q, gather_slot_pages(kp, tbl),
                               gather_slot_pages(vp, tbl), lens)
-        nbytes, flops = _slot_decode_bound(q, kp, tbl, lens)
-        bound, by = _bound(nbytes, flops, dtype)
-        emit("phase2 slot decode timing", dtype=str(dtype), ms=ms,
-             plain_ms=plain, sdpa_gathered_ms=sdpa, bound_ms=bound,
-             bound_by=by, bytes=nbytes, flops=flops)
-        res[("slot", dtype)] = dict(err=max(errs), ms=ms, plain_ms=plain,
-                                    sdpa=sdpa, bound=bound, by=by)
+        emit("phase2 slot decode timing", dtype=str(dtype), l2_warm=True,
+             sdpa_gathered_ms=sdpa, **t)
+        res[("slot", dtype)] = dict(err=max(errs), sdpa=sdpa, **t)
+    res["decode_long"] = _decode_long()
+    return res
+
+
+def phase_kernels() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
+    torch.backends.cudnn.allow_tf32 = False
+    res = phase_decode()
     res["flash_cases"] = _flash_cases()
     res["flash_timed"] = _flash_timed()
     return res
@@ -659,7 +789,8 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
     """The phase-3 serve again, under torch.profiler: device busy time
     (the sum over device-side events only, kernels and copies, so no time
     is counted twice under the host op that launched it) against wall
-    time, and the top device kernels and host ops."""
+    time, the decode kernels' device time and launches, and the top device
+    kernels and host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -673,9 +804,12 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
     top = lambda evs, key: [(e.key[:60], e.count, round(key(e) / 1e3, 3))
                             for e in sorted(evs, key=key, reverse=True)[:12]]
     s = eng.stats()
+    decode = [e for e in dev if DECODE_KERNELS in e.key]
     emit("phase3b profile", wall_s=wall, device_busy_ms=busy_ms,
          device_idle_share=1 - busy_ms / (wall * 1e3),
          device_launches=sum(e.count for e in dev),
+         decode_device_ms=sum(_device_us(e) for e in decode) / 1e3,
+         decode_device_launches=sum(e.count for e in decode),
          prefill_s=s["prefill_s"], decode_s=s["decode_s"],
          decode_steps=s["decode_steps"],
          top_device_ms=top(dev, _device_us),
@@ -1112,17 +1246,42 @@ def _sort_rows(sort: dict) -> list:
     return out
 
 
+def _decode_row(t: dict) -> dict:
+    """The kernels-line fields of a decode kernel at the serving shape."""
+    return {"ms": t["ms"], "device_ms": t["device_ms"],
+            "ms_back_to_back": t["ms_back_to_back"],
+            "launches_per_call": t["kernel_launches_per_call"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "sdpa_gathered_ms": t["sdpa"]}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also serve the phase-3 requests under "
                          "torch.profiler and print where the time goes")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build the decode kernel and run phase 2's decode "
+                         "rows only (to time two trees in turns)")
+    ap.add_argument("--src", default=None,
+                    help="import repro_torch from this directory instead "
+                         "of the script's own src/ (with --decode-only)")
     args = ap.parse_args(argv)
+    if args.src is not None:
+        sys.path.insert(0, os.path.abspath(args.src))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if args.decode_only:
+        import repro_torch
+        emit("decode-only", src=os.path.dirname(os.path.dirname(
+            os.path.abspath(repro_torch.__file__))))
+        phase_card(["paged_attention"])
+        phase_decode()
+        return 0
     phase_card()
     res = phase_kernels()
     launches, served, zc_outs, zc_figures = phase_serve()
@@ -1143,20 +1302,20 @@ def main(argv=None) -> int:
          "launches": launches["paged_attention_global"],
          "max_abs_err": dec["err"],
          "max_abs_err_fp32": res[("decode", torch.float32)]["err"],
-         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-         "bound_ms": dec["bound"], "bound_by": dec["by"],
-         "library_ms": None, "sdpa_gathered_ms": dec["sdpa"],
+         **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
-         "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"]},
+         "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
+         "long_context": [r for r in res["decode_long"]
+                          if r["layout"] == "global"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:102",
          "launches": copy_launches["paged_attention"],
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
-         "ms": slot["ms"], "plain_ms": slot["plain_ms"],
-         "bound_ms": slot["bound"], "bound_by": slot["by"],
-         "library_ms": None, "sdpa_gathered_ms": slot["sdpa"]},
+         **_decode_row(slot),
+         "long_context": [r for r in res["decode_long"]
+                          if r["layout"] == "slot"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",

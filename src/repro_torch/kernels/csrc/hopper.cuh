@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, TMA tensor loads and host-side tensor-map encoding, wgmma
+// mbarriers, 1-D bulk copies, TMA tensor loads and host-side tensor-map
+// encoding, wgmma
 // shared-memory descriptors and the m64n64k16 and m64n256k16 bf16 products,
 // and register hand-over between warpgroups (setmaxnreg).
 //
@@ -58,6 +59,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ----------------------------------------------------------- bulk copy
+
+// Copies ``bytes`` contiguous bytes from global memory at ``src`` to shared
+// memory at ``dst`` through the TMA unit, without a tensor map; completion
+// is reported to ``bar`` as transaction bytes (announce them first with
+// mbar_arrive_expect_tx). ``src`` and ``dst`` must be 16-byte aligned and
+// ``bytes`` a multiple of 16: the hardware refuses anything else. Without a
+// cluster launch a CTA's shared::cluster address is its shared::cta one.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ------------------------------------------------------------------- TMA

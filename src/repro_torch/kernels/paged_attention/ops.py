@@ -2,10 +2,13 @@
 
 ``paged_attention`` (per-slot pools) and ``paged_attention_global`` (one
 shared pool) take the plain version for tensors on the CPU and launch
-``csrc/paged_attention.cu`` for tensors on a CUDA device; they never fall
-back from one to the other. Each wrapper's ``.launches`` counts its kernel
-launches. ``paged_decode`` dispatches on the pool's rank, as
-``repro/kernels/paged_attention/ops.py`` does.
+``csrc/paged_attention.cu`` for tensors on a CUDA device, one kernel a call;
+they never fall back from one to the other. Each wrapper's ``.launches``
+counts its kernel launches. On a card the wrapper raises ``ValueError``
+before the launch for what the kernel's bulk copies cannot take: a pool
+base off 16 bytes, or D * itemsize not a multiple of 16. ``paged_decode``
+dispatches on the pool's rank, as ``repro/kernels/paged_attention/ops.py``
+does.
 
 ``table_residency="hbm"`` is the LLC-off baseline of the JAX kernels: the
 translations are not read next to the page loads; the pages are first
@@ -26,7 +29,10 @@ from repro_torch.kernels.paged_attention.ref import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RESIDENCIES = ("smem", "hbm")
+_STAGE_BYTES = 32 * 1024     # K + V of one stage of the kernel's ring
+_MAX_D = 256                 # the kernel's largest head dim
 _launchers = {}
+_counters = {}
 
 
 def _launch_fn(symbol: str):
@@ -34,8 +40,8 @@ def _launch_fn(symbol: str):
     if fn is None:
         from repro_torch.kernels.build import load
         fn = getattr(load("paged_attention"), symbol)
-        n_ints = 9 if symbol == "paged_attention_global_launch" else 8
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+        n_ints = 12 if symbol == "paged_attention_global_launch" else 11
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launchers[symbol] = fn
@@ -47,11 +53,50 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def n_splits(batch: int, hkv: int, capacity: int, sms: int) -> int:
-    """Splits of each sequence's tokens (flash-decoding): enough blocks for
-    two per SM, never more than one per ~64-token tile of the capacity."""
-    want = -(-2 * sms // max(batch * hkv, 1))
-    return max(1, min(want, -(-capacity // 64)))
+def n_splits(rows: int, n_pages: int, sms: int) -> int:
+    """Splits of each row's pages (flash-decoding): enough CTAs for two an
+    SM over ``rows`` (sequences times head groups), at least one, and never
+    more than one a page of the table's capacity ``n_pages``."""
+    return max(1, min(2 * sms // max(rows, 1), n_pages))
+
+
+def head_groups(hkv: int, g: int) -> tuple:
+    """(KV heads a CTA, query heads a KV head a CTA, CTAs a split of a row):
+    every KV head when there are at most 8, else the largest divisor of Hkv
+    that is; up to 8 of each KV head's G query heads."""
+    hg = max(h for h in range(1, min(hkv, 8) + 1) if hkv % h == 0)
+    gq = min(g, 8)
+    return hg, gq, (hkv // hg) * -(-g // gq)
+
+
+def tokens_per_copy(page: int, hg: int, d: int, itemsize: int) -> int:
+    """Tokens of one page a stage holds: the largest divisor of ``page``
+    whose K and V for ``hg`` heads fit in 32 KB (the whole page at the
+    serving width: bf16, 8 heads, D 64, page 16)."""
+    token = 2 * hg * d * itemsize
+    return max([t for t in range(1, page + 1)
+                if page % t == 0 and t * token <= _STAGE_BYTES] or [1])
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, hkv: int, g: int, d: int, itemsize: int, page: int,
+         n_pages: int, sms: int) -> tuple:
+    """(hg, gq, n_z, tpc, n_split) of a launch: never reads the lengths."""
+    hg, gq, n_z = head_groups(hkv, g)
+    return (hg, gq, n_z, tokens_per_copy(page, hg, d, itemsize),
+            n_splits(batch * n_z, n_pages, sms))
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's per-(row, head group) arrival counters for launches on
+    ``stream`` (so calls on two streams never share one): zeroed once, and
+    reset to zero by the kernel itself."""
+    key = (device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _check(q, k_pool, v_pool, block_table, lengths, table_residency,
@@ -95,26 +140,43 @@ def _check(q, k_pool, v_pool, block_table, lengths, table_residency,
         raise ValueError(f"unsupported device {q.device}")
 
 
+def _check_bulk(k_pool, v_pool):
+    """What a bulk copy cannot take: a pool base off 16 bytes, or a K/V row
+    (D * itemsize) that is not a multiple of 16 bytes; and D over 256."""
+    D = k_pool.shape[-1]
+    row = D * k_pool.element_size()
+    if row % 16 or D > _MAX_D:
+        raise ValueError(f"the decode kernel copies 16-byte vectors: D * "
+                         f"itemsize = {row} bytes must be a multiple of 16, "
+                         f"and D (here {D}) at most {_MAX_D}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the decode kernel's bulk copies need the K and V "
+                         "pools at 16-byte-aligned addresses")
+
+
 def _identity_table(B: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device).expand(B, n) \
         .contiguous()
 
 
 def _launch(symbol, q, k_pool, v_pool, block_table, lengths, sizes, softcap):
-    """Launch ``symbol`` on q's current stream; ``sizes`` are the layout's
-    int arguments between D and n_split."""
+    """Launch ``symbol`` on q's current stream, one kernel; ``sizes`` are
+    the layout's int arguments between D and hg."""
+    _check_bulk(k_pool, v_pool)
     B, Hq, D = q.shape
     page, Hkv = k_pool.shape[-3], k_pool.shape[-2]
-    capacity = block_table.shape[1] * page
-    splits = n_splits(B, Hkv, capacity, _sm_count(q.device))
-    part = torch.empty((B, Hq, splits, D + 2), dtype=torch.float32,
+    hg, gq, n_z, tpc, splits = plan(B, Hkv, Hq // Hkv, D, q.element_size(),
+                                    page, block_table.shape[1],
+                                    _sm_count(q.device))
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launch_fn(symbol)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], B, Hkv, Hq // Hkv, D, *sizes, splits,
+        _counter_buffer(q.device, stream, B * n_z).data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, Hkv, Hq // Hkv, D, *sizes, hg, gq, tpc, splits,
         D ** -0.5, softcap if softcap is not None else 0.0, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {err}")

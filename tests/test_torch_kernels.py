@@ -29,10 +29,12 @@ from repro_torch.kernels import (flash_attention_fwd, launch_counts,  # noqa: E4
                                  paged_attention_global, reset_launch_counts)
 from repro_torch.kernels.flash_attention.ops import kernel_for  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    paged_attention, paged_decode)
+    head_groups, n_splits, paged_attention, paged_decode, tokens_per_copy)
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
-    paged_attention_global_ref, paged_attention_ref)
+    gather_global_pages, gather_slot_pages, paged_attention_global_ref,
+    paged_attention_ref)
 from repro_torch.models import attention as tattn  # noqa: E402
 
 ATOL = 1e-5
@@ -170,6 +172,205 @@ def test_paged_decode_dispatches_on_pool_rank():
                                            softcap=20.0))
     assert torch.equal(paged_decode(gq, gkp, gvp, gtbl, glens),
                        paged_attention_global_ref(gq, gkp, gvp, gtbl, glens))
+
+
+# ---- the decode kernel's work split, modelled in plain torch
+
+def _split_model(q, k, v, lengths, n_split, tpc, softcap=None):
+    """What ``csrc/paged_attention.cu`` computes, step for step in fp64:
+    row b's valid pages cut into ``n_split`` shares of ceil(n_valid /
+    n_split) pages (empty shares at the end), each share walked in copies
+    of ``tpc`` tokens with an online softmax, the shares' (m, l, acc) then
+    merged as the last CTA of the row merges them. k, v: logical (B, P,
+    page, Hkv, D), NULL pages already zero. -> (B, Hq, D)."""
+    B_, Hq, D_ = q.shape
+    _, P_, page, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.double().reshape(B_, Hkv, G, D_) * D_ ** -0.5
+    kf = k.double().reshape(B_, P_ * page, Hkv, D_)
+    vf = v.double().reshape(B_, P_ * page, Hkv, D_)
+    out = torch.zeros(B_, Hkv, G, D_, dtype=torch.float64)
+    for b in range(B_):
+        n = min(max(int(lengths[b]), 0), P_ * page)
+        n_valid = -(-n // page)
+        pps = -(-n_valid // n_split)
+        parts = []
+        for split in range(n_split):
+            t_begin, t_end = split * pps * page, min(n, (split + 1) * pps * page)
+            if t_end <= t_begin:
+                continue
+            m = torch.full((Hkv, G), float("-inf"), dtype=torch.float64)
+            l = torch.zeros(Hkv, G, dtype=torch.float64)
+            acc = torch.zeros(Hkv, G, D_, dtype=torch.float64)
+            for t0 in range(t_begin, t_end, tpc):
+                t1 = min(t0 + tpc, t_end)
+                s = torch.einsum("hgd,thd->hgt", qg[b], kf[b, t0:t1])
+                if softcap is not None:
+                    s = softcap * torch.tanh(s / softcap)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "hgt,thd->hgd", p, vf[b, t0:t1])
+                m = m_new
+            parts.append((m, l, acc))
+        if not parts:
+            continue                        # length 0: exact zeros
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - mx) for m, _, _ in parts]
+        L = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+        A = sum(wi[..., None] * a for wi, (_, _, a) in zip(w, parts))
+        out[b] = A / torch.clamp(L, min=1e-20)[..., None]
+    return out.reshape(B_, Hq, D_).float()
+
+
+def _gqa7_inputs(seed=0):
+    """G = 7 (qwen2-7b's 28/4 at a small size): Hq 14, Hkv 2, a shared
+    page, NULL tails, a length-0 row and an all-NULL row of length 1."""
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((4, 14, D)).astype(np.float32)
+    kp = r.standard_normal((TOTAL, PAGE, HKV, D)).astype(np.float32)
+    vp = r.standard_normal((TOTAL, PAGE, HKV, D)).astype(np.float32)
+    tbl = np.array([[3, 4, 5, 6], [3, 9, TOTAL, TOTAL], [TOTAL] * 4,
+                    [TOTAL] * 4], np.int32)
+    lens = np.array([4 * PAGE - 1, PAGE + 2, 0, 1], np.int32)
+    return q, kp, vp, tbl, lens
+
+
+# (n_split, tpc): one share, two, three, more shares than any row has pages
+# (empty shares); whole pages and copies of part of a page (tpc < page).
+SPLIT_CASES = [(1, PAGE), (2, PAGE), (3, PAGE), (7, PAGE), (1, PAGE // 2),
+               (3, PAGE // 4), (7, 1)]
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("n_split,tpc", SPLIT_CASES)
+def test_split_model_matches_plain_global(n_split, tpc, softcap):
+    q, kp, vp, tbl, lens = map(_t, _paged_inputs(7))
+    out = _split_model(q, gather_global_pages(kp, tbl),
+                       gather_global_pages(vp, tbl), lens, n_split, tpc,
+                       softcap)
+    ref = paged_attention_global_ref(q, kp, vp, tbl, lens, softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    assert (out[2] == 0).all() and (out[4] == 0).all()
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("n_split,tpc", SPLIT_CASES)
+def test_split_model_matches_plain_slot(n_split, tpc, softcap):
+    q, kp, vp, tbl, lens = map(_t, _slot_inputs(7))
+    out = _split_model(q, gather_slot_pages(kp, tbl),
+                       gather_slot_pages(vp, tbl), lens, n_split, tpc, softcap)
+    ref = paged_attention_ref(q, kp, vp, tbl, lens, softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("n_split,tpc,softcap", [(1, PAGE, None),
+                                                 (3, PAGE // 4, 30.0),
+                                                 (7, PAGE // 2, None)])
+def test_split_model_matches_pallas_interpret(n_split, tpc, softcap):
+    """Against the Pallas kernels themselves: the global one with "hbm"
+    residency (it zeroes NULL pages, as the port reads them), every row,
+    and the per-slot one."""
+    q, kp, vp, tbl, lens = _paged_inputs(8)
+    out = _split_model(*map(_t, (q,)), gather_global_pages(_t(kp), _t(tbl)),
+                       gather_global_pages(_t(vp), _t(tbl)), _t(lens),
+                       n_split, tpc, softcap)
+    pal = np.asarray(pallas_global(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                   softcap=softcap, table_residency="hbm",
+                                   interpret=True))
+    np.testing.assert_allclose(out.numpy(), pal, atol=ATOL)
+    q, kp, vp, tbl, lens = _slot_inputs(8)
+    out = _split_model(_t(q), gather_slot_pages(_t(kp), _t(tbl)),
+                       gather_slot_pages(_t(vp), _t(tbl)), _t(lens), n_split,
+                       tpc, softcap)
+    pal = np.asarray(pallas_slot(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                 softcap=softcap, interpret=True))
+    np.testing.assert_allclose(out.numpy(), pal, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_split,tpc", [(1, PAGE), (3, PAGE // 2), (5, 2)])
+def test_split_model_gqa7(n_split, tpc):
+    """G = 7 against the port's plain version and the Pallas kernel (its
+    hbm residency, which zeroes NULL pages as the port does)."""
+    q, kp, vp, tbl, lens = _gqa7_inputs(9)
+    out = _split_model(_t(q), gather_global_pages(_t(kp), _t(tbl)),
+                       gather_global_pages(_t(vp), _t(tbl)), _t(lens),
+                       n_split, tpc, 30.0)
+    ref = paged_attention_global_ref(*map(_t, (q, kp, vp, tbl, lens)),
+                                     softcap=30.0)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    pal = np.asarray(pallas_global(*map(jnp.asarray, (q, kp, vp, tbl, lens)),
+                                   softcap=30.0, table_residency="hbm",
+                                   interpret=True))
+    np.testing.assert_allclose(out.numpy(), pal, atol=ATOL)
+    assert (out[2] == 0).all() and (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 2, 5, 16, 63, 64, 100])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8, 33, 130])
+def test_split_shares_cover_each_page_once(n_valid, n_split):
+    """The kernel's shares of a row's valid pages: disjoint, in order,
+    covering every valid page once; the non-empty ones are a prefix of
+    ceil(n_valid / share) splits, the ones the merge reads."""
+    pps = -(-n_valid // n_split)
+    shares = [range(s * pps, min(n_valid, (s + 1) * pps))
+              for s in range(n_split)]
+    assert [p for sh in shares for p in sh] == list(range(n_valid))
+    used = -(-n_valid // pps) if pps else 0
+    assert all(len(sh) > 0 for sh in shares[:used])
+    assert all(len(sh) == 0 for sh in shares[used:])
+
+
+@pytest.mark.parametrize("rows,n_pages,sms", [
+    (1, 1, 132), (8, 64, 132), (32, 256, 132), (16, 512, 132),
+    (300, 64, 132), (8, 4, 132), (0, 8, 132), (5, 3, 1)])
+def test_n_splits_rule(rows, n_pages, sms):
+    """At least one split, at most one a page of capacity, and otherwise
+    enough CTAs for two an SM."""
+    n = n_splits(rows, n_pages, sms)
+    assert 1 <= n <= max(n_pages, 1)
+    if 1 < n < n_pages:
+        assert n == 2 * sms // rows
+
+
+@pytest.mark.parametrize("page,hkv,g,d,itemsize,tpc,groups", [
+    (16, 8, 4, 64, 2, 16, (8, 4, 1)),      # llama3.2-1b: the whole page
+    (16, 4, 7, 128, 2, 16, (4, 7, 1)),     # qwen2-7b, G = 7
+    (8, 8, 4, 64, 4, 8, (8, 4, 1)),
+    (16, 4, 2, 256, 4, 4, (4, 2, 1)),      # fp32 D 256: tpc < page
+    (16, 8, 8, 256, 4, 2, (8, 8, 1)),
+    (16, 16, 1, 128, 2, 8, (8, 1, 2)),     # olmoe's 16 KV heads: 2 groups
+    (16, 12, 2, 64, 2, 16, (6, 2, 2)),
+    (8, 1, 16, 64, 2, 8, (1, 8, 2))])      # G 16: 2 query groups
+def test_plan_of_a_launch(page, hkv, g, d, itemsize, tpc, groups):
+    hg, gq, n_z = head_groups(hkv, g)
+    assert (hg, gq, n_z) == groups
+    assert tokens_per_copy(page, hg, d, itemsize) == tpc
+    assert page % tpc == 0 and 2 * tpc * hg * d * itemsize <= 32 * 1024
+    assert paged_ops.plan(4, hkv, g, d, itemsize, page, 10, 132)[:4] == \
+        (hg, gq, n_z, tpc)
+
+
+@pytest.mark.parametrize("dtype,d,offset,ok", [
+    (torch.float32, 32, 0, True), (torch.bfloat16, 64, 0, True),
+    (torch.float32, 6, 0, False), (torch.bfloat16, 12, 0, False),
+    (torch.float32, 512, 0, False), (torch.bfloat16, 512, 0, False),
+    (torch.float32, 32, 2, False),
+    (torch.bfloat16, 64, 8, True), (torch.bfloat16, 64, 4, False)])
+def test_bulk_copy_input_rules(dtype, d, offset, ok):
+    """What the kernel's bulk copies refuse, checked before any launch: a
+    row of D * itemsize not a multiple of 16 bytes, a pool base off 16
+    bytes; and D over 256."""
+    flat = torch.zeros(offset + 2 * 8 * 2 * d, dtype=dtype)
+    pool = flat[offset:].view(2, 8, 2, d)
+    if ok:
+        paged_ops._check_bulk(pool, pool)
+    else:
+        with pytest.raises(ValueError):
+            paged_ops._check_bulk(pool, pool)
 
 
 def test_slot_decode_attention_matches_jax_model():
@@ -431,6 +632,102 @@ def test_slot_kernel_matches_plain_on_card(cuda, dtype, tol, residency):
     assert paged_attention.launches == before + 1
     assert (out[2] == 0).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _card_decode_inputs(per_slot, dt, D_, page, Hq_, Hkv_, device, seed=0):
+    """Rows of length 0, 1, page - 1, page, page + 1 and the full table,
+    NULL entries past each length, and an all-NULL row of length 1; in the
+    global layout the full row shares its first page with the page-long
+    row."""
+    P_ = 5
+    lens = [0, 1, page - 1, page, page + 1, P_ * page, 1]
+    B_ = len(lens)
+    rng = np.random.default_rng(seed)
+    if per_slot:
+        tbl = np.stack([rng.permutation(P_) for _ in range(B_)]).astype(np.int32)
+        for b, n in enumerate(lens[:-1]):
+            tbl[b, -(-n // page):] = P_
+        tbl[-1] = P_
+        shape = (B_, P_, page, Hkv_, D_)
+    else:
+        total = B_ * P_
+        perm = rng.permutation(total)
+        tbl = np.full((B_, P_), total, np.int32)
+        nxt = 0
+        for b, n in enumerate(lens[:-1]):
+            k = -(-n // page)
+            tbl[b, :k] = perm[nxt:nxt + k]
+            nxt += k
+        tbl[5, 0] = tbl[3, 0]
+        shape = (total, page, Hkv_, D_)
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device=device).to(dt)
+    return (mk(B_, Hq_, D_), mk(*shape), mk(*shape),
+            torch.from_numpy(tbl).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+def _decode_on_card(per_slot, q, kp, vp, tbl, lens, softcap):
+    """One call of the layout's wrapper against its plain version; asserts
+    exactly one launch and exact zeros in the length-0 and all-NULL rows.
+    Returns the max abs error."""
+    fn, ref_fn = ((paged_attention, paged_attention_ref) if per_slot
+                  else (paged_attention_global, paged_attention_global_ref))
+    before = fn.launches
+    out = fn(q, kp, vp, tbl, lens, softcap=softcap)
+    ref = ref_fn(q, kp, vp, tbl, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out[0] == 0).all() and (out[-1] == 0).all()
+    return (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("hq_,hkv_", [(4, 2), (32, 8), (28, 4), (8, 4)])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("d_", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_decode_kernel_grid_on_card(cuda, per_slot, dtype, tol, d_, page,
+                                    hq_, hkv_, softcap):
+    dt = getattr(torch, dtype)
+    args = _card_decode_inputs(per_slot, dt, d_, page, hq_, hkv_, cuda,
+                               seed=d_ + page + hq_)
+    if dt == torch.float32 and d_ == 256 and hkv_ == 4 and page == 16:
+        hg = head_groups(hkv_, hq_ // hkv_)[0]
+        assert tokens_per_copy(page, hg, d_, 4) < page   # copies of part a page
+    assert _decode_on_card(per_slot, *args, softcap) <= tol
+
+
+@pytest.mark.parametrize("sms", [1, 132, 10000])
+@pytest.mark.parametrize("hq_,hkv_,d_", [(32, 8, 64), (16, 16, 128),
+                                         (64, 4, 64), (24, 12, 32),
+                                         (64, 8, 112), (8, 2, 48)])
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_decode_kernel_splits_on_card(cuda, monkeypatch, per_slot, hq_, hkv_,
+                                      d_, sms):
+    """One split (the CTA writes the output), the card's count, and one
+    split a page (the fused merge over every share); more than 8 KV heads
+    (head groups), G = 16 (query groups), and bf16 head dims off the
+    tensor-core path (112, 48: the CUDA-core one)."""
+    monkeypatch.setattr(paged_ops, "_sm_count", lambda device: sms)
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        args = _card_decode_inputs(per_slot, getattr(torch, dtype), d_, 16,
+                                   hq_, hkv_, cuda, seed=sms + hq_)
+        assert _decode_on_card(per_slot, *args, 30.0) <= tol
+
+
+def test_decode_kernel_rejects_misaligned_pool_on_card(cuda):
+    q, kp, vp, tbl, lens = _card_decode_inputs(False, torch.float32, 64, 16,
+                                               8, 4, cuda)
+    flat = torch.zeros(kp.numel() + 2, device=cuda)
+    k_off = flat[2:].view(kp.shape)                 # 8 bytes off 16
+    k_off.copy_(kp)
+    before = paged_attention_global.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention_global(q, k_off, vp, tbl, lens)
+    assert paged_attention_global.launches == before
 
 
 # bf16 cases of the wgmma kernel on the card: ragged Sq/Skv, non-causal,
