@@ -34,6 +34,10 @@ Phases (each prints one line; any failure exits non-zero):
      calls enqueued back to back (the device's time without the host's
      work between events); one more bf16 gemm at 8192 x 8190 x 8192, whose
      rows are not 16-byte strides, runs and is held on the mma kernel. Then
+     heat3d also at H100 sizes whose rows are ragged, not 16-byte strides,
+     or start one element into their buffer, each row naming the kernel
+     instantiation it ran, with its device time and back-to-back time,
+     and 50 steps at 512^3 run twice must agree bit for bit. Then
      mergesort (block_sort and the merge kernels) at n = 65536 and 2^26 in
      fp32, bf16 and int32, plus NaN cases: bit for bit against its plain
      version, as values against torch.sort, launch counts, times, bounds.
@@ -517,23 +521,26 @@ def _flash_cases() -> list:
 
 
 def _kernel_device_ms(fn, name: str, iters: int = 20):
-    """(mean device ms, launches recorded) of the kernels whose name holds
-    ``name`` over ``iters`` calls of ``fn``, from torch.profiler: the
-    kernel alone, without the wrapper's host work. The profiler can record
-    fewer launches than there were calls; the mean is over those it
-    recorded, and None if it recorded none."""
+    """(mean device ms, launches recorded, their kernels' names) of the
+    kernels whose name holds ``name`` over ``iters`` calls of ``fn``, from
+    torch.profiler: the kernel alone, without the wrapper's host work. The
+    profiler can record fewer launches than there were calls; the mean is
+    over those it recorded. A session that records none is tried again, up
+    to three times; then (None, 0, [])."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in evs)
-    if count == 0:
-        return None, 0
-    return sum(_device_us(e) for e in evs) / count / 1e3, count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in evs)
+        if count:
+            return (sum(_device_us(e) for e in evs) / count / 1e3, count,
+                    sorted({e.key for e in evs}))
+    return None, 0, []
 
 
 def _flash_timed() -> list:
@@ -555,7 +562,7 @@ def _flash_timed() -> list:
             kind = kernel_for(dtype, Dh)
             call = lambda: flash_attention_fwd(q, k, v, **kw)
             ms = cuda_ms(call)
-            dev, dev_n = _kernel_device_ms(
+            dev, dev_n, _ = _kernel_device_ms(
                 call, "flash_fwd_wgmma_kernel" if kind == "wgmma"
                 else "flash_fwd_kernel<")
             plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
@@ -886,6 +893,14 @@ H100_SIZES = {"gemm": 8192, "gesummv": 16384, "axpy": 1 << 28, "heat3d": 512,
 # bf16 (M, K, N) whose rows of a are not 16-byte strides: the mma kernel.
 GEMM_MMA_SHAPE = (8192, 8190, 8192)
 HEAT3D_STEPS = 10
+# (label, (Z, Y, X), offset in elements of the volume into its buffer):
+# ragged tiles with 16-byte rows; rows that are not 16-byte strides in
+# either dtype; the same as a contiguous view one element into a flat
+# buffer, so its base is not 16-byte aligned either.
+HEAT3D_SHAPES = [("h100_ragged", (509, 515, 520), 0),
+                 ("h100_rows", (512, 512, 511), 0),
+                 ("h100_offset", (512, 512, 511), 1)]
+HEAT3D_DETERMINISM_STEPS = 50
 GESUMMV_ALPHA, GESUMMV_BETA, AXPY_A = 1.5, -0.5, 2.5
 
 
@@ -904,10 +919,12 @@ def _paper_tol(name: str, dtype, k: int) -> tuple:
     return 2.0 ** -8 * k ** 0.5, 2.0 ** -7
 
 
-def _paper_case(name: str, size, dtype, g) -> dict:
+def _paper_case(name: str, size, dtype, g, offset: int = 0) -> dict:
     """Inputs, entry point, kernel wrapper, plain version, library call,
     bytes and flops of one paper-kernel case, on the card. A gemm size is
-    M = K = N, or an (M, K, N) tuple."""
+    M = K = N, or an (M, K, N) tuple; a heat3d size is Z = Y = X, or a
+    (Z, Y, X) tuple, and its volume starts ``offset`` elements into its
+    buffer."""
     from repro_torch.kernels import axpy, gemm, gesummv, heat3d_step
     from repro_torch.kernels.axpy.ops import axpy_op
     from repro_torch.kernels.axpy.ref import axpy_ref
@@ -916,6 +933,7 @@ def _paper_case(name: str, size, dtype, g) -> dict:
     from repro_torch.kernels.gesummv.ops import gesummv_op
     from repro_torch.kernels.gesummv.ref import gesummv_ref
     from repro_torch.kernels.heat3d.ops import heat3d
+    from repro_torch.kernels.heat3d.ops import kernel_for as heat3d_kernel_for
     from repro_torch.kernels.heat3d.ref import C0, C1, heat3d_step_ref
     mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
     it = torch.tensor([], dtype=dtype).element_size()
@@ -944,7 +962,9 @@ def _paper_case(name: str, size, dtype, g) -> dict:
                     plain=lambda: axpy_ref(AXPY_A, x, y),
                     library=lambda: torch.add(y, x, alpha=AXPY_A),
                     nbytes=3 * size * it, flops=2 * size)
-    u = mk(size, size, size)
+    shape = (size,) * 3 if isinstance(size, int) else tuple(size)
+    numel = shape[0] * shape[1] * shape[2]
+    u = mk(numel + offset)[offset:].view(shape)
     w = torch.zeros(1, 1, 3, 3, 3, device="cuda", dtype=dtype)
     w[0, 0, 1, 1, 1] = C0
     for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
@@ -957,11 +977,16 @@ def _paper_case(name: str, size, dtype, g) -> dict:
         for _ in range(HEAT3D_STEPS):
             v = heat3d_step_ref(v)
         return v
+    kind = heat3d_kernel_for(dtype, shape[2], u.data_ptr() % 16 == 0)
+    dt = "float" if dtype == torch.float32 else "__nv_bfloat16"
     return dict(k=1, entry=lambda: heat3d(u, steps=HEAT3D_STEPS),
                 launches=HEAT3D_STEPS, entry_plain=plain_steps,
+                kind=f"heat3d_ring_kernel<{dt}, {kind}>",
+                template_args=f"<{dt}, {str(kind == 'rows16').lower()}>",
                 kernel=lambda: heat3d_step(u), plain=lambda: heat3d_step_ref(u),
                 library=lambda: torch.nn.functional.conv3d(u5, w),
-                nbytes=2 * size ** 3 * it, flops=8 * (size - 2) ** 3)
+                nbytes=2 * numel * it,
+                flops=8 * (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2))
 
 
 def phase_paper_kernels() -> dict:
@@ -975,14 +1000,17 @@ def phase_paper_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     names = {"gemm": "gemm", "gesummv": "gesummv", "axpy": "axpy",
              "heat3d": "heat3d_step"}
-    cases = [(label, short, sizes[short], dtype)
+    cases = [(label, short, sizes[short], dtype, 0)
              for label, sizes in (("paper", PAPER_SIZES), ("h100", H100_SIZES))
              for short in names for dtype in (torch.float32, torch.bfloat16)]
-    cases.append(("h100_mma", "gemm", GEMM_MMA_SHAPE, torch.bfloat16))
+    cases.append(("h100_mma", "gemm", GEMM_MMA_SHAPE, torch.bfloat16, 0))
+    cases += [(label, "heat3d", shape, dtype, offset)
+              for label, shape, offset in HEAT3D_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)]
     res = {}
-    for label, short, size, dtype in cases:
+    for label, short, size, dtype, offset in cases:
         name = names[short]
-        case = _paper_case(short, size, dtype, g)
+        case = _paper_case(short, size, dtype, g, offset)
         torch.cuda.synchronize()
         reset_launch_counts()
         out = case["entry"]()
@@ -1022,7 +1050,8 @@ def phase_paper_kernels() -> dict:
         two_mv = (cuda_ms(case["two_mv"], warm, iters)
                   if "two_mv" in case else None)
         bound, by = _bound(case["nbytes"], case["flops"], dtype)
-        row = dict(size=size, dtype=str(dtype), launches=launches[name],
+        row = dict(sizes=label, size=size, dtype=str(dtype),
+                   launches=launches[name],
                    max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bound,
                    bound_by=by, bytes=case["nbytes"],
@@ -1045,13 +1074,54 @@ def phase_paper_kernels() -> dict:
                 conv - case["plain"]()[1:-1, 1:-1, 1:-1]).abs().max().item()
             assert row["library_max_abs_err"] <= 1e-5, row
         if short == "heat3d":
-            row["steps"] = HEAT3D_STEPS
-            row["ms_all_steps"] = cuda_ms(case["entry"], 1, 3)
-        emit(f"phase5 paper {name}", sizes=label, **row)
+            dev, dev_n, kernels = _kernel_device_ms(case["kernel"],
+                                                    "heat3d_ring_kernel")
+            # the profiler names the instantiation the wrapper launched
+            assert all(case["template_args"] in k for k in kernels), \
+                (case["kind"], kernels)
+            row.update(kernel=case["kind"], offset=offset, device_ms=dev,
+                       device_launches_recorded=dev_n,
+                       device_kernels=kernels,
+                       ms_back_to_back=back_to_back_ms(case["kernel"],
+                                                       warm, iters),
+                       steps=HEAT3D_STEPS,
+                       ms_all_steps=cuda_ms(case["entry"], 1, 3))
+        emit(f"phase5 paper {name}", **row)
         res[(name, label, dtype)] = row
         del case
         torch.cuda.empty_cache()
+    _heat3d_determinism(g)
     return res
+
+
+def _heat3d_determinism(g) -> None:
+    """50 steps at 512^3 run twice must agree bit for bit (a race in the
+    ring or at its barrier would show as a difference), and with the plain
+    version's 50 steps."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.heat3d.ops import heat3d
+    from repro_torch.kernels.heat3d.ref import heat3d_step_ref
+    n, steps = H100_SIZES["heat3d"], HEAT3D_DETERMINISM_STEPS
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.randn(n, n, n, generator=g, device="cuda").to(dtype)
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            runs.append(heat3d(u, steps=steps))
+            torch.cuda.synchronize()
+            assert launch_counts()["heat3d_step"] == steps, launch_counts()
+        ref = u
+        for _ in range(steps):
+            ref = heat3d_step_ref(ref)
+        identical = torch.equal(runs[0], runs[1])
+        err = (runs[0].float() - ref.float()).abs().max().item()
+        emit("phase5 heat3d determinism", size=n, dtype=str(dtype),
+             steps=steps, launches=steps, identical=identical,
+             max_abs_err=err)
+        assert identical and err == 0.0, (dtype, identical, err)
+        del u, runs, ref
+        torch.cuda.empty_cache()
 
 
 SORT_BLOCK = 1024
@@ -1347,14 +1417,16 @@ def main(argv=None) -> int:
             "size": main_row["size"], "dtype": main_row["dtype"],
             **({"two_mv_ms": main_row["two_mv_ms"]}
                if "two_mv_ms" in main_row else {}),
-            **({k: main_row[k] for k in ("kernel", "ms_back_to_back",
+            **({k: main_row[k] for k in ("kernel", "device_ms",
+                                         "ms_back_to_back",
                                          "library_ms_back_to_back")
                 if k in main_row}),
             **({"wgmma_launches": sum(r["wgmma_launches"] for r in rows)}
                if name == "gemm" else {}),
-            "cases": [{k: r[k] for k in ("size", "dtype", "launches",
+            "cases": [{k: r[k] for k in ("sizes", "size", "dtype", "launches",
                                          "kernel", "wgmma_launches",
-                                         "max_abs_err", "ms", "plain_ms",
+                                         "max_abs_err", "ms", "device_ms",
+                                         "plain_ms",
                                          "library_ms", "two_mv_ms",
                                          "ms_back_to_back",
                                          "library_ms_back_to_back",

@@ -34,6 +34,8 @@ from repro_torch.kernels.gemm.ref import gemm_ref  # noqa: E402
 from repro_torch.kernels.gesummv.ops import gesummv_op  # noqa: E402
 from repro_torch.kernels.gesummv.ref import gesummv_ref  # noqa: E402
 from repro_torch.kernels.heat3d.ops import heat3d  # noqa: E402
+from repro_torch.kernels.heat3d.ops import _empty_at_phase  # noqa: E402
+from repro_torch.kernels.heat3d.ops import kernel_for as heat3d_kernel_for  # noqa: E402
 from repro_torch.kernels.heat3d.ref import heat3d_step_ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -169,7 +171,8 @@ def test_gesummv_bf16_matches_jax_ref():
 
 # ---------------------------------------------------------------- heat3d
 
-@pytest.mark.parametrize("shape", [(34, 34, 34), (18, 10, 12)])
+@pytest.mark.parametrize("shape", [(34, 34, 34), (18, 10, 12), (5, 7, 511),
+                                   (9, 6, 13)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_heat3d_bit_equal_to_jax(shape, dtype):
     """Bit-equal to the JAX reference, one step and three. The jitted ops
@@ -200,6 +203,48 @@ def test_heat3d_small_volumes_and_zero_steps():
     v = torch.from_numpy(_normal(14, 6, 7, 8))
     assert torch.equal(heat3d_step(v, c0=0.5, c1=0.25),
                        heat3d_step_ref(v, c0=0.5, c1=0.25))
+
+
+@pytest.mark.parametrize("dtype,nx,aligned,kind", [
+    (torch.float32, 512, True, "rows16"),
+    (torch.float32, 520, True, "rows16"),
+    (torch.float32, 511, True, "shifted"),
+    (torch.float32, 510, True, "shifted"),
+    (torch.float32, 512, False, "shifted"),
+    (torch.bfloat16, 512, True, "rows16"),
+    (torch.bfloat16, 8, True, "rows16"),
+    (torch.bfloat16, 508, True, "shifted"),
+    (torch.bfloat16, 511, True, "shifted"),
+    (torch.bfloat16, 512, False, "shifted"),
+    (torch.float16, 512, True, TypeError),
+])
+def test_heat3d_kernel_for(dtype, nx, aligned, kind):
+    """The card's instantiation is chosen by dtype, row width and alignment
+    alone: "rows16" needs rows of a multiple of 16 bytes at 16-byte-aligned
+    bases; every other volume takes "shifted"."""
+    if isinstance(kind, type):
+        with pytest.raises(kind):
+            heat3d_kernel_for(dtype, nx, aligned)
+    else:
+        assert heat3d_kernel_for(dtype, nx, aligned) == kind
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heat3d_output_starts_at_input_phase(dtype):
+    """The card's output starts at the input's offset within 16 bytes (so
+    input and output share one grid of 16-byte words): a new contiguous
+    tensor of u's shape and dtype, at every offset of a view into a flat
+    buffer."""
+    shape = (3, 4, 7)
+    n = shape[0] * shape[1] * shape[2]
+    flat = torch.zeros(n + 16, dtype=dtype)
+    for offset in range(16 // flat.element_size()):
+        u = flat[offset:offset + n].view(shape)
+        out = _empty_at_phase(u)
+        assert out.shape == u.shape and out.dtype == dtype
+        assert out.is_contiguous()
+        assert out.data_ptr() % 16 == u.data_ptr() % 16
+        assert out.untyped_storage().data_ptr() != flat.untyped_storage().data_ptr()
 
 
 # ---------------------------------------------------------------- wrappers
@@ -355,3 +400,41 @@ def test_heat3d_keeps_boundary_and_input_on_card(cuda):
         for _ in range(5):
             ref = heat3d_step_ref(ref)
         assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype,shape,offset,kind", [
+    ("float32", (70, 37, 300), 0, "rows16"),
+    ("float32", (70, 37, 301), 0, "shifted"),
+    ("float32", (66, 35, 301), 1, "shifted"),
+    ("float32", (66, 35, 300), 2, "shifted"),
+    ("float32", (3, 3, 3), 0, "shifted"),
+    ("bfloat16", (70, 37, 600), 0, "rows16"),
+    ("bfloat16", (70, 37, 601), 0, "shifted"),
+    ("bfloat16", (66, 35, 601), 1, "shifted"),
+    ("bfloat16", (66, 35, 600), 3, "shifted"),
+    ("bfloat16", (3, 4, 5), 1, "shifted"),
+])
+def test_heat3d_instantiations_on_card(cuda, dtype, shape, offset, kind):
+    """Each instantiation over 5 steps: several blocks in x, y and z with
+    ragged edges, rows off 16-byte strides and volumes that start
+    ``offset`` elements into their buffer; bit-equal to the plain steps,
+    boundary kept, input not written, one launch a step."""
+    tdt = DTYPES[dtype][1]
+    n = shape[0] * shape[1] * shape[2]
+    flat = torch.from_numpy(_normal(29, n + offset)).to(cuda, tdt)
+    u = flat[offset:].view(shape)
+    assert heat3d_kernel_for(tdt, shape[2], u.data_ptr() % 16 == 0) == kind
+    keep = flat.clone()
+    before = heat3d_step.launches
+    out = heat3d(u, steps=5)
+    torch.cuda.synchronize()
+    assert heat3d_step.launches == before + 5
+    assert torch.equal(flat, keep)
+    assert out.data_ptr() % 16 == u.data_ptr() % 16
+    for face in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1],
+                 np.s_[:, :, 0], np.s_[:, :, -1]):
+        assert torch.equal(out[face], u[face])
+    ref = u
+    for _ in range(5):
+        ref = heat3d_step_ref(ref)
+    assert torch.equal(out, ref)
