@@ -15,15 +15,30 @@ Phases (each prints one line; any failure exits non-zero):
      calls enqueued back to back and the kernel launches a call, and both
      decode kernels are also timed at long context past the 50 MB L2
      (DECODE_LONG). Flash is also timed at 4096 tokens in llama3.2-1b's,
-     qwen2-7b's and gemma2-2b's widths, with its device time.
+     qwen2-7b's and gemma2-2b's widths, with its device time. bf16 decode's
+     precision in P: on a cancellation case (repro_torch/kernels/
+     paged_attention/precision.py) the kernel's error against the fp32
+     plain version must be within 1/16 of a plain decode's that rounds P to
+     bf16.
   3. full-width llama3.2-1b (bf16, random seeded weights) served by the
      zero-copy paged engine: prefix sharing, CoW, launch counters (every
      flash launch a wgmma one).
   3c. the same requests served by the copy-mode engine (the staging
      baseline over per-slot pools), beside phase 3's figures.
+  3d. the same requests served by the continuous engine (8 slots, a pool
+     of half the pages the requests need at their end, shrunk until it
+     preempts and resumes; max_len the longest request's) and by the
+     disaggregated engine (4 prefill + 4 decode slots) in share and in
+     copy mode (8 KV transfers each; share moves no page payload, copy
+     does, and gives share's tokens): every masked decode launches the
+     paged decode kernel once a layer, chunked prefill never launches
+     flash.
   4. the smoke-reduced llama3.2-1b (fp32) served on cuda and on cpu over the
-     same seeded workload, in zero_copy and in copy mode: greedy tokens must
-     be identical, and copy must equal zero_copy without prefix sharing.
+     same seeded workload, in zero_copy and in copy mode, then by the
+     continuous engine (a pool of 8 pages: it preempts) and the
+     disaggregated engine in share and copy mode: greedy tokens must be
+     identical on cuda and cpu, copy must equal zero_copy without prefix
+     sharing, and the three scheduled kinds must equal the fixed engine.
   5. the paper's kernels (gemm, gesummv, axpy, heat3d) through their entry
      points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
      at sizes far past the 50 MB L2, fp32 and bf16: each output against its
@@ -47,9 +62,10 @@ Then one JSON line of per-kernel numbers, and the contract line
 
     python3 chip_smoke.py --decode-only [--src DIR]
 
-builds the decode kernel and runs phase 2's decode rows alone, importing
-repro_torch from DIR (another tree's src/) if given: two trees timed in
-turns, one process each.
+builds the decode kernel and runs phase 2's decode rows alone, then the
+precision row, importing repro_torch from DIR (another tree's src/) if
+given: two trees timed in turns, one process each (the cancellation case
+comes from this script's own tree).
 """
 from __future__ import annotations
 
@@ -72,6 +88,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
               torch.float32: 67e12}     # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SMOKE_POOL = 8          # phase 4's tight pool (tests/conformance.py's POOL)
 # Decode/prefill shapes of the full-width serve below.
 HQ, HKV, D, PAGE = 32, 8, 64, 16
 DEC_B, DEC_P = 8, 64
@@ -448,10 +465,67 @@ def phase_decode() -> dict:
     return res
 
 
+def _precision_module():
+    """repro_torch/kernels/paged_attention/precision.py of this script's
+    tree, loaded by path: with --src another tree's kernel is measured on
+    the same case."""
+    import importlib.util
+    path = os.path.join(HERE, "src", "repro_torch", "kernels",
+                        "paged_attention", "precision.py")
+    spec = importlib.util.spec_from_file_location("_decode_precision", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _decode_precision() -> dict:
+    """bf16 decode's precision in P, both layouts, on the cancellation case:
+    the kernel's max error against the fp32 plain version, beside that of
+    a plain decode that rounds P to bf16 (l from the unrounded P). The
+    case must bite (the rounded decode misses by more than 16 times the
+    output's own bf16 rounding) and the kernel must stay within 1/16 of
+    the rounded decode's error."""
+    from repro_torch.kernels import paged_attention_global
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_global_ref, paged_attention_ref)
+    prec = _precision_module()
+    res = {}
+    for per_slot in (False, True):
+        args = prec.p_cancellation_case(per_slot, "cuda")
+        fn, ref_fn = ((paged_attention, paged_attention_ref) if per_slot
+                      else (paged_attention_global,
+                            paged_attention_global_ref))
+        out = fn(*args)
+        q, kp, vp, tbl, lens = args
+        ref32 = ref_fn(q.float(), kp.float(), vp.float(), tbl, lens)
+        rounded = prec.decode_p_rounded(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref32).abs().max().item()
+        err_rounded = (rounded - ref32).abs().max().item()
+        row = dict(layout="slot" if per_slot else "global",
+                   dtype=str(torch.bfloat16), shape=list(q.shape),
+                   tokens=int(lens[0]), max_abs_err=err,
+                   max_abs_err_p_rounded=err_rounded,
+                   ratio=err_rounded / max(err, 1e-30),
+                   output_max=ref32.abs().max().item(),
+                   # half a bf16 spacing at the largest output, at most
+                   output_rounding=ref32.abs().max().item() * 2.0 ** -8)
+        emit("phase2 decode precision", **row)
+        res[row["layout"]] = row
+    for layout, row in res.items():
+        assert row["max_abs_err_p_rounded"] > 16 * row["output_rounding"], \
+            f"decode precision {layout}: the case does not bite {row}"
+        assert row["max_abs_err"] <= row["max_abs_err_p_rounded"] / 16, \
+            f"decode precision {layout}: P lost precision {row}"
+    return res
+
+
 def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 here
     torch.backends.cudnn.allow_tf32 = False
     res = phase_decode()
+    res["precision"] = _decode_precision()
     res["flash_cases"] = _flash_cases()
     res["flash_timed"] = _flash_timed()
     return res
@@ -613,12 +687,24 @@ def requests(vocab: int, rng, n: int = 8, system_len: int = 256,
 
 
 def serve(cfg, params, device, prompts, max_tokens, n_slots, max_len, page,
-          **engine_kw):
-    """Serve ``prompts`` on a fresh engine (zero-copy unless ``engine_kw``
-    says otherwise); returns (outputs, engine, finished, wall seconds)."""
+          kind="fixed", **engine_kw):
+    """Serve ``prompts`` on a fresh engine of ``kind`` (the scheduler:
+    fixed or continuous; or disagg-share / disagg-copy, the slots split
+    evenly between the prefill and the decode worker), zero-copy unless
+    ``engine_kw`` says otherwise; returns (outputs, engine, finished, wall
+    seconds)."""
+    from repro_torch.core.serving.disagg import DisaggEngine
     from repro_torch.core.serving.engine import ServingEngine
-    eng = ServingEngine(cfg, params, n_slots=n_slots, max_len=max_len,
-                        page_size=page, device=device, **engine_kw)
+    if kind.startswith("disagg-"):
+        eng = DisaggEngine(cfg, params, n_prefill_slots=n_slots // 2,
+                           n_decode_slots=n_slots - n_slots // 2,
+                           max_len=max_len, page_size=page,
+                           disagg_mode=kind.split("-", 1)[1], device=device,
+                           **engine_kw)
+    else:
+        eng = ServingEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                            page_size=page, scheduler=kind, device=device,
+                            **engine_kw)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -632,9 +718,9 @@ def serve(cfg, params, device, prompts, max_tokens, n_slots, max_len, page,
 
 def check_serve(cfg, eng, outs, prompts, max_tokens) -> dict:
     """What a served run must show on any device; returns its stats. A
-    zero-copy serve with prefix sharing maps shared pages and makes no
-    staging copy; a copy-mode serve stages every admission and maps
-    nothing."""
+    zero-copy serve makes no staging copy, and with the fixed scheduler and
+    prefix sharing maps shared pages and makes a CoW copy; a copy-mode
+    serve stages every admission and maps nothing."""
     s = eng.stats()
     assert all(len(o) == max_tokens for o in outs), "short generation"
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -644,7 +730,7 @@ def check_serve(cfg, eng, outs, prompts, max_tokens) -> dict:
         assert s["sva"]["bytes_copied"] > 0 and s["sva"]["bytes_mapped"] == 0
     else:
         assert s["staging_copies"] == 0, "zero-copy serve made a staging copy"
-    if eng._can_share:
+    if eng._can_share and eng.sched is None:
         assert s["shared_admissions"] > 0 and s["prefill_tokens_saved"] > 0
         assert s["cow_page_copies"] > 0, "no CoW page copy was exercised"
     for kv in eng.cache:
@@ -776,6 +862,100 @@ def phase_copy_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
     return launches
 
 
+def _other_launches_zero(launches, used) -> None:
+    assert all(n == 0 for k, n in launches.items()
+               if k not in used and not k.endswith("_wgmma")), launches
+
+
+def phase_scheduled_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
+                          fixed_outs) -> dict:
+    """The phase-3 requests through the continuous engine and the
+    disaggregated engine in share and copy mode, each at n_slots (disagg:
+    half prefill, half decode). Chunked prefill runs the prefix path (no
+    flash launch) and every masked decode call launches the paged decode
+    kernel once a layer at full slot width. The continuous engine's pool
+    holds the larger of the longest request's pages and half the pages the
+    requests hold at their end, shrunk by a quarter (and said so on the
+    line) until it preempts and resumes. The manager's least pool is one
+    slot's table, so that engine's max_len is the longest request's pages
+    (33 pages of 16, not phase 3's 64): with 64 pages these requests wait
+    for room and are never preempted. Tokens equal to phase 3's fixed
+    serve are counted, not asserted: in bf16 chunked prefill and flash are
+    two prefill paths."""
+    from repro_torch.kernels import reset_launch_counts
+    ends = [-(-(len(p) + new_tokens) // PAGE) for p in prompts]
+    floor = max(ends)
+    launches_by_kind, outs_by_kind = {}, {}
+    for kind in ("continuous", "disagg-share", "disagg-copy"):
+        kw, ml = {}, max_len
+        if kind == "continuous":
+            kw["pool_pages"] = max(floor, sum(ends) // 2)
+            ml = floor * PAGE
+        shrunk_from = []
+        while True:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            outs, eng, done, wall = serve(cfg, params, "cuda", prompts,
+                                          new_tokens, n_slots, ml, PAGE,
+                                          kind=kind, **kw)
+            launches = _serve_launches()
+            sched = eng.stats()["sched"]
+            if (kind != "continuous" or kw["pool_pages"] <= floor
+                    or (sched["preemptions"] > 0 and sched["resumes"] > 0)):
+                break
+            shrunk_from.append(kw["pool_pages"])
+            kw["pool_pages"] = max(floor, kw["pool_pages"] * 3 // 4)
+        s = check_serve(cfg, eng, outs, prompts, new_tokens)
+        steps = s["decode_steps"]
+        assert launches["paged_attention_global"] == cfg.n_layers * steps, \
+            (kind, launches)
+        assert launches["flash_attention_fwd"] == 0, (kind, launches)
+        _other_launches_zero(launches, ("paged_attention_global",))
+        row = dict(kind=kind, arch=cfg.name, dtype=cfg.activation_dtype,
+                   requests=len(prompts), new_tokens=new_tokens,
+                   slots=n_slots, max_len=ml, page=PAGE,
+                   pool_pages=kw.get("pool_pages", eng.mgr.pool.n_pages),
+                   pool_shrunk_from=shrunk_from,
+                   pages_at_end=sum(ends), tokens=s["tokens"],
+                   **_serve_figures(s, done, wall),
+                   decode_s=s["decode_s"], decode_steps=steps,
+                   prefills=s["prefills"], sched=s["sched"],
+                   transfer=s.get("transfer"), disagg=s.get("disagg"),
+                   staging_copies=s["staging_copies"],
+                   shared_admissions=s["shared_admissions"],
+                   prefill_tokens_saved=s["prefill_tokens_saved"],
+                   cow_page_copies=s["cow_page_copies"],
+                   tokens_equal_to_fixed=sum(
+                       a == b for o, f in zip(outs, fixed_outs)
+                       for a, b in zip(o, f)),
+                   tokens_total=sum(len(o) for o in outs),
+                   requests_identical_to_fixed=sum(
+                       o == f for o, f in zip(outs, fixed_outs)),
+                   launches=launches,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if kind == "disagg-copy":
+            # The same chunks and decode calls as share mode over copied
+            # pages: the same tokens, bit for bit.
+            row["identical_to_share"] = outs == outs_by_kind["disagg-share"]
+        emit("phase3d scheduled serve", **row)
+        if kind == "continuous":
+            assert s["sched"]["preemptions"] > 0, row
+            assert s["sched"]["resumes"] > 0, row
+        else:
+            t = s["transfer"]
+            assert s["disagg"]["transfers"] == t["transfers"] == len(prompts), row
+            if kind == "disagg-share":
+                assert t["payload_bytes"] == 0 and t["pages_copied"] == 0, row
+                assert t["pages_shared"] > 0, row
+            else:
+                assert t["payload_bytes"] > 0 and t["pages_copied"] > 0, row
+                assert t["pages_shared"] == 0, row
+                assert row["identical_to_share"], row
+        launches_by_kind[kind] = launches["paged_attention_global"]
+        outs_by_kind[kind] = outs
+    return launches_by_kind
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -872,6 +1052,37 @@ def phase_cross_check(device: str = "cuda") -> None:
          identical_tokens=same)
     assert same, (f"copy {runs['copy']} vs zero_copy without prefix sharing "
                   f"{runs['zero_copy_unshared']}")
+    # The scheduled kinds, the continuous engine over a pool of SMOKE_POOL
+    # pages (it preempts): each must equal itself across devices and the
+    # fixed engine's tokens. (A copy-mode transfer needs room for a second
+    # copy of its sequence's pages, which SMOKE_POOL lacks here.)
+    for kind in ("continuous", "disagg-share", "disagg-copy"):
+        ekw = dict(kind=kind, pool_pages=SMOKE_POOL
+                   if kind == "continuous" else None)
+        reset_launch_counts()
+        dev_outs, dev_eng, _, _ = serve(cfg, params_dev, device, prompts,
+                                        **kw, **ekw)
+        launches = launch_counts()
+        s = check_serve(cfg, dev_eng, dev_outs, prompts, kw["max_tokens"])
+        cpu_outs, cpu_eng, _, _ = serve(cfg, params_cpu, "cpu", prompts,
+                                        **kw, **ekw)
+        check_serve(cfg, cpu_eng, cpu_outs, prompts, kw["max_tokens"])
+        if device == "cuda":
+            assert launches["paged_attention_global"] > 0, launches
+            _other_launches_zero(launches, ("paged_attention_global",))
+        same = dev_outs == cpu_outs
+        emit("phase4 cuda-vs-cpu", arch=cfg.name, dtype=cfg.activation_dtype,
+             device=device, kind=kind, pool_pages=ekw["pool_pages"],
+             requests=len(prompts), identical_tokens=same,
+             equal_to_fixed=dev_outs == runs["zero_copy"],
+             sched=s["sched"], transfer=s.get("transfer"),
+             launches=launches, staging_copies=s["staging_copies"])
+        assert same, (f"{kind}: greedy tokens differ: {device} {dev_outs} "
+                      f"vs cpu {cpu_outs}")
+        assert dev_outs == runs["zero_copy"], (
+            f"{kind}: {dev_outs} vs the fixed engine {runs['zero_copy']}")
+        if kind == "continuous":
+            assert s["sched"]["preemptions"] > 0, s["sched"]
 
 
 def _to(tree, device):
@@ -1316,6 +1527,13 @@ def _sort_rows(sort: dict) -> list:
     return out
 
 
+def _precision_fields(row: dict) -> dict:
+    """The kernels-line fields of a decode layout's precision row."""
+    return {"max_abs_err_cancellation": row["max_abs_err"],
+            "max_abs_err_cancellation_p_rounded":
+                row["max_abs_err_p_rounded"]}
+
+
 def _decode_row(t: dict) -> dict:
     """The kernels-line fields of a decode kernel at the serving shape."""
     return {"ms": t["ms"], "device_ms": t["device_ms"],
@@ -1351,11 +1569,13 @@ def main(argv=None) -> int:
             os.path.abspath(repro_torch.__file__))))
         phase_card(["paged_attention"])
         phase_decode()
+        _decode_precision()
         return 0
     phase_card()
     res = phase_kernels()
     launches, served, zc_outs, zc_figures = phase_serve()
     copy_launches = phase_copy_serve(*served, zc_outs, zc_figures)
+    scheduled_launches = phase_scheduled_serve(*served, zc_outs)
     if args.profile:
         phase_profile(*served)
     phase_cross_check()
@@ -1372,6 +1592,8 @@ def main(argv=None) -> int:
          "launches": launches["paged_attention_global"],
          "max_abs_err": dec["err"],
          "max_abs_err_fp32": res[("decode", torch.float32)]["err"],
+         **_precision_fields(res["precision"]["global"]),
+         "launches_scheduled": scheduled_launches,
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
@@ -1383,6 +1605,7 @@ def main(argv=None) -> int:
          "launches": copy_launches["paged_attention"],
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
+         **_precision_fields(res["precision"]["slot"]),
          **_decode_row(slot),
          "long_context": [r for r in res["decode_long"]
                           if r["layout"] == "slot"]},

@@ -1,5 +1,6 @@
 """Serving engine over the paged SVA layer (port of
-``repro/core/serving/engine.py``: both offload modes, fixed scheduler).
+``repro/core/serving/engine.py``: both offload modes, the fixed and the
+continuous scheduler).
 
   zero_copy  Zero-copy offload at serving granularity (the paper's
              map-don't-copy result applied to KV admission): ONE global
@@ -29,9 +30,16 @@ svasan) is a byte copy of the reference's, so admission, translation and
 statistics match it step for step. The pools are updated in place (the JAX
 engine donates its cache to each jitted step instead).
 
-Not ported here: ``scheduler="continuous"`` and archs with per-slot state
-(sliding-window rings, recurrent state, cross-KV); each raises
-NotImplementedError.
+Continuous batching (``scheduler="continuous"``, zero_copy only): a dense
+SequenceBuffer and a token-budget Scheduler (byte copies of the
+reference's) compose each step from chunked prefills, which run the prefix
+path (earlier chunks' KV read back from the pool), and a masked decode at
+full slot width whose non-decoding rows see all-NULL tables. Preemption
+under pool pressure folds a sequence's tokens back into the waiting queue;
+the resume re-prefills from warm prefix pages.
+
+Not ported here: archs with per-slot state (sliding-window rings, recurrent
+state, cross-KV); they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.serving.scheduler import Scheduler, SchedulerOutput
+from repro_torch.core.serving.sequence_buffer import SequenceBuffer
 from repro_torch.core.sva.iommu import (AutoTuneConfig, PrefetchConfig,
                                         TLBConfig, default_autotune_candidates)
 from repro_torch.core.sva.kv_manager import PagedKVManager
@@ -66,6 +76,9 @@ class Request:
     # step-counter stamps (steps-to-first-token: the wall-clock-free latency)
     submitted_step: Optional[int] = None
     first_token_step: Optional[int] = None
+    # first token produced by a DECODE step (a disaggregated engine's gap to
+    # first_token_step also covers the prefill->decode KV transfer: TTFDT)
+    first_decode_step: Optional[int] = None
 
 
 def _write_slot(batch_cache: Cache, single_cache: Cache, slot: int) -> None:
@@ -94,12 +107,9 @@ class ServingEngine:
         if offload_mode not in ("zero_copy", "copy"):
             raise ValueError(f"offload_mode={offload_mode!r} "
                              "(expected 'zero_copy' or 'copy')")
-        if scheduler == "continuous":
-            if offload_mode != "zero_copy":
-                raise NotImplementedError(
-                    "continuous scheduling requires offload_mode='zero_copy'")
-            raise NotImplementedError("scheduler='continuous' is not ported "
-                                      "yet (fixed only)")
+        if scheduler == "continuous" and offload_mode != "zero_copy":
+            raise NotImplementedError(
+                "continuous scheduling requires offload_mode='zero_copy'")
         if (cfg.is_encdec or cfg.n_image_tokens
                 or any(k != "attn_mlp" for k in cfg.layer_kinds())):
             raise NotImplementedError(
@@ -159,6 +169,9 @@ class ServingEngine:
                                    or prefetch.enabled)
         self.queue: deque = deque()
         self.active: Dict[int, Request] = {}
+        # Continuous mode: requests submitted or preempted but not holding a
+        # slot (their tokens live in the scheduler's waiting queue).
+        self._waiting_reqs: Dict[int, Request] = {}
         self._next_id = 0
         self._step_count = 0
         self.metrics = {"prefills": 0, "prefill_reqs": 0, "decode_steps": 0,
@@ -181,6 +194,18 @@ class ServingEngine:
         else:
             self.cache = init_cache(cfg, n_slots, max_len, page_size,
                                     device=self.device)
+        # Continuous batching: dense SequenceBuffer state and a token-budget
+        # scheduler composing mixed decode / chunked-prefill steps, with
+        # preemption under pool pressure.
+        self.buffer: Optional[SequenceBuffer] = None
+        self.sched: Optional[Scheduler] = None
+        if scheduler == "continuous":
+            self.buffer = SequenceBuffer(n_slots, self.max_pages * page_size)
+            self.sched = Scheduler(self.mgr, self.buffer,
+                                   cfg.sched_token_budget,
+                                   cfg.sched_prefill_chunk,
+                                   share_tokens=self._can_share,
+                                   on_event=self._trace_event)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -190,6 +215,8 @@ class ServingEngine:
                tenant: Optional[str] = None) -> int:
         self.mgr._check_tenant_name(tenant)
         self.mgr.ensure_fits(len(prompt), max_tokens, tenant=tenant)
+        if self.sched is not None and not prompt:
+            raise ValueError("continuous scheduling needs a non-empty prompt")
         rid = self._next_id
         self._next_id += 1
         self.queue.append(Request(rid, list(prompt), max_tokens,
@@ -200,12 +227,17 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue or self.active)
+        return bool(self.queue or self.active
+                    or (self.sched is not None and self.sched.has_work))
 
     def step(self, finished: Dict[int, Request]) -> None:
-        """Run ONE engine step (admission + decode + completion harvest)."""
-        self._admit()
-        self._decode_step()
+        """Run ONE engine step (admission + compute + completion harvest)
+        under the configured scheduler."""
+        if self.sched is not None:
+            self._continuous_step()
+        else:
+            self._admit()
+            self._decode_step()
         self._step_count += 1
         self._release_done(finished)
 
@@ -222,12 +254,24 @@ class ServingEngine:
             req = self.active.pop(rid)
             req.done_at = time.perf_counter()
             st = self.mgr.seqs[rid]
-            req.out_tokens = st.tokens
+            if self.sched is not None:
+                # Generations preempted along the way were folded into
+                # out_tokens at preemption time; append the rest.
+                req.out_tokens.extend(st.tokens)
+                self.sched.finish(rid)
+            else:
+                req.out_tokens = st.tokens
             if self.translation_trace is not None:
                 self.translation_trace.append(
                     ("unmap", st.slot, len(st.pages)))
             self.mgr.release(rid)
             finished[rid] = req
+
+    def _trace_event(self, ev: tuple) -> None:
+        """Scheduler lifecycle events (map/unmap/preempt/resume) join the
+        translation trace in order, keeping it replayable."""
+        if self.translation_trace is not None:
+            self.translation_trace.append(ev)
 
     def invalidate_epoch(self) -> None:
         """Flush every device translation; the next decode step performs a
@@ -471,6 +515,154 @@ class ServingEngine:
         self.mgr.observe_step()
         self.metrics["decode_s"] += time.perf_counter() - t0
 
+    # ------------------------------------------------- continuous batching
+    def _continuous_step(self):
+        # Queued CoW copies must land BEFORE the scheduler can preempt: a
+        # preemption frees its sequence's pages, and a same-step resume or
+        # chunk prefill could recycle a pending copy's source page.
+        self._apply_cow()
+        while self.queue:
+            req = self.queue.popleft()
+            self.sched.submit(req.req_id, req.prompt, req.max_tokens,
+                              tenant=req.tenant)
+            self._waiting_reqs[req.req_id] = req
+        t0 = time.perf_counter()
+        out = self.sched.schedule()
+        self.metrics["admit_s"] += time.perf_counter() - t0
+        for sid, folded in out.preempted:
+            req = self.active.pop(sid)
+            req.out_tokens.extend(folded)
+            self._waiting_reqs[sid] = req
+        for sid in out.admitted + out.resumed:
+            self.active[sid] = self._waiting_reqs.pop(sid)
+        if out.chunks:
+            self._chunk_prefill(out.chunks)
+        self._decode_continuous(out)
+
+    def _chunk_prefill(self, chunks):
+        """One padded prefill call for this step's chunk spans, through the
+        prefix path: ``prefix_lens`` positions earlier chunks' (and shared
+        prefixes') KV as context, and ``write_tables`` NULLs every page
+        before the chunk's own span (the scatter zero-scrubs every non-NULL
+        entry, so an earlier chunk's page left mapped would lose its KV).
+        The final chunk's logits give the first token, or a preempted
+        sequence's pending token is re-injected."""
+        t0 = time.perf_counter()
+        sufs = [c.end - c.start for c in chunks]
+        lb = self._bucket_len(max(sufs))
+        nb = 1
+        while nb < len(chunks):
+            nb *= 2
+        nb = max(min(nb, self.n_slots), len(chunks))
+        tokens = np.zeros((nb, lb), np.int64)
+        lengths = np.zeros((nb,), np.int32)
+        prefix = np.zeros((nb,), np.int32)
+        tables = np.full((nb, self.max_pages), self.mgr.null_page, np.int32)
+        wtables = np.full((nb, self.max_pages), self.mgr.null_page, np.int32)
+        for i, c in enumerate(chunks):
+            st = self.mgr.seqs[c.seq_id]
+            tokens[i, :sufs[i]] = self.buffer.chunk_tokens(c.slot, c.start,
+                                                           c.end)
+            lengths[i] = sufs[i]
+            prefix[i] = c.start
+            tables[i] = self.mgr.tables[c.slot]
+            wtables[i] = tables[i]
+            keep_from = max(st.shared_pages, c.start // self.page_size)
+            wtables[i, :keep_from] = self.mgr.null_page
+        self.metrics["admit_table_bytes"] += len(chunks) * self.max_pages * 4
+        batch = {"tokens": self._dev(tokens),
+                 "lengths": self._dev(lengths),
+                 "prefix_lens": self._dev(prefix),
+                 "write_tables": self._dev(wtables)}
+        view = install_tables(self.cache, self._dev(tables), batch["lengths"])
+        with torch.no_grad():
+            logits, _ = forward_prefill(self.cfg, self.params, batch, view)
+        finals = [(i, c) for i, c in enumerate(chunks) if c.is_final]
+        if finals:      # argmax on the device: (nb,) tokens to the host
+            first_tok = logits[:, -1].argmax(dim=-1).cpu().numpy()
+        now = time.perf_counter()
+        for c in chunks:
+            self.buffer.advance(c.slot, c.end)
+            # Progressive prefix registration: the chunk's KV is resident
+            # now, so its pages may join the index.
+            self.mgr.register_progress(c.seq_id,
+                                       self.buffer.token_ids[c.slot], c.end)
+        for i, c in finals:
+            first = c.pending if c.pending is not None else int(first_tok[i])
+            self.mgr.append_token(c.seq_id, first)
+            self.buffer.append(c.slot, first)
+            req = self.active[c.seq_id]
+            if req.first_token_at is None:
+                req.first_token_at = now
+                req.first_token_step = self._step_count
+        self.metrics["prefills"] += 1
+        self.metrics["prefill_reqs"] += len(finals)
+        self.metrics["prefill_s"] += time.perf_counter() - t0
+
+    def _decode_masked(self, tokens, kv_len, mask):
+        """Decode with non-decoding slots masked out: their table rows
+        become all-NULL (KV writes dropped, gathers read zero) and their
+        kv_len arrives pre-masked to 0, so a mid-prefill slot's pages are
+        never touched. Masked rows compute logits that nothing consumes;
+        every step runs at full slot width."""
+        tables = torch.where(mask[:, None], self._tables_dev, self.null_page)
+        cache = install_tables(self.cache, tables, kv_len)
+        with torch.no_grad():
+            logits, self.cache = forward_decode(self.cfg, self.params,
+                                                tokens, kv_len, cache)
+        return logits
+
+    def _resident_tokens(self) -> Dict[int, int]:
+        """Per-sequence resident-token counts for this step's translation
+        accounting: a decoding sequence gathers everything it has, a
+        mid-prefill one only its computed chunks (a disaggregated engine
+        adds its decode worker's sequences)."""
+        resident = {}
+        for sid in self.sched.running:
+            slot = self.buffer.slot_of(sid)
+            resident[sid] = (self.mgr.seqs[sid].length
+                             if self.buffer.is_decoding(slot)
+                             else int(self.buffer.n_computed[slot]))
+        return resident
+
+    def _decode_continuous(self, out: SchedulerOutput):
+        t0 = time.perf_counter()
+        self._apply_cow()       # final-chunk first tokens may queue CoW
+        self._upload_tables()
+        if self._translation_stats:
+            resident = self._resident_tokens()
+            if resident:
+                accesses = self.mgr.translate_step(resident=resident)
+                if self.translation_trace is not None:
+                    self.translation_trace.append(
+                        ("step", accesses, int(sum(resident.values()))))
+        if not out.decode_slots:
+            return
+        lengths = self.mgr.device_lengths()
+        mask = np.zeros((self.n_slots,), bool)
+        mask[out.decode_slots] = True
+        kv_len = np.where(mask, np.maximum(lengths - 1, 0), 0) \
+            .astype(np.int32)
+        last = np.where(mask, self.buffer.last_tokens(), 0) \
+            .astype(np.int64)[:, None]
+        logits = self._decode_masked(self._dev(last), self._dev(kv_len),
+                                     self._dev(mask))
+        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()   # (B,) tokens only
+        for slot in out.decode_slots:
+            sid = int(self.buffer.seq_ids[slot])
+            tok = int(nxt[slot])
+            self.mgr.append_token(sid, tok)
+            self.buffer.append(slot, tok)
+            self.metrics["tokens"] += 1
+            req = self.active.get(sid)
+            if req is not None and req.first_decode_step is None:
+                req.first_decode_step = self._step_count
+            if self.eos is not None and tok == self.eos:
+                self.mgr.seqs[sid].done = True
+        self.metrics["decode_steps"] += 1
+        self.mgr.observe_step()
+        self.metrics["decode_s"] += time.perf_counter() - t0
+
     def stats(self) -> dict:
         s = self.mgr.stats()
         m = dict(self.metrics)
@@ -478,4 +670,6 @@ class ServingEngine:
         if pf is not None:
             m["prefill_tokens_saved"] = pf["tokens_saved"]
             m["shared_admissions"] = pf["hits"]
+        if self.sched is not None:
+            m["sched"] = self.sched.stats()
         return {**m, **s}

@@ -53,8 +53,10 @@
 //    bf16 (D 16, 32, 64, 128, 256): per 16 tokens, S^T = K Q^T and
 //    O^T += V^T P^T as mma.sync m16n8k16 with the tokens as M and the
 //    group's (up to 8) query heads as N; K and V come from ldmatrix, Q sits
-//    in registers, P is rounded to bf16 and turned into the B operand with
-//    movmatrix. Other shapes and fp32: a lane holds 16 bytes of a K row,
+//    in registers, P is split into two bf16 terms (hi = bf16(P), lo =
+//    bf16(P - hi)), each turned into a B operand with movmatrix and
+//    multiplied into the same fp32 O^T, so P keeps ~16 bits (the reference
+//    keeps it in fp32; one bf16 term would keep 8). Other shapes and fp32: a lane holds 16 bytes of a K row,
 //    a score is a dot product and a shuffle reduction within the lanes of
 //    a row. Both keep the online softmax (m, l in log2 units) in registers
 //    and rescale only when a max grows by more than 2^8 (the same softmax).
@@ -158,6 +160,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+// (x, y) as two packed bf16 pairs, hi = bf16(x, y) and lo = bf16 of the
+// remainders (exact in fp32): hi + lo holds x and y to about 16 bits.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
 struct Params {
@@ -383,9 +393,15 @@ struct MmaState {
       }
       if (null) continue;
       // O^T += V^T P^T: A = V^T (ldmatrix.trans of 16 token rows), B = P^T
-      // (the S^T fragment in bf16, transposed per 8x8 block by movmatrix).
-      const uint32_t b0 = movmatrix_t(pack_bf16(pr[0], pr[1]));
-      const uint32_t b1 = movmatrix_t(pack_bf16(pr[2], pr[3]));
+      // (the S^T fragment, transposed per 8x8 block by movmatrix). P is
+      // carried as hi + lo, two bf16 terms (hi = bf16(P), lo = bf16(P - hi),
+      // ~16 bits of P), in two products into the same fp32 accumulator: the
+      // reference keeps P in fp32, and l above sums the unrounded P.
+      uint32_t bh[2], bl[2];
+      split_bf16(pr[0], pr[1], bh[0], bl[0]);
+      split_bf16(pr[2], pr[3], bh[1], bl[1]);
+      const uint32_t b0 = movmatrix_t(bh[0]), b1 = movmatrix_t(bh[1]);
+      const uint32_t c0 = movmatrix_t(bl[0]), c1 = movmatrix_t(bl[1]);
       int tv = m0 + (lane & 7) + (lane >> 4) * 8;
       tv = tv < tcount ? tv : m0;
       const uint32_t va = hopper::smem_u32(vs + (size_t)tv * p.tok_stride + ((lane >> 3) & 1) * 16);
@@ -394,6 +410,7 @@ struct MmaState {
         uint32_t a[4];
         ldsm_x4_t(a, va + 32 * k);
         mma_bf16(o[k], a, b0, b1);
+        mma_bf16(o[k], a, c0, c1);
       }
     }
   }

@@ -120,8 +120,7 @@ def test_cuda_device_raises_without_a_card(setup):
 
 
 @pytest.mark.parametrize("kw", [dict(offload_mode="copy",
-                                     scheduler="continuous"),
-                                dict(scheduler="continuous")])
+                                     scheduler="continuous")])
 def test_unported_modes_raise(setup, kw):
     _, tcfg, _, tparams = setup
     with pytest.raises(NotImplementedError):

@@ -20,7 +20,9 @@ PORT = SRC / "repro_torch"
 COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "core/__init__.py",
           "core/sva/__init__.py", "core/sva/page_pool.py", "core/sva/tlb.py",
           "core/sva/iommu.py", "core/sva/sanitizer.py", "core/sva/mapping.py",
-          "core/sva/kv_manager.py")
+          "core/sva/kv_manager.py", "core/serving/sequence_buffer.py",
+          "core/serving/scheduler.py", "configs/deployment.py",
+          "core/serving/disagg/workers.py", "core/serving/disagg/__init__.py")
 
 
 def test_import_all_submodules_without_jax():

@@ -7,6 +7,7 @@ functions of ``repro/models/attention.py``, at fp32 atol 1e-5. The CUDA
 kernels themselves are held against the plain versions by the tests marked
 by the ``cuda`` fixture (skipped without a card) and by ``chip_smoke.py``.
 """
+import itertools
 import shutil
 
 import jax.numpy as jnp
@@ -32,6 +33,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa:
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     head_groups, n_splits, paged_attention, paged_decode, tokens_per_copy)
+from repro_torch.kernels.paged_attention.precision import (  # noqa: E402
+    cancellation_scores, decode_p_rounded, p_cancellation_case)
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     gather_global_pages, gather_slot_pages, paged_attention_global_ref,
     paged_attention_ref)
@@ -728,6 +731,97 @@ def test_decode_kernel_rejects_misaligned_pool_on_card(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         paged_attention_global(q, k_off, vp, tbl, lens)
     assert paged_attention_global.launches == before
+
+
+def _half_ulp_bf16(x):
+    """Half the spacing of bf16 values at |x|: a bf16 output's own
+    rounding."""
+    a = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 8)
+
+
+def _plain_fp32(per_slot, q, kp, vp, tbl, lens, softcap=None):
+    """The layout's plain version on fp32 copies of the inputs: the fp32 P
+    of the reference, with no rounding of the output."""
+    ref_fn = paged_attention_ref if per_slot else paged_attention_global_ref
+    return ref_fn(q.float(), kp.float(), vp.float(), tbl, lens,
+                  softcap=softcap)
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_p_cancellation_case_bites(per_slot):
+    """On the cancellation case a decode that rounds P to bf16 misses the
+    fp32 plain version by more than 16 times the output's own rounding,
+    while the plain bf16 version (the CPU path) stays within that rounding;
+    the fp32 plain version equals the JAX oracle."""
+    args = p_cancellation_case(per_slot, "cpu")
+    ref32 = _plain_fp32(per_slot, *args)
+    half_ulp = _half_ulp_bf16(ref32).max().item()
+    err_rounded = (decode_p_rounded(*args) - ref32).abs().max().item()
+    assert err_rounded > 16 * half_ulp
+    fn = paged_attention if per_slot else paged_attention_global
+    assert ((fn(*args).float() - ref32).abs() <= _half_ulp_bf16(ref32)
+            + 1e-6).all()
+    q, kp, vp, tbl, lens = (a.float().numpy() if a.is_floating_point()
+                            else a.numpy() for a in args)
+    oracle = (jax_slot_ref if per_slot else jax_global_ref)(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+        jnp.asarray(lens))
+    np.testing.assert_allclose(ref32.numpy(), np.asarray(oracle), atol=1e-5)
+
+
+def test_cancellation_scores_round_apart():
+    """The two scores' P fall between bf16 neighbours on opposite sides:
+    one rounds down and one up, each by more than 0.3 of a spacing."""
+    for d_ in (16, 64, 128):
+        lo, hi = (torch.tensor(k / d_ ** 0.5, dtype=torch.float64).exp()
+                  for k in cancellation_scores(d_))
+        assert lo.bfloat16().double() < lo - 0.3 / 256
+        assert hi.bfloat16().double() > hi + 0.3 / 256
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_decode_bf16_keeps_p_precision_on_card(cuda, per_slot):
+    """The bf16 tensor-core path carries P through P.V at about 16 bits:
+    on the cancellation case its error is within 1/16 of a decode that
+    rounds P to bf16, which itself misses by more than 16 times the
+    output's rounding."""
+    args = p_cancellation_case(per_slot, cuda)
+    fn = paged_attention if per_slot else paged_attention_global
+    before = fn.launches
+    out = fn(*args)
+    ref32 = _plain_fp32(per_slot, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    err_rounded = (decode_p_rounded(*args) - ref32).abs().max().item()
+    err_kernel = (out.float() - ref32).abs().max().item()
+    print(f"per_slot={per_slot} kernel {err_kernel} p_rounded {err_rounded}")
+    assert err_rounded > 16 * _half_ulp_bf16(ref32).max().item()
+    assert err_kernel <= err_rounded / 16
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_decode_bf16_within_1e3_on_card(cuda, per_slot):
+    """bf16 decode on every shape of the card grid is within 1e-3 of the
+    fp32 plain version, beyond the output's own bf16 rounding (half a
+    spacing at the output: a bf16 output whose exact value lies near a
+    rounding midpoint can land one spacing from the plain bf16 output)."""
+    worst, worst_bf16 = 0.0, 0.0
+    for d_, page, (hq_, hkv_), softcap in itertools.product(
+            (16, 64, 128, 256), (8, 16), ((4, 2), (32, 8), (28, 4), (8, 4)),
+            (None, 30.0)):
+        args = _card_decode_inputs(per_slot, torch.bfloat16, d_, page, hq_,
+                                   hkv_, cuda, seed=d_ + page + hq_)
+        worst_bf16 = max(worst_bf16, _decode_on_card(per_slot, *args,
+                                                     softcap))
+        fn = paged_attention if per_slot else paged_attention_global
+        out = fn(*args, softcap=softcap).float()
+        ref32 = _plain_fp32(per_slot, *args, softcap=softcap)
+        excess = (out - ref32).abs() - _half_ulp_bf16(out)
+        worst = max(worst, excess.max().item())
+    print(f"per_slot={per_slot} beyond rounding {worst} "
+          f"against the plain bf16 output {worst_bf16}")
+    assert worst <= 1e-3
 
 
 # bf16 cases of the wgmma kernel on the card: ragged Sq/Skv, non-causal,
