@@ -14,8 +14,12 @@ Phases (each prints one line; any failure exits non-zero):
      decode rows add the kernel's device time (torch.profiler), the time of
      calls enqueued back to back and the kernel launches a call, and both
      decode kernels are also timed at long context past the 50 MB L2
-     (DECODE_LONG). Flash is also timed at 4096 tokens in llama3.2-1b's,
-     qwen2-7b's and gemma2-2b's widths, with its device time. bf16 decode's
+     (DECODE_LONG) and at phase 3e's serving shapes (DECODE_ARCHS:
+     qwen2-7b's and llama3.2-3b's pools, gemma2-2b's pool and its rings,
+     lengths past their capacity, softcap 50). Flash is also timed at 4096
+     tokens in llama3.2-1b's, qwen2-7b's and gemma2-2b's widths, with its
+     device time, and checked at phase 3e's prefill shapes (gemma2's
+     8192 tokens with window 4096 and softcap 50). bf16 decode's
      precision in P: on a cancellation case (repro_torch/kernels/
      paged_attention/precision.py) the kernel's error against the fp32
      plain version must be within 1/16 of a plain decode's that rounds P to
@@ -33,12 +37,26 @@ Phases (each prints one line; any failure exits non-zero):
      does, and gives share's tokens): every masked decode launches the
      paged decode kernel once a layer, chunked prefill never launches
      flash.
-  4. the smoke-reduced llama3.2-1b (fp32) served on cuda and on cpu over the
-     same seeded workload, in zero_copy and in copy mode, then by the
-     continuous engine (a pool of 8 pages: it preempts) and the
-     disaggregated engine in share and copy mode: greedy tokens must be
-     identical on cuda and cpu, copy must equal zero_copy without prefix
-     sharing, and the three scheduled kinds must equal the fixed engine.
+  3e. the other dense decoders at full width, one at a time (bf16, depth
+     not cut, random seeded weights): qwen2-7b, llama3.2-3b and gemma2-2b,
+     whose sliding-window layers keep rings of 4096 tokens beside the
+     global pool. Per arch: decode against prefill (llama3.2-1b the
+     control; gemma2 at 4500 tokens, past its window), layer by layer,
+     and end to end where the weights are not chaotic; a zero-copy serve
+     (phase 3's requests, gemma2 four prompts of 4500-6000 tokens) whose
+     launch counts must be one global decode a global layer a step and one
+     per-slot decode a ring layer a step; its copy serves in turns (gemma2's
+     copy mode must raise); and every request's first-token logits within
+     5e-2 (relative to the largest logit) of a B=1 prefill.
+  4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b and gemma2-2b
+     (fp32) served on cuda and on cpu over the same seeded workload, in
+     zero_copy and (but gemma2, which must refuse it) in copy mode; then
+     llama3.2-1b and qwen2-7b by the continuous engine (a pool of 8
+     pages: it preempts) and the disaggregated engine in share and copy
+     mode: greedy tokens must be identical on cuda and cpu, copy must
+     equal zero_copy without prefix sharing, and the three scheduled kinds
+     must equal the fixed engine. gemma2's rings (window 8) wrap on the
+     card through the fp32 kernels.
   5. the paper's kernels (gemm, gesummv, axpy, heat3d) through their entry
      points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
      at sizes far past the 50 MB L2, fp32 and bf16: each output against its
@@ -69,12 +87,14 @@ comes from this script's own tree).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -280,6 +300,16 @@ def _flash_flops(B, Sq, Skv, Hq, D, causal, window, q_offset):
 DECODE_LONG = [("global", 32, 32, 8, 64, 4096),
                ("global", 16, 28, 4, 128, 8192),
                ("slot", 32, 32, 8, 64, 4096)]
+# The decode kernels at phase 3e's serving shapes, bf16: (arch, layout, B,
+# Hq, Hkv, D, pages a row, softcap, lowest and highest length). Global: a
+# pool of B x pages-a-row pages behind random tables, NULL past each row's
+# length, as the serve's tables are. Per-slot: gemma2's rings of 256 pages,
+# random tables, every length past their 4096 tokens (the kernel clamps it
+# to the capacity).
+DECODE_ARCHS = [("qwen2-7b", "global", 8, 28, 4, 128, 64, None, 185, 513),
+                ("llama3.2-3b", "global", 8, 24, 8, 128, 64, None, 185, 513),
+                ("gemma2-2b", "global", 4, 8, 4, 256, 512, 50.0, 4500, 6032),
+                ("gemma2-2b", "slot", 4, 8, 4, 256, 256, 50.0, 4500, 6032)]
 DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
 
 
@@ -383,6 +413,67 @@ def _decode_long() -> list:
     return rows
 
 
+def _arch_decode_inputs(layout, B, Hq, Hkv, Dh, pages, lo, hi, g):
+    mk = lambda *sh: torch.randn(*sh, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+    lens = torch.randint(lo, hi + 1, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    if layout == "global":
+        total = B * pages
+        table = torch.randperm(total, generator=g, device="cuda") \
+            .to(torch.int32).view(B, pages)
+        used = (lens + PAGE - 1) // PAGE
+        table[torch.arange(pages, device="cuda")[None] >= used[:, None]] = \
+            total                                       # NULL
+        shape = (total, PAGE, Hkv, Dh)
+    else:
+        table = torch.stack([torch.randperm(pages, generator=g, device="cuda")
+                             for _ in range(B)]).to(torch.int32)
+        shape = (B, pages, PAGE, Hkv, Dh)
+    return mk(B, Hq, Dh), mk(*shape), mk(*shape), table, lens
+
+
+def _decode_archs() -> list:
+    """Both decode kernels at the DECODE_ARCHS shapes: error against the
+    plain version on the same inputs, times beside the bound."""
+    from repro_torch.kernels import paged_attention_global
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_global_ref, paged_attention_ref)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = []
+    for arch, layout, B, Hq, Hkv, Dh, pages, cap, lo, hi in DECODE_ARCHS:
+        q, kp, vp, tbl, lens = _arch_decode_inputs(layout, B, Hq, Hkv, Dh,
+                                                   pages, lo, hi, g)
+        fn, ref_fn, bound_fn = (
+            (paged_attention_global, paged_attention_global_ref,
+             _decode_bound) if layout == "global" else
+            (paged_attention, paged_attention_ref, _slot_decode_bound))
+        out = fn(q, kp, vp, tbl, lens, softcap=cap)
+        ref = ref_fn(q, kp, vp, tbl, lens, softcap=cap)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(out).all(), f"decode {arch} {layout}: non-finite"
+        assert err <= TOL[torch.bfloat16], \
+            f"decode {arch} {layout}: err {err}"
+        nbytes, flops = bound_fn(q, kp, tbl, lens)
+        capacity = pages * PAGE
+        row = dict(arch=arch, layout=layout, dtype=str(torch.bfloat16), B=B,
+                   Hq=Hq, Hkv=Hkv, D=Dh, page=PAGE, pages_a_row=pages,
+                   softcap=cap, lengths=lens.tolist(), capacity=capacity,
+                   past_capacity=int((lens > capacity).sum()),
+                   max_abs_err=err, tol=TOL[torch.bfloat16],
+                   **_decode_times(
+                       lambda: fn(q, kp, vp, tbl, lens, softcap=cap),
+                       lambda: ref_fn(q, kp, vp, tbl, lens, softcap=cap),
+                       nbytes, flops, torch.bfloat16, plain_iters=3))
+        emit("phase2 decode arch", **row)
+        rows.append(row)
+        del q, kp, vp, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_decode() -> dict:
     """Phase 2's decode rows: both layouts at the serving shapes (fp32 and
     bf16, softcap None and 30, exact zeros in the length-0 and all-NULL
@@ -462,6 +553,7 @@ def phase_decode() -> dict:
              sdpa_gathered_ms=sdpa, **t)
         res[("slot", dtype)] = dict(err=max(errs), sdpa=sdpa, **t)
     res["decode_long"] = _decode_long()
+    res["decode_archs"] = _decode_archs()
     return res
 
 
@@ -543,7 +635,11 @@ FLASH_CASES = [(2, 100, 100, 8, 2, 64, True, None, 30.0, 0),
 FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     (1, 130, 130, 4, 4, 128, False, None, None, 0),
                     (2, 77, 141, 4, 2, 256, True, 48, 50.0, 64),
-                    (1, 200, 260, 8, 4, 256, True, None, 50.0, 60)]
+                    (1, 200, 260, 8, 4, 256, True, None, 50.0, 60),
+                    # phase 3e's prefills: llama3.2-3b's bucket of 512,
+                    # gemma2's local layers at its bucket of 8192
+                    (8, 512, 512, 24, 8, 128, True, None, None, 0),
+                    (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, 0)]
 # Timed shapes (B, Sq, Skv, Hq, Hkv, D), causal: the serve's prefill, then
 # llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
 # without its softcap: SDPA has none). bf16; the first also in fp32.
@@ -956,6 +1052,342 @@ def phase_scheduled_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
     return launches_by_kind
 
 
+# ------------------------------------------------------------------ phase 3e
+
+DENSE_ARCHS = ("qwen2-7b", "llama3.2-3b", "gemma2-2b")
+# decode-against-prefill length: gemma2's passes its 4096-token window and
+# is no multiple of it, so its rings wrap unaligned
+CONSISTENCY_S = {"llama3.2-1b": 1000, "qwen2-7b": 1000, "llama3.2-3b": 1000,
+                 "gemma2-2b": 4500}
+LOGIT_REL = 5e-2        # max|d logits| / max|logit| in bf16
+LONG_MAX_LEN = 8192     # gemma2's serve: 4 slots of 512 pages
+# The reference's init draws wq and wk at std heads**-0.5 (its fan-in is
+# the heads axis), so attention is sharp and a deep random model can
+# amplify a rounding difference to O(1) in its logits: no end-to-end
+# comparison of two bf16 paths holds on it (tests/test_torch_init.py pins
+# this on the reference's own init at full depth). Where the weights as
+# built move their logits by CHAOTIC or more when the embeddings move by
+# 1/128 (_input_sensitivity), the end-to-end decode-against-prefill is a
+# reading, not a gate, and the serves run on the same weights with wq and
+# wk scaled by QK_SCALE (attention logits / 100), on which attention is
+# near uniform: their first-token check cannot see a misplaced KV page.
+# The per-layer check runs on the weights as built and gates every arch.
+CHAOTIC = 0.5
+QK_SCALE = 0.1
+
+
+def _rel(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max().item()
+            / (ref.float().abs().max().item() + 1e-9))
+
+
+def _qk_scaled(params, scale: float = QK_SCALE):
+    """The same weights with every layer's wq and wk scaled (new tensors
+    for those two; every other leaf shared)."""
+    def layer(p):
+        attn = dict(p["attn"], wq=p["attn"]["wq"] * scale,
+                    wk=p["attn"]["wk"] * scale)
+        return dict(p, attn=attn)
+    return dict(params, blocks=[{k: layer(v) for k, v in blk.items()}
+                                for blk in params["blocks"]])
+
+
+def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
+    """rel of the last logits of a prefill of S tokens when each element
+    of its embeddings moves by one part in 128 (a bf16 rounding step or
+    two): the model's own gain on a rounding difference."""
+    from repro_torch.models.blocks import FwdCtx, apply_layer
+    from repro_torch.models.layers import logits_fn, rmsnorm
+    from repro_torch.models.model import _embed_in
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    sign = torch.randint(0, 2, (B, S, cfg.d_model), generator=g,
+                         device="cuda") * 2 - 1
+    ctx = FwdCtx(cfg=cfg, mode="prefill")
+    layers = [(kind, blk[str(i)]) for blk in params["blocks"]
+              for i, kind in enumerate(cfg.block_pattern)]
+    out = []
+    with torch.no_grad():
+        x0 = _embed_in(cfg, params, toks)
+        for x in (x0, (x0.float() * (1 + sign / 128)).to(x0.dtype)):
+            for kind, p in layers:
+                x, _ = apply_layer(kind, p, x, ctx, None)
+            x = rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
+            out.append(logits_fn(params["embed"], x, cfg.logit_softcap))
+    return _rel(out[1], out[0])
+
+
+def _serving_cache(cfg, S: int, B: int, seed: int):
+    """B rows of S + 1 random tokens and, for their first S, the serving
+    layout (the global pool, and rings for sliding-window layers) with its
+    tables and lengths."""
+    from repro_torch.models import init_cache
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device="cuda")
+    n_pages = -(-(S + 1) // PAGE)
+    cache = init_cache(cfg, B, n_pages * PAGE, PAGE,
+                       global_pages=B * n_pages, device="cuda")
+    tables = torch.arange(B * n_pages, dtype=torch.int32,
+                          device="cuda").view(B, n_pages)
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    return toks, cache, tables, lengths
+
+
+def _layerwise_decode_vs_prefill(cfg, params, S: int, B: int = 2) -> float:
+    """Decode against prefill one layer at a time, each layer fed the same
+    hidden states: every layer of a prefill of S + 1 tokens (no cache)
+    against the same layer's prefill of the first S into the serving
+    layout followed by one decode step of token S. Returns the largest
+    rel of a layer's update (output minus input) at token S. No error
+    carries from layer to layer, so this holds on weights whose
+    end-to-end output rounding scrambles."""
+    from repro_torch.core.serving.engine import (_build_prefill_view,
+                                                 _install_tables,
+                                                 _merge_prefill_view)
+    from repro_torch.models.blocks import FwdCtx, apply_layer
+    from repro_torch.models.model import _embed_in
+    toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED + 1)
+    view = _build_prefill_view(cache, tables, lengths)
+    kinds = [k for _ in params["blocks"] for k in cfg.block_pattern]
+    layers = [blk[str(i)] for blk in params["blocks"]
+              for i in range(len(cfg.block_pattern))]
+    full = FwdCtx(cfg=cfg, mode="prefill")
+    pre = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths)
+    dec = FwdCtx(cfg=cfg, mode="decode", q_offset=lengths)
+    worst = 0.0
+    with torch.no_grad():
+        x = _embed_in(cfg, params, toks)
+        for li, (kind, p) in enumerate(zip(kinds, layers)):
+            x_next, _ = apply_layer(kind, p, x, full, None)
+            apply_layer(kind, p, x[:, :S].contiguous(), pre, view[li])
+            _merge_prefill_view([cache[li]], [view[li]],
+                                torch.arange(B, device="cuda"))
+            kv = _install_tables([cache[li]], tables, lengths)[0]
+            y, _ = apply_layer(kind, p, x[:, S:].contiguous(), dec, kv)
+            worst = max(worst, _rel(y - x[:, S:], x_next[:, S:] - x[:, S:]))
+            x = x_next
+    return worst
+
+
+def _decode_vs_prefill(cfg, params, S: int, B: int = 2) -> dict:
+    """forward_prefill of S tokens into the serving layout, then one
+    forward_decode, against the last logits of a prefill of S + 1 tokens:
+    the card's tests/test_decode_consistency.py."""
+    from repro_torch.core.serving.engine import (_build_prefill_view,
+                                                 _install_tables,
+                                                 _merge_prefill_view)
+    from repro_torch.models import forward_decode, forward_prefill
+    toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED)
+    with torch.no_grad():
+        ref, _ = forward_prefill(cfg, params, {"tokens": toks}, None)
+        view = _build_prefill_view(cache, tables, lengths)
+        forward_prefill(cfg, params, {"tokens": toks[:, :S],
+                                      "lengths": lengths}, view)
+        _merge_prefill_view(cache, view, torch.arange(B, device="cuda"))
+        dec, _ = forward_decode(cfg, params, toks[:, S:], lengths,
+                                _install_tables(cache, tables, lengths))
+    rings = [kv for kv in cache if kv.k_pool.dim() == 5]
+    return dict(rel=_rel(dec, ref),
+                ring_tokens=rings[0].capacity if rings else None,
+                ring_layers=len(rings))
+
+
+def _consistency(cfg, params, S: int):
+    """Phase 3e (a) for one arch, on the weights as built. ``layer_rel``
+    gates every arch. The end-to-end ``rel`` gates an arch whose weights
+    are not chaotic (``sensitivity`` below CHAOTIC); on chaotic weights it
+    is a reading (~1), and the serve runs on their q/k-scaled copy, which
+    is returned."""
+    row = dict(arch=cfg.name, S=S, B=2,
+               sensitivity=_input_sensitivity(cfg, params, S),
+               layer_rel=_layerwise_decode_vs_prefill(cfg, params, S),
+               **_decode_vs_prefill(cfg, params, S))
+    row["chaotic"] = row["sensitivity"] >= CHAOTIC
+    served = params
+    if row["chaotic"]:
+        served = _qk_scaled(params)
+        row.update(qk_scale=QK_SCALE,
+                   sensitivity_scaled=_input_sensitivity(cfg, served, S))
+    emit("phase3e decode-vs-prefill", **row)
+    assert row["layer_rel"] < LOGIT_REL, row
+    assert row["chaotic"] or row["rel"] < LOGIT_REL, row
+    return served
+
+
+@contextlib.contextmanager
+def _first_logits():
+    """While a serve runs, records every prefill call of the engine as
+    (each row's full prompt length, its tokens, its last logits): the
+    serve's own first-token logits."""
+    from repro_torch.core.serving import engine as eng_mod
+    real, rows = eng_mod.forward_prefill, []
+
+    def prefill(cfg, params, batch, cache):
+        logits, cache = real(cfg, params, batch, cache)
+        toks, lens = batch["tokens"], batch.get("lengths")
+        lens = ([toks.shape[1]] * toks.shape[0] if lens is None
+                else lens.tolist())
+        pre = batch.get("prefix_lens")
+        pre = [0] * len(lens) if pre is None else pre.tolist()
+        for i, (n, k) in enumerate(zip(lens, pre)):
+            rows.append((k + n, toks[i, :n].tolist(), logits[i, -1]))
+        return logits, cache
+    with mock.patch.object(eng_mod, "forward_prefill", prefill):
+        yield rows
+
+
+def _first_token_check(cfg, params, prompts, served_rows) -> list:
+    """Each request's first-token logits from the serve (the prefill row
+    of its length whose tokens end its prompt) against a B=1
+    forward_prefill of its prompt on the card: the engine's padded,
+    table-driven (mixed-layout) prefill, where bf16 tokens cannot be
+    compared."""
+    from repro_torch.models import forward_prefill
+    rels = []
+    for p in prompts:
+        served = [lg for n, toks, lg in served_rows
+                  if n == len(p) and p[n - len(toks):] == toks]
+        with torch.no_grad():
+            ref, _ = forward_prefill(cfg, params, {"tokens": torch.tensor(
+                [p], device="cuda")}, None)
+        rels.append(_rel(served[-1], ref[0, -1]))
+    assert max(rels) < LOGIT_REL, rels
+    return rels
+
+
+def _long_requests(vocab: int, rng, n: int = 4, lo: int = 4500,
+                   hi: int = 6000):
+    return [rng.integers(0, vocab, size=int(L)).tolist()
+            for L in rng.integers(lo, hi + 1, size=n)]
+
+
+def _dense_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
+                 offload_mode="zero_copy") -> tuple:
+    """One fixed-scheduler serve at full width with its launch counts and
+    each request's first-token logits."""
+    from repro_torch.kernels import reset_launch_counts
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _first_logits() as first:
+        outs, eng, done, wall = serve(cfg, params, "cuda", prompts,
+                                      new_tokens, n_slots, max_len, PAGE,
+                                      offload_mode=offload_mode)
+    launches = _serve_launches()
+    s = check_serve(cfg, eng, outs, prompts, new_tokens)
+    row = dict(offload_mode=offload_mode, **_serve_figures(s, done, wall),
+               decode_s=s["decode_s"], decode_steps=s["decode_steps"],
+               prefills=s["prefills"], staging_copies=s["staging_copies"],
+               shared_admissions=s["shared_admissions"],
+               cow_page_copies=s["cow_page_copies"], launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return outs, eng, row, first
+
+
+def phase_dense_archs(control_params) -> dict:
+    """qwen2-7b, llama3.2-3b and gemma2-2b as get_config gives them (bf16,
+    depth not cut, random weights from SEED built on the card), one at a
+    time: (a) decode against prefill on the weights as built
+    (llama3.2-1b, phase 3's model, as the control): layer by layer, and
+    end to end, a gate only where they are not chaotic; (b) on them or,
+    where they are chaotic, on them with wq and wk scaled by QK_SCALE, a
+    zero-copy serve, with its launch counts: the global
+    decode kernel once a global-pool layer a step, the per-slot one once a
+    ring layer a step, flash on wgmma; qwen2 and llama3.2-3b take phase 3's
+    requests and copy serves in turns, gemma2 four prompts of 4500-6000
+    tokens over rings of 4096 (its copy mode must raise); (c) every
+    request's first-token logits against a B=1 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serving.engine import ServingEngine
+    from repro_torch.models import init_params
+    _consistency(get_config("llama3.2-1b"), control_params,
+                 CONSISTENCY_S["llama3.2-1b"])
+    launches_by_arch = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = _consistency(cfg, params, CONSISTENCY_S[arch])
+        kinds = cfg.layer_kinds()
+        n_ring = sum(k == "attn_mlp_local" for k in kinds)
+        n_global = len(kinds) - n_ring
+        rng = np.random.default_rng(SEED)
+        if n_ring:
+            prompts = _long_requests(cfg.vocab_size, rng)
+            assert min(map(len, prompts)) > cfg.sliding_window
+            n_slots, max_len = 4, LONG_MAX_LEN
+        else:
+            prompts = requests(cfg.vocab_size, rng)
+            n_slots, max_len = 8, 1024
+        new_tokens = 32
+        outs, eng, row, first = _dense_serve(cfg, params, prompts, new_tokens,
+                                             n_slots, max_len)
+        launches = row["launches"]
+        steps = row["decode_steps"]
+        assert launches["paged_attention_global"] == n_global * steps, launches
+        assert launches["paged_attention"] == n_ring * steps, launches
+        assert launches["flash_attention_fwd"] >= len(kinds), launches
+        rings = [kv for kv in eng.cache if kv.k_pool.dim() == 5]
+        assert len(rings) == n_ring
+        if n_ring:
+            assert all(kv.capacity == cfg.sliding_window for kv in rings)
+            assert all(int(kv.length.min()) > kv.capacity for kv in rings)
+        del eng
+        rels = _first_token_check(cfg, params, prompts, first)
+        row.update(arch=arch, dtype=cfg.activation_dtype,
+                   n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+                   d_head=cfg.d_head, vocab=cfg.vocab_size,
+                   global_layers=n_global, ring_layers=n_ring,
+                   ring_tokens=rings[0].capacity if rings else None,
+                   requests=len(prompts),
+                   prompt_lens=[len(p) for p in prompts],
+                   new_tokens=new_tokens, slots=n_slots, max_len=max_len,
+                   page=PAGE, init_s=init_s,
+                   weights_gib=sum(t.numel() * t.element_size()
+                                   for t in _leaves(params)) / 2**30,
+                   first_token_rel=rels)
+        emit("phase3e serve", **row)
+        launches_by_arch[arch] = launches
+        if n_ring:
+            try:
+                ServingEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                              page_size=PAGE, offload_mode="copy",
+                              device="cuda")
+            except NotImplementedError as e:
+                emit("phase3e copy serve", arch=arch, raises=repr(e)[:120])
+            else:
+                raise AssertionError(f"{arch}: copy mode past the window "
+                                     "served")
+        else:
+            copy_rows = []
+            for mode in ("copy", "copy", "zero_copy"):
+                c_outs, c_eng, c_row, c_first = _dense_serve(
+                    cfg, params, prompts, new_tokens, n_slots, max_len, mode)
+                del c_eng
+                if mode == "copy":
+                    c_launches = c_row["launches"]
+                    assert (c_launches["paged_attention"]
+                            == cfg.n_layers * c_row["decode_steps"]), c_launches
+                    assert c_launches["paged_attention_global"] == 0
+                    c_row["first_token_rel"] = _first_token_check(
+                        cfg, params, prompts, c_first)
+                    c_row["tokens_equal_to_zero_copy"] = sum(
+                        a == b for o, z in zip(c_outs, outs)
+                        for a, b in zip(o, z))
+                copy_rows.append(c_row)
+            emit("phase3e copy serve", arch=arch,
+                 turns="zero_copy copy copy zero_copy", serves=copy_rows)
+            launches_by_arch[arch + " copy"] = copy_rows[0]["launches"]
+        del params
+        torch.cuda.empty_cache()
+    return launches_by_arch
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1005,21 +1437,42 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
 
 # ------------------------------------------------------------------ phase 4
 
-def phase_cross_check(device: str = "cuda") -> None:
+CROSS_ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b")
+SCHEDULED_ARCHS = ("llama3.2-1b", "qwen2-7b")
+
+
+def phase_cross_check(arch: str, device: str = "cuda") -> None:
+    """The smoke-reduced ``arch`` (fp32) served on ``device`` and on the CPU:
+    zero-copy, then copy (an arch with sliding-window layers must refuse
+    copy mode past its window of 8, and serves its rings in zero-copy), and
+    for SCHEDULED_ARCHS the continuous and disaggregated kinds."""
     from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core.serving.engine import ServingEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import init_params
-    cfg = reduce_for_smoke(get_config("llama3.2-1b"))
+    cfg = reduce_for_smoke(get_config(arch))
     params_cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
     params_dev = {k: _to(v, device) for k, v in params_cpu.items()}
     prompts = requests(cfg.vocab_size, np.random.default_rng(SEED), n=6,
                        system_len=20, lo=8, hi=40)
     kw = dict(max_tokens=8, n_slots=4, max_len=64, page=8)
+    windowed = "attn_mlp_local" in cfg.layer_kinds()
+    modes = [("zero_copy", {})]
+    if windowed:
+        assert min(map(len, prompts)) > cfg.sliding_window
+        try:
+            ServingEngine(cfg, params_dev, n_slots=4, max_len=64,
+                          page_size=8, offload_mode="copy", device=device)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"{arch}: copy mode past the window served")
+    else:
+        modes += [("copy", dict(offload_mode="copy")),
+                  ("zero_copy_unshared", dict(prefix_sharing=False))]
     runs = {}
-    for mode, ekw in (("zero_copy", {}),
-                      ("copy", dict(offload_mode="copy")),
-                      ("zero_copy_unshared", dict(prefix_sharing=False))):
+    for mode, ekw in modes:
         reset_launch_counts()
         dev_outs, dev_eng, _, _ = serve(cfg, params_dev, device, prompts,
                                         **kw, **ekw)
@@ -1034,7 +1487,8 @@ def phase_cross_check(device: str = "cuda") -> None:
         if device == "cuda":
             used = (("paged_attention", "flash_attention_fwd")
                     if mode == "copy"
-                    else ("paged_attention_global", "flash_attention_fwd"))
+                    else ("paged_attention_global", "flash_attention_fwd")
+                    + (("paged_attention",) if windowed else ()))
             assert all(launches[k] > 0 for k in used), launches
             assert all(n == 0 for k, n in launches.items()
                        if k not in used), launches
@@ -1044,14 +1498,19 @@ def phase_cross_check(device: str = "cuda") -> None:
              identical_tokens=same, launches=launches,
              staging_copies=s["staging_copies"],
              shared_admissions=s["shared_admissions"],
-             cow_page_copies=s["cow_page_copies"])
-        assert same, (f"{mode}: greedy tokens differ: {device} {dev_outs} "
-                      f"vs cpu {cpu_outs}")
+             cow_page_copies=s["cow_page_copies"],
+             **({"copy_raises": True} if windowed else {}))
+        assert same, (f"{arch} {mode}: greedy tokens differ: {device} "
+                      f"{dev_outs} vs cpu {cpu_outs}")
+    if windowed:
+        return
     same = runs["copy"] == runs["zero_copy_unshared"]
-    emit("phase4 copy-vs-zero_copy", device=device, prefix_sharing=False,
-         identical_tokens=same)
-    assert same, (f"copy {runs['copy']} vs zero_copy without prefix sharing "
-                  f"{runs['zero_copy_unshared']}")
+    emit("phase4 copy-vs-zero_copy", arch=cfg.name, device=device,
+         prefix_sharing=False, identical_tokens=same)
+    assert same, (f"{arch}: copy {runs['copy']} vs zero_copy without prefix "
+                  f"sharing {runs['zero_copy_unshared']}")
+    if arch not in SCHEDULED_ARCHS:
+        return
     # The scheduled kinds, the continuous engine over a pool of SMOKE_POOL
     # pages (it preempts): each must equal itself across devices and the
     # fixed engine's tokens. (A copy-mode transfer needs room for a second
@@ -1077,10 +1536,11 @@ def phase_cross_check(device: str = "cuda") -> None:
              equal_to_fixed=dev_outs == runs["zero_copy"],
              sched=s["sched"], transfer=s.get("transfer"),
              launches=launches, staging_copies=s["staging_copies"])
-        assert same, (f"{kind}: greedy tokens differ: {device} {dev_outs} "
-                      f"vs cpu {cpu_outs}")
+        assert same, (f"{arch} {kind}: greedy tokens differ: {device} "
+                      f"{dev_outs} vs cpu {cpu_outs}")
         assert dev_outs == runs["zero_copy"], (
-            f"{kind}: {dev_outs} vs the fixed engine {runs['zero_copy']}")
+            f"{arch} {kind}: {dev_outs} vs the fixed engine "
+            f"{runs['zero_copy']}")
         if kind == "continuous":
             assert s["sched"]["preemptions"] > 0, s["sched"]
 
@@ -1576,9 +2036,11 @@ def main(argv=None) -> int:
     launches, served, zc_outs, zc_figures = phase_serve()
     copy_launches = phase_copy_serve(*served, zc_outs, zc_figures)
     scheduled_launches = phase_scheduled_serve(*served, zc_outs)
+    dense_launches = phase_dense_archs(served[1])
     if args.profile:
         phase_profile(*served)
-    phase_cross_check()
+    for arch in CROSS_ARCHS:
+        phase_cross_check(arch)
     paper = phase_paper_kernels()
     sort = phase_mergesort()
     dec = res[("decode", torch.bfloat16)]
@@ -1594,26 +2056,36 @@ def main(argv=None) -> int:
          "max_abs_err_fp32": res[("decode", torch.float32)]["err"],
          **_precision_fields(res["precision"]["global"]),
          "launches_scheduled": scheduled_launches,
+         "launches_dense_archs": {a: n["paged_attention_global"]
+                                  for a, n in dense_launches.items()},
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
          "long_context": [r for r in res["decode_long"]
-                          if r["layout"] == "global"]},
+                          if r["layout"] == "global"],
+         "arch_shapes": [r for r in res["decode_archs"]
+                         if r["layout"] == "global"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:102",
          "launches": copy_launches["paged_attention"],
+         "launches_dense_archs": {a: n["paged_attention"]
+                                  for a, n in dense_launches.items()},
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
          **_precision_fields(res["precision"]["slot"]),
          **_decode_row(slot),
          "long_context": [r for r in res["decode_long"]
-                          if r["layout"] == "slot"]},
+                          if r["layout"] == "slot"],
+         "arch_shapes": [r for r in res["decode_archs"]
+                         if r["layout"] == "slot"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
          "launches": launches["flash_attention_fwd"],
          "wgmma_launches": launches["flash_attention_fwd_wgmma"],
+         "launches_dense_archs": {a: n["flash_attention_fwd"]
+                                  for a, n in dense_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

@@ -1,7 +1,8 @@
 """Architecture registry of the port: only the archs it serves.
 
-``get_config("llama3.2-1b")`` returns the same config as the JAX package;
-``base.py`` and the per-arch modules are byte copies of the reference's.
+``get_config(arch)`` returns the same config as the JAX package for the four
+dense decoders the port serves; ``base.py`` and the per-arch modules are
+copies of the reference's.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 # arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

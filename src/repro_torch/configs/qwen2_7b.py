@@ -1,0 +1,24 @@
+"""qwen2-7b — [dense] 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064.
+
+GQA with QKV bias [arXiv:2407.10671; hf].
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-7b",
+        family="dense",
+        n_layers=28,
+        d_model=3584,
+        n_heads=28,
+        n_kv_heads=4,
+        d_head=128,
+        d_ff=18944,
+        vocab_size=152064,
+        block_pattern=("attn_mlp",),
+        qkv_bias=True,
+        rope_theta=1_000_000.0,
+        act="silu",
+        norm_eps=1e-6,
+    )

@@ -38,8 +38,15 @@ full slot width whose non-decoding rows see all-NULL tables. Preemption
 under pool pressure folds a sequence's tokens back into the waiting queue;
 the resume re-prefills from warm prefix pages.
 
-Not ported here: archs with per-slot state (sliding-window rings, recurrent
-state, cross-KV); they raise NotImplementedError.
+Sliding-window layers (gemma2's ``attn_mlp_local``) keep per-slot rings of
+``ceil(window / page)`` pages beside the global pool when ``max_len`` passes
+the window: a batched prefill writes them into fresh zero rows that are
+scattered back to their slots, and decode appends modulo the ring. Such an
+arch serves without prefix sharing and without the continuous scheduler,
+and in copy mode only while ``max_len`` fits its window, as the reference.
+
+Not ported here: archs with recurrent state or cross-KV; they raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -57,10 +64,17 @@ from repro_torch.core.serving.sequence_buffer import SequenceBuffer
 from repro_torch.core.sva.iommu import (AutoTuneConfig, PrefetchConfig,
                                         TLBConfig, default_autotune_candidates)
 from repro_torch.core.sva.kv_manager import PagedKVManager
+from repro_torch.models import attention as attn
 from repro_torch.models.model import (Cache, forward_decode,
                                       forward_prefill, init_cache,
-                                      install_tables)
-from repro_torch.models.params import resolve_device, torch_dtype
+                                      install_tables, layer_capacity)
+from repro_torch.models.params import (SERVED_KINDS, resolve_device,
+                                       torch_dtype)
+
+# Layer kinds whose KV lives wholly in the shared global pool: prefix
+# sharing and chunked prefill (the continuous scheduler) read a sequence's
+# earlier KV back from it, which a per-slot ring cannot give.
+SHARE_KINDS = {"attn_mlp", "attn_moe", "attn"}
 
 
 @dataclass
@@ -90,6 +104,50 @@ def _write_slot(batch_cache: Cache, single_cache: Cache, slot: int) -> None:
             dst[slot].copy_(src[0])
 
 
+def _build_prefill_view(cache: Cache, tables: torch.Tensor,
+                        lengths: torch.Tensor) -> Cache:
+    """The batch cache as a batched prefill of ``nb = tables.shape[0]`` rows
+    sees it: global-pool layers keep the same pools with the rows' tables
+    (KV lands in place: zero-copy); a per-slot ring gets fresh zero rows,
+    which :func:`_merge_prefill_view` scatters back to their slots."""
+    nb = tables.shape[0]
+    view = []
+    for kv in cache:
+        if attn.is_global_layout(kv):
+            view.append(kv._replace(block_table=tables, length=lengths))
+            continue
+        n_pages = kv.block_table.shape[-1]
+        shape = (nb, *kv.k_pool.shape[1:])
+        view.append(attn.PagedKV(
+            kv.k_pool.new_zeros(shape), kv.v_pool.new_zeros(shape),
+            torch.arange(n_pages, dtype=torch.int32, device=tables.device)
+            .expand(nb, n_pages), torch.zeros_like(lengths)))
+    return view
+
+
+def _merge_prefill_view(cache: Cache, view: Cache,
+                        slots: torch.Tensor) -> None:
+    """Scatter each ring's first ``len(slots)`` prefilled rows to ``slots``
+    in place (the padding rows after them are dropped); the global pools
+    were written in place."""
+    n = slots.shape[0]
+    for kv, w in zip(cache, view):
+        if not attn.is_global_layout(kv):
+            kv.k_pool[slots] = w.k_pool[:n]
+            kv.v_pool[slots] = w.v_pool[:n]
+
+
+def _install_tables(cache: Cache, tables: torch.Tensor,
+                    lengths: torch.Tensor) -> Cache:
+    """The zero-copy decode's install into a serving cache: every layer
+    takes ``lengths``; each global-pool layer takes ``tables`` (B, P), and a
+    sliding-window ring, the one per-slot layer a serving cache holds,
+    keeps its identity table."""
+    return [kv._replace(block_table=tables, length=lengths)
+            if attn.is_global_layout(kv) else kv._replace(length=lengths)
+            for kv in cache]
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
                  page_size: int = 8, offload_mode: str = "zero_copy",
@@ -110,12 +168,27 @@ class ServingEngine:
         if scheduler == "continuous" and offload_mode != "zero_copy":
             raise NotImplementedError(
                 "continuous scheduling requires offload_mode='zero_copy'")
+        kinds = cfg.layer_kinds()
         if (cfg.is_encdec or cfg.n_image_tokens
-                or any(k != "attn_mlp" for k in cfg.layer_kinds())):
+                or any(k not in SERVED_KINDS for k in kinds)):
             raise NotImplementedError(
-                f"{cfg.name}: layers with per-slot state (sliding-window "
-                "rings, recurrent state, cross-KV) or non-attn_mlp kinds are "
-                "not ported; the port serves dense attn_mlp decoders")
+                f"{cfg.name}: layers with recurrent state or cross-KV are "
+                f"not ported; the port serves dense {SERVED_KINDS} decoders")
+        all_shared = all(k in SHARE_KINDS for k in kinds)
+        if scheduler == "continuous" and not all_shared:
+            raise NotImplementedError(
+                "continuous scheduling needs all KV state in the shared "
+                "global pool: chunked prefill cannot reconstruct per-slot "
+                "ring buffers")
+        if offload_mode == "copy" and any(
+                -(-layer_capacity(cfg, k, max_len) // page_size)
+                < -(-max_len // page_size) for k in kinds):
+            # Per-slot window rings have fewer pages than a manager table
+            # row, so no row could be mapped onto them.
+            raise NotImplementedError(
+                "copy-mode serving cannot map block-table rows onto "
+                "sliding-window leaves (fewer pages than the slot table); "
+                "serve this config with offload_mode='zero_copy'")
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_len, self.page_size = n_slots, max_len, page_size
@@ -124,7 +197,8 @@ class ServingEngine:
         self.max_pages = -(-max_len // page_size)
         kv_bytes = (2 * cfg.n_kv_heads * cfg.d_head * len(cfg.layer_kinds())
                     * torch_dtype(cfg.activation_dtype).itemsize)
-        self._can_share = offload_mode == "zero_copy" and prefix_sharing
+        self._can_share = (offload_mode == "zero_copy" and prefix_sharing
+                           and all_shared)
         # Adaptive translation front-end (both default-off): IOTLB
         # prefetching and online geometry auto-tuning.
         prefetch = PrefetchConfig(cfg.serve_tlb_prefetch_policy,
@@ -361,9 +435,12 @@ class ServingEngine:
         if sharing:
             batch["prefix_lens"] = self._dev(prefix)
             batch["write_tables"] = self._dev(wtables)
-        view = install_tables(self.cache, self._dev(tables), batch["lengths"])
+        view = _build_prefill_view(self.cache, self._dev(tables),
+                                   batch["lengths"])
         with torch.no_grad():
             logits, _ = forward_prefill(self.cfg, self.params, batch, view)
+        _merge_prefill_view(self.cache, view, self._dev(np.asarray(
+            [st.slot for _, st in group], np.int64)))
         logits = logits[:, -1].float().cpu().numpy()
         now = time.perf_counter()
         for i, (req, st) in enumerate(group):
@@ -417,13 +494,15 @@ class ServingEngine:
 
     # --------------------------------------------------------------- CoW
     def _cow_copy_pages(self, src: torch.Tensor, dst: torch.Tensor) -> None:
-        """One batched physical page duplication in every layer's pools:
-        ``pool[dst] = pool[src]``. Padding pairs carry dst == NULL and are
-        dropped; every source page is read before any destination is
-        written."""
+        """One batched physical page duplication in every global-pool
+        layer's pools: ``pool[dst] = pool[src]``. Padding pairs carry dst ==
+        NULL and are dropped; every source page is read before any
+        destination is written."""
         rows = torch.nonzero(dst < self.null_page, as_tuple=True)[0]
         src, dst = src[rows].long(), dst[rows].long()
         for kv in self.cache:
+            if not attn.is_global_layout(kv):
+                continue
             for pool in (kv.k_pool, kv.v_pool):
                 pages = pool[src]                # gathered copy, then write
                 pool[dst] = pages
@@ -492,7 +571,7 @@ class ServingEngine:
                 if self.translation_trace is not None:
                     self.translation_trace.append(
                         ("step", accesses, int(kv_len.sum())))
-            cache = install_tables(self.cache, self._tables_dev, pos)
+            cache = _install_tables(self.cache, self._tables_dev, pos)
         else:
             # copy baseline: full table re-upload + re-map every step
             tables = self.mgr.device_tables()

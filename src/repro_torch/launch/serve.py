@@ -4,6 +4,11 @@
       --smoke --device cpu --requests 8 --max-tokens 12 \
       --offload-mode zero_copy     # or: copy
 
+``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (llama3.2-1b,
+gemma2-2b, llama3.2-3b, qwen2-7b). gemma2-2b serves copy mode only while
+``--max-len`` fits its sliding window (8 tokens at ``--smoke``), as the
+reference.
+
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
 output as ``repro.launch.serve``: ``zero_copy`` shows ``staging_copies: 0``,
 ``copy`` (the staging baseline) one staging copy per request.
@@ -17,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import ARCH_IDS, get_config, reduce_for_smoke
 from repro_torch.core.serving.engine import ServingEngine
 from repro_torch.models import init_params
 from repro_torch.models.params import resolve_device
@@ -25,7 +30,7 @@ from repro_torch.models.params import resolve_device
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

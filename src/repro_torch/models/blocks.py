@@ -1,11 +1,12 @@
-"""Per-layer forward (port of ``repro/models/blocks.py``, ``attn_mlp`` path).
+"""Per-layer forward (port of ``repro/models/blocks.py``: the ``attn_mlp``
+and ``attn_mlp_local`` layers of the dense decoders).
 
 Two execution modes reach a layer here:
   prefill  a right-padded batch of prompts; KV is scattered into the shared
            global pool through per-sequence block tables (zero-copy), or,
            with a cached prefix, only the suffix is computed; or, on a
-           per-slot cache (the copy baseline), written into each slot's own
-           pages through its permutation table
+           per-slot cache (the copy baseline, or a sliding-window layer's
+           ring), written into each slot's own pages through its table
   decode   one token per sequence: append through the table, then attend
            over the pool through it
 """
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import glu_mlp, rmsnorm, rope
+from repro_torch.models.params import SERVED_KINDS
 
 
 @dataclass(frozen=True)
@@ -34,7 +36,8 @@ class FwdCtx:
     write_tables: Optional[torch.Tensor] = None    # (B, max_pages) int32
 
 
-def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
+def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
+                    window: Optional[int]):
     cfg = ctx.cfg
     B, S, _ = x.shape
     q, k, v = attn.qkv_proj(p, x)
@@ -63,7 +66,8 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
     positions = torch.arange(S, device=x.device)[None] + ctx.q_offset
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = attn.flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap,
+    o = attn.flash_attention(q, k, v, causal=True, window=window,
+                             softcap=cfg.attn_softcap,
                              q_chunk=cfg.flash_q_chunk,
                              kv_chunk=cfg.flash_kv_chunk)
     y = attn.out_proj(p, o)
@@ -177,12 +181,15 @@ def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
 
 
 def apply_layer(kind: str, p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
-    """One ``attn_mlp`` layer; returns (x, updated PagedKV or None)."""
-    if kind != "attn_mlp":
+    """One ``attn_mlp`` or ``attn_mlp_local`` layer (the latter attends over
+    its last ``sliding_window`` tokens in prefill; in decode its ring holds
+    only those); returns (x, updated PagedKV or None)."""
+    if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     cfg = ctx.cfg
+    window = cfg.sliding_window if kind == "attn_mlp_local" else None
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, kv = _self_attention(p["attn"], h, ctx, kv)
+    y, kv = _self_attention(p["attn"], h, ctx, kv, window)
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     x = x + glu_mlp(p["mlp"], h, cfg.act)

@@ -2,8 +2,8 @@
 embedding -> blocks (a Python loop) -> final norm -> tied head.
 
 The cache is a list with one :class:`PagedKV` per layer, in the global or the
-per-slot layout (the JAX package stacks the same leaves under a leading
-``(n_blocks,)`` axis).
+per-slot layout, chosen per layer (the JAX package stacks the same leaves
+under a leading ``(n_blocks,)`` axis).
 
   init_cache(cfg, batch, max_len, page_size, global_pages=None, device)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
@@ -24,29 +24,48 @@ from repro_torch.models.params import resolve_device, torch_dtype
 Cache = List[attn.PagedKV]
 
 
+def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """Tokens a layer's cache holds per sequence: a sliding-window layer
+    keeps only its last ``sliding_window`` (a ring), every other layer all
+    ``max_len``."""
+    if kind == "attn_mlp_local" and cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
                global_pages: Optional[int] = None, device="cuda") -> Cache:
-    """Zero-filled cache, lengths 0. With ``global_pages``: per layer, one
+    """Zero-filled cache, lengths 0, one layout chosen per layer.
+
+    With ``global_pages``, a layer that holds all ``max_len`` tokens gets one
     pool of that many pages shared by all ``batch`` slots, every table entry
-    NULL (== global_pages) until the engine uploads real rows. Without it:
-    per-slot pools (batch, n_pages, page, Hkv, D) and identity tables."""
+    NULL (== global_pages) until the engine uploads real rows. Every other
+    layer, and every layer without ``global_pages``, gets per-slot pools
+    (batch, n_pages, page, Hkv, D) with identity tables: a sliding-window
+    layer's is a ring of ``ceil(window / page)`` pages, which needs no
+    dynamic paging.
+    """
     dev = resolve_device(device)
     dt = torch_dtype(cfg.activation_dtype)
-    n_pages = -(-max_len // page_size)
     tail = (page_size, cfg.n_kv_heads, cfg.d_head)
-    if global_pages is not None:
-        shape = (global_pages, *tail)
-        table = torch.full((batch, n_pages), global_pages, dtype=torch.int32,
-                           device=dev)
-    else:
-        shape = (batch, n_pages, *tail)
-        table = torch.arange(n_pages, dtype=torch.int32, device=dev) \
-            .expand(batch, n_pages).contiguous()
-    length = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    return [attn.PagedKV(torch.zeros(shape, dtype=dt, device=dev),
-                         torch.zeros(shape, dtype=dt, device=dev),
-                         table, length)
-            for _ in cfg.layer_kinds()]
+    max_pages = -(-max_len // page_size)
+    cache = []
+    for kind in cfg.layer_kinds():
+        cap = layer_capacity(cfg, kind, max_len)
+        if global_pages is not None and cap == max_len:
+            shape = (global_pages, *tail)
+            table = torch.full((batch, max_pages), global_pages,
+                               dtype=torch.int32, device=dev)
+        else:
+            n_pages = -(-cap // page_size)
+            shape = (batch, n_pages, *tail)
+            table = torch.arange(n_pages, dtype=torch.int32, device=dev) \
+                .expand(batch, n_pages).contiguous()
+        cache.append(attn.PagedKV(
+            torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev), table,
+            torch.zeros((batch,), dtype=torch.int32, device=dev)))
+    return cache
 
 
 def set_cache_length(cache: Cache, length) -> Cache:

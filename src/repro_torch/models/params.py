@@ -21,7 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-SERVED_KINDS = ("attn_mlp",)
+# attn_mlp_local (a sliding-window layer) has the same leaves as attn_mlp.
+SERVED_KINDS = ("attn_mlp", "attn_mlp_local")
 
 
 @dataclass(frozen=True)
@@ -81,8 +82,8 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     {"0": layer, ...}]} of ParamSpecs."""
     if cfg.first_k_dense or cfg.is_encdec or cfg.n_image_tokens \
             or cfg.moe is not None or cfg.ssm is not None:
-        raise NotImplementedError(f"{cfg.name}: only dense attn_mlp decoders "
-                                  "are ported")
+        raise NotImplementedError(f"{cfg.name}: only dense decoders of "
+                                  f"{SERVED_KINDS} layers are ported")
     damp = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     embed = {"table": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 0.02)}
     if not cfg.tie_embeddings:

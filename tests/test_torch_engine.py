@@ -2,8 +2,6 @@
 scheduler, zero_copy and copy offload) on the shared conformance workloads:
 the same tokens, the same ``stats()`` apart from wall-clock fields, and the
 same translation trace, with the same weights on both sides."""
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -219,12 +217,36 @@ def test_copy_mode_constructs_per_slot_cache(setup):
                         np.zeros(3, np.int32))
 
 
-def test_per_slot_state_archs_raise(setup):
-    _, tcfg, _, tparams = setup
-    local = dataclasses.replace(tcfg, n_layers=2, sliding_window=8,
-                                block_pattern=("attn_mlp_local", "attn_mlp"))
+@pytest.fixture(scope="module")
+def gemma2():
+    cfg = reduce_for_smoke(get_config("gemma2-2b"))
+    tcfg = reduce_for_smoke(tconfigs.get_config("gemma2-2b"))
+    params = init_params(cfg, jax.random.key(0))
+    return cfg, tcfg, params, from_jax_params(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("fixed", dict(offload_mode="copy")),
+    ("fixed", dict(scheduler="continuous")),
+    ("disagg", dict(disagg_mode="share")),
+    ("disagg", dict(disagg_mode="copy"))])
+def test_per_slot_state_archs_raise(gemma2, kind, kw):
+    """gemma2's sliding-window rings (max_len 32 past its window of 8) serve
+    neither in copy mode nor under the continuous scheduler (nor so in
+    DisaggEngine, which runs it): the port raises where the JAX engine
+    does."""
+    from repro.core.serving.disagg import DisaggEngine as JaxDisagg
+    from repro_torch.core.serving.disagg import DisaggEngine
+    cfg, tcfg, params, tparams = gemma2
+    size = (dict(n_slots=2) if kind == "fixed"
+            else dict(n_prefill_slots=1, n_decode_slots=1))
+    jax_cls, cls = ((JaxEngine, ServingEngine) if kind == "fixed"
+                    else (JaxDisagg, DisaggEngine))
     with pytest.raises(NotImplementedError):
-        ServingEngine(local, tparams, n_slots=2, max_len=32, device="cpu")
+        jax_cls(cfg, params, max_len=32, **size, **kw)
+    with pytest.raises(NotImplementedError):
+        cls(tcfg, tparams, max_len=32, device="cpu", **size, **kw)
 
 
 def test_serve_cli_on_cpu(capsys):

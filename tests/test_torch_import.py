@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 
-COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "core/__init__.py",
+COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "configs/qwen2_7b.py",
+          "configs/llama3_2_3b.py", "configs/gemma2_2b.py", "core/__init__.py",
           "core/sva/__init__.py", "core/sva/page_pool.py", "core/sva/tlb.py",
           "core/sva/iommu.py", "core/sva/sanitizer.py", "core/sva/mapping.py",
           "core/sva/kv_manager.py", "core/serving/sequence_buffer.py",
@@ -67,6 +68,7 @@ def test_copied_module_matches_original(rel):
 
 def test_registry_serves_only_ported_archs():
     from repro_torch.configs import ARCH_IDS, get_config
-    assert ARCH_IDS == ("llama3.2-1b",)
+    assert ARCH_IDS == ("llama3.2-1b", "gemma2-2b", "llama3.2-3b", "qwen2-7b")
+    assert [get_config(a).name for a in ARCH_IDS] == list(ARCH_IDS)
     with pytest.raises(KeyError):
-        get_config("gemma2-2b")
+        get_config("olmoe-1b-7b")

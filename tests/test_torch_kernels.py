@@ -376,15 +376,20 @@ def test_bulk_copy_input_rules(dtype, d, offset, ok):
             paged_ops._check_bulk(pool, pool)
 
 
-def test_slot_decode_attention_matches_jax_model():
+@pytest.mark.parametrize("past_capacity", [False, True])
+def test_slot_decode_attention_matches_jax_model(past_capacity):
     """The per-slot model function: JAX attends in physical order through
-    the inverse table, the port through the table in logical order."""
+    the inverse table, the port through the table in logical order. Past
+    capacity (a sliding-window ring that has wrapped) every slot is
+    valid."""
     q, kp, vp, tbl, lens = _slot_inputs(4)
+    if past_capacity:
+        lens = lens + 2 * P * PAGE + 3
     jkv = jattn.PagedKV(jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
                         jnp.asarray(lens))
     tkv = tattn.PagedKV(_t(kp), _t(vp), _t(tbl), _t(lens))
     assert not tattn.is_global_layout(tkv) and tkv.capacity == P * PAGE
-    for cap in (None, 30.0):
+    for cap in (None, 30.0, 50.0):
         ref = np.asarray(jattn.paged_decode_attention(
             jnp.asarray(q)[:, None], jkv, softcap=cap))
         out = tattn.paged_decode_attention(_t(q)[:, None], tkv,
@@ -701,6 +706,34 @@ def test_decode_kernel_grid_on_card(cuda, per_slot, dtype, tol, d_, page,
         hg = head_groups(hkv_, hq_ // hkv_)[0]
         assert tokens_per_copy(page, hg, d_, 4) < page   # copies of part a page
     assert _decode_on_card(per_slot, *args, softcap) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_decode_ring_past_capacity_on_card(cuda, dtype, tol):
+    """gemma2's sliding-window decode: per-slot rings (full permutation
+    tables) whose lengths reach and pass their capacity, D 256, G 2 (8/4
+    heads), softcap 50. Every slot of a wrapped ring is valid."""
+    dt = getattr(torch, dtype)
+    n_pages, page = 5, 16
+    cap = n_pages * page
+    lens = [cap, cap + 1, cap + page + 3, 3 * cap + 5]
+    rng = np.random.default_rng(7)
+    tbl = np.stack([rng.permutation(n_pages) for _ in lens]).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device=cuda).to(dt)
+    shape = (len(lens), n_pages, page, 4, 256)
+    q, kp, vp = mk(len(lens), 8, 256), mk(*shape), mk(*shape)
+    tbl = torch.from_numpy(tbl).to(cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, tbl, lens, softcap=50.0)
+    ref = paged_attention_ref(q, kp, vp, tbl, lens, softcap=50.0)
+    full = paged_attention_ref(q, kp, vp, tbl, torch.full_like(lens, cap),
+                               softcap=50.0)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert torch.equal(ref, full)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("sms", [1, 132, 10000])

@@ -45,7 +45,10 @@ def test_rope(theta, per_row):
            jl.rope(jnp.asarray(x), jnp.asarray(pos), theta))
 
 
-def test_glu_mlp():
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_glu_mlp(act):
+    """silu, and gelu in the tanh approximation (``jax.nn.gelu``'s default,
+    gemma2's MLP)."""
     r = _rng(2)
     d, ff = 32, 64
     p = {k: r.standard_normal(s).astype(np.float32) * 0.2
@@ -53,9 +56,9 @@ def test_glu_mlp():
                       ("w_down", (ff, d)))}
     x = r.standard_normal((2, 5, d)).astype(np.float32)
     _close(tl.glu_mlp({k: torch.from_numpy(v) for k, v in p.items()},
-                      torch.from_numpy(x), "silu"),
+                      torch.from_numpy(x), act),
            jl.glu_mlp({k: jnp.asarray(v) for k, v in p.items()},
-                      jnp.asarray(x), "silu"))
+                      jnp.asarray(x), act))
 
 
 def test_embed():
