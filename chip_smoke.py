@@ -19,7 +19,14 @@ Phases (each prints one line; any failure exits non-zero):
      lengths past their capacity, softcap 50). Flash is also timed at 4096
      tokens in llama3.2-1b's, qwen2-7b's and gemma2-2b's widths, with its
      device time, and checked at phase 3e's prefill shapes (gemma2's
-     8192 tokens with window 4096 and softcap 50). bf16 decode's
+     8192 tokens with window 4096 and softcap 50). olmoe-1b-7b's shapes
+     (16 query heads over 16 KV heads, D 128): its global and per-slot
+     decode rows, and its prefill (8 x 512) timed on the wgmma kernel. The
+     MoE FFN (no kernel of its own: batched matmuls) at olmoe's full width
+     in bf16, index dispatch against the reference's one-hot einsums on a
+     decode batch of 8 tokens and a right-padded prefill of 8 x 512: keep
+     masks bit for bit, the error, times, the bound, and one call with the
+     sync debug mode at "error" (no host sync). bf16 decode's
      precision in P: on a cancellation case (repro_torch/kernels/
      paged_attention/precision.py) the kernel's error against the fp32
      plain version must be within 1/16 of a plain decode's that rounds P to
@@ -48,15 +55,28 @@ Phases (each prints one line; any failure exits non-zero):
      per-slot decode a ring layer a step; its copy serves in turns (gemma2's
      copy mode must raise); and every request's first-token logits within
      5e-2 (relative to the largest logit) of a B=1 prefill.
-  4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b and gemma2-2b
-     (fp32) served on cuda and on cpu over the same seeded workload, in
-     zero_copy and (but gemma2, which must refuse it) in copy mode; then
-     llama3.2-1b and qwen2-7b by the continuous engine (a pool of 8
-     pages: it preempts) and the disaggregated engine in share and copy
-     mode: greedy tokens must be identical on cuda and cpu, copy must
-     equal zero_copy without prefix sharing, and the three scheduled kinds
-     must equal the fixed engine. gemma2's rings (window 8) wrap on the
-     card through the fp32 kernels.
+  3f. olmoe-1b-7b at full width (bf16, 16 attn_moe layers, 64 experts
+     top-8, depth not cut, random seeded weights): (a) decode against
+     prefill layer by layer and end to end at capacity factor 16 (no
+     choice drops; at the published 1.25 a decode batch of 2 tokens has
+     C = 1 and drops what a prefill keeps); (b) a zero-copy serve of phase
+     3's requests at the published capacity, one global decode launch a
+     layer a step, flash on wgmma, the share of (token, choice) pairs
+     dropped in prefill and in decode, then its copy serves in turns; (c)
+     each request's first-token logits against a B=1 prefill, on a serve
+     at capacity 16 (at 1.25 the batch's make-up changes which choices
+     drop). Chaotic weights serve q/k-scaled, as in 3e.
+  4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b, gemma2-2b,
+     olmoe-1b-7b and kimi-k2-1t-a32b (fp32) served on cuda and on cpu over
+     the same seeded workload, in zero_copy and (but gemma2, which must
+     refuse it) in copy mode; then llama3.2-1b, qwen2-7b and olmoe by the
+     continuous engine (a pool of 8 pages: it preempts) and the
+     disaggregated engine in share and copy mode: greedy tokens must be
+     identical on cuda and cpu; for the dense archs copy must equal
+     zero_copy without prefix sharing, and the three scheduled kinds must
+     equal the fixed engine (an MoE arch's capacity depends on the batch,
+     so for olmoe and kimi these are recorded, not asserted). gemma2's
+     rings (window 8) wrap on the card through the fp32 kernels.
   5. the paper's kernels (gemm, gesummv, axpy, heat3d) through their entry
      points (matmul, gesummv_op, axpy_op, heat3d) at the paper's sizes and
      at sizes far past the 50 MB L2, fp32 and bf16: each output against its
@@ -88,6 +108,7 @@ comes from this script's own tree).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -309,7 +330,11 @@ DECODE_LONG = [("global", 32, 32, 8, 64, 4096),
 DECODE_ARCHS = [("qwen2-7b", "global", 8, 28, 4, 128, 64, None, 185, 513),
                 ("llama3.2-3b", "global", 8, 24, 8, 128, 64, None, 185, 513),
                 ("gemma2-2b", "global", 4, 8, 4, 256, 512, 50.0, 4500, 6032),
-                ("gemma2-2b", "slot", 4, 8, 4, 256, 256, 50.0, 4500, 6032)]
+                ("gemma2-2b", "slot", 4, 8, 4, 256, 256, 50.0, 4500, 6032),
+                # phase 3f's: MHA, two head groups of 8; global and the
+                # per-slot pools of its copy serve
+                ("olmoe-1b-7b", "global", 8, 16, 16, 128, 64, None, 185, 513),
+                ("olmoe-1b-7b", "slot", 8, 16, 16, 128, 64, None, 185, 513)]
 DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
 
 
@@ -620,6 +645,7 @@ def phase_kernels() -> dict:
     res["precision"] = _decode_precision()
     res["flash_cases"] = _flash_cases()
     res["flash_timed"] = _flash_timed()
+    res["moe"] = _moe_rows()
     return res
 
 
@@ -642,11 +668,13 @@ FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, 0)]
 # Timed shapes (B, Sq, Skv, Hq, Hkv, D), causal: the serve's prefill, then
 # llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
-# without its softcap: SDPA has none). bf16; the first also in fp32.
+# without its softcap: SDPA has none), then olmoe-1b-7b's prefill of phase
+# 3f (8 x 512, 16/16, D 128). bf16; the first also in fp32.
 FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D),
                (1, 4096, 4096, 32, 8, 64),
                (1, 4096, 4096, 28, 4, 128),
-               (1, 4096, 4096, 8, 4, 256)]
+               (1, 4096, 4096, 8, 4, 256),
+               (8, 512, 512, 16, 16, 128)]
 
 
 def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
@@ -757,6 +785,94 @@ def _flash_timed() -> list:
                        flops=flops, bytes=nbytes)
             emit("phase2 flash timing", **row)
             rows.append(row)
+    return rows
+
+
+# The MoE FFN at olmoe-1b-7b's full width, bf16: (name, B, S, lowest real
+# length). A decode batch of 8 tokens (C = 2) and the serve's prefill
+# bucket of 8 x 512, right-padded past each row's length (C = 640).
+MOE_ARCH = "olmoe-1b-7b"
+MOE_BATCHES = (("decode", 8, 1, 1), ("prefill", 8, 512, 185))
+
+
+def _moe_bound(cfg, p, x, keep, experts) -> dict:
+    """Bytes and operations this run's routing needs: the weights of the
+    experts that hold a kept choice (3 d x d_ff matrices each), the router,
+    x read and the output written; the three expert products of every kept
+    choice and the router's product."""
+    m = cfg.moe
+    d, f, T = cfg.d_model, m.d_ff, keep.shape[0]
+    touched = int(torch.unique(experts[keep]).numel())
+    kept = int(keep.sum())
+    per_expert = 3 * d * f * p["w_gate"].element_size()
+    nbytes = (touched * per_expert + p["router"].numel()
+              * p["router"].element_size() + 2 * T * d * x.element_size())
+    flops = 2 * kept * d * f * 3 + 2 * T * d * m.n_experts
+    bound, by = _bound(nbytes, flops, x.dtype)
+    return dict(kept_pairs=kept, experts_touched=touched,
+                weights_bytes_every_expert=m.n_experts * per_expert,
+                bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by)
+
+
+def _moe_rows() -> list:
+    """moe_ffn (index dispatch, the main path) against moe_ffn_ref (the
+    reference's one-hot einsums) on one layer's MoE weights at olmoe's full
+    width, for each of MOE_BATCHES: keep masks bit for bit, the max error,
+    one call under the sync debug mode "error", CUDA-event times of both
+    and the bound. Padding positions hold one vector, as token 0's do, and
+    route like any token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import (capacity, moe_ffn, moe_ffn_ref,
+                                        moe_specs, route)
+    from repro_torch.models.params import materialize
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    p = materialize(moe_specs(cfg, (2.0 * cfg.n_layers) ** -0.5), cfg, g,
+                    "cuda")
+    rows = []
+    for name, B, S, lo in MOE_BATCHES:
+        x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda").to(
+            torch.bfloat16)
+        lens = torch.randint(lo, S + 1, (B,), generator=g, device="cuda")
+        pad = torch.arange(S, device="cuda")[None] >= lens[:, None]
+        x = torch.where(pad[..., None], x[:1, :1], x)
+        out, keep = moe_ffn(p, x, cfg, return_keep=True)
+        ref, ref_keep = moe_ffn_ref(p, x, cfg, return_keep=True)
+        torch.cuda.synchronize()
+        keep_equal = torch.equal(keep, ref_keep)
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_ffn(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        experts, _ = route(p, x.reshape(B * S, -1), cfg)
+        T = B * S
+        row = dict(arch=MOE_ARCH, batch=name, dtype=str(torch.bfloat16), B=B,
+                   S=S, tokens=T, real_tokens=int(lens.sum()),
+                   experts=m.n_experts, top_k=m.experts_per_token,
+                   d_model=cfg.d_model, d_ff=m.d_ff,
+                   capacity_factor=m.capacity_factor,
+                   capacity=capacity(T, m), pairs=T * m.experts_per_token,
+                   keep_equal=keep_equal, max_abs_err=err,
+                   tol=TOL[torch.bfloat16], no_host_sync=True,
+                   **_moe_bound(cfg, p, x, keep, experts))
+        row["dropped_share"] = 1 - row["kept_pairs"] / row["pairs"]
+        row["ms"] = cuda_ms(lambda: moe_ffn(p, x, cfg))
+        row["plain_ms"] = cuda_ms(lambda: moe_ffn_ref(p, x, cfg), warmup=1,
+                                  iters=5)
+        row["library_ms"] = None
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        emit("phase2 moe", **row)
+        assert keep_equal, f"moe {name}: keep masks differ"
+        assert torch.isfinite(out).all(), f"moe {name}: non-finite"
+        assert err <= TOL[torch.bfloat16], f"moe {name}: err {err}"
+        rows.append(row)
+        del x, out, ref
+    del p
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1058,7 +1174,7 @@ DENSE_ARCHS = ("qwen2-7b", "llama3.2-3b", "gemma2-2b")
 # decode-against-prefill length: gemma2's passes its 4096-token window and
 # is no multiple of it, so its rings wrap unaligned
 CONSISTENCY_S = {"llama3.2-1b": 1000, "qwen2-7b": 1000, "llama3.2-3b": 1000,
-                 "gemma2-2b": 4500}
+                 "gemma2-2b": 4500, "olmoe-1b-7b": 1000}
 LOGIT_REL = 5e-2        # max|d logits| / max|logit| in bf16
 LONG_MAX_LEN = 8192     # gemma2's serve: 4 slots of 512 pages
 # The reference's init draws wq and wk at std heads**-0.5 (its fan-in is
@@ -1088,8 +1204,11 @@ def _qk_scaled(params, scale: float = QK_SCALE):
         attn = dict(p["attn"], wq=p["attn"]["wq"] * scale,
                     wk=p["attn"]["wk"] * scale)
         return dict(p, attn=attn)
-    return dict(params, blocks=[{k: layer(v) for k, v in blk.items()}
-                                for blk in params["blocks"]])
+    out = dict(params, blocks=[{k: layer(v) for k, v in blk.items()}
+                               for blk in params["blocks"]])
+    if "first" in params:
+        out["first"] = {k: layer(v) for k, v in params["first"].items()}
+    return out
 
 
 def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
@@ -1098,20 +1217,18 @@ def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
     two): the model's own gain on a rounding difference."""
     from repro_torch.models.blocks import FwdCtx, apply_layer
     from repro_torch.models.layers import logits_fn, rmsnorm
-    from repro_torch.models.model import _embed_in
+    from repro_torch.models.model import _embed_in, layers
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                          device="cuda")
     sign = torch.randint(0, 2, (B, S, cfg.d_model), generator=g,
                          device="cuda") * 2 - 1
     ctx = FwdCtx(cfg=cfg, mode="prefill")
-    layers = [(kind, blk[str(i)]) for blk in params["blocks"]
-              for i, kind in enumerate(cfg.block_pattern)]
     out = []
     with torch.no_grad():
         x0 = _embed_in(cfg, params, toks)
         for x in (x0, (x0.float() * (1 + sign / 128)).to(x0.dtype)):
-            for kind, p in layers:
+            for kind, p in layers(cfg, params):
                 x, _ = apply_layer(kind, p, x, ctx, None)
             x = rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
             out.append(logits_fn(params["embed"], x, cfg.logit_softcap))
@@ -1147,19 +1264,16 @@ def _layerwise_decode_vs_prefill(cfg, params, S: int, B: int = 2) -> float:
                                                  _install_tables,
                                                  _merge_prefill_view)
     from repro_torch.models.blocks import FwdCtx, apply_layer
-    from repro_torch.models.model import _embed_in
+    from repro_torch.models.model import _embed_in, layers
     toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED + 1)
     view = _build_prefill_view(cache, tables, lengths)
-    kinds = [k for _ in params["blocks"] for k in cfg.block_pattern]
-    layers = [blk[str(i)] for blk in params["blocks"]
-              for i in range(len(cfg.block_pattern))]
     full = FwdCtx(cfg=cfg, mode="prefill")
     pre = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths)
     dec = FwdCtx(cfg=cfg, mode="decode", q_offset=lengths)
     worst = 0.0
     with torch.no_grad():
         x = _embed_in(cfg, params, toks)
-        for li, (kind, p) in enumerate(zip(kinds, layers)):
+        for li, (kind, p) in enumerate(layers(cfg, params)):
             x_next, _ = apply_layer(kind, p, x, full, None)
             apply_layer(kind, p, x[:, :S].contiguous(), pre, view[li])
             _merge_prefill_view([cache[li]], [view[li]],
@@ -1194,7 +1308,8 @@ def _decode_vs_prefill(cfg, params, S: int, B: int = 2) -> dict:
                 ring_layers=len(rings))
 
 
-def _consistency(cfg, params, S: int):
+def _consistency(cfg, params, S: int,
+                 phase: str = "phase3e decode-vs-prefill"):
     """Phase 3e (a) for one arch, on the weights as built. ``layer_rel``
     gates every arch. The end-to-end ``rel`` gates an arch whose weights
     are not chaotic (``sensitivity`` below CHAOTIC); on chaotic weights it
@@ -1210,7 +1325,9 @@ def _consistency(cfg, params, S: int):
         served = _qk_scaled(params)
         row.update(qk_scale=QK_SCALE,
                    sensitivity_scaled=_input_sensitivity(cfg, served, S))
-    emit("phase3e decode-vs-prefill", **row)
+    if cfg.moe is not None:
+        row["capacity_factor"] = cfg.moe.capacity_factor
+    emit(phase, **row)
     assert row["layer_rel"] < LOGIT_REL, row
     assert row["chaotic"] or row["rel"] < LOGIT_REL, row
     return served
@@ -1238,12 +1355,13 @@ def _first_logits():
         yield rows
 
 
-def _first_token_check(cfg, params, prompts, served_rows) -> list:
+def _first_token_check(cfg, params, prompts, served_rows,
+                       gate: bool = True) -> list:
     """Each request's first-token logits from the serve (the prefill row
     of its length whose tokens end its prompt) against a B=1
     forward_prefill of its prompt on the card: the engine's padded,
     table-driven (mixed-layout) prefill, where bf16 tokens cannot be
-    compared."""
+    compared. With ``gate`` False a reading only."""
     from repro_torch.models import forward_prefill
     rels = []
     for p in prompts:
@@ -1253,7 +1371,7 @@ def _first_token_check(cfg, params, prompts, served_rows) -> list:
             ref, _ = forward_prefill(cfg, params, {"tokens": torch.tensor(
                 [p], device="cuda")}, None)
         rels.append(_rel(served[-1], ref[0, -1]))
-    assert max(rels) < LOGIT_REL, rels
+    assert not gate or max(rels) < LOGIT_REL, rels
     return rels
 
 
@@ -1388,6 +1506,118 @@ def phase_dense_archs(control_params) -> dict:
     return launches_by_arch
 
 
+# ------------------------------------------------------------------ phase 3f
+
+# tests/test_decode_consistency.py's capacity for MoE archs: no choice drops
+# in a prefill or a decode batch, so the two paths compute one function.
+MOE_NO_DROP_CF = 16.0
+
+
+@contextlib.contextmanager
+def _moe_drops():
+    """While a serve runs, counts every MoE call's (token, choice) pairs
+    and those dropped past capacity, split into decode (one token a row)
+    and prefill calls. The counts stay on the card until read."""
+    from repro_torch.models import blocks
+    real, rec = blocks.moe_ffn, {"prefill": [], "decode": []}
+
+    def counted(p, x, cfg):
+        out, keep = real(p, x, cfg, return_keep=True)
+        rec["decode" if x.shape[1] == 1 else "prefill"].append(
+            (keep.numel(), (~keep).sum()))
+        return out
+    with mock.patch.object(blocks, "moe_ffn", counted):
+        yield rec
+
+
+def _drop_shares(rec) -> dict:
+    out = {}
+    for mode, calls in rec.items():
+        pairs = sum(n for n, _ in calls)
+        dropped = int(sum(d for _, d in calls)) if calls else 0
+        out[mode] = dict(calls=len(calls), pairs=pairs, dropped=dropped,
+                         share=dropped / pairs if pairs else None)
+    return out
+
+
+def phase_moe_arch() -> dict:
+    """olmoe-1b-7b as get_config gives it (bf16, 16 attn_moe layers, random
+    weights from SEED built on the card): (a) decode against prefill, layer
+    by layer and end to end, at capacity factor MOE_NO_DROP_CF; (b) on the
+    weights as built or, where chaotic, q/k-scaled, a zero-copy serve of
+    phase 3's requests at the published capacity (launch counts, the
+    dropped share of (token, choice) pairs in prefill and in decode, ms a
+    step, tokens/s, TTFT, peak GiB) and its copy serves in turns; (c) each
+    request's first-token logits against a B=1 prefill on a zero-copy
+    serve at MOE_NO_DROP_CF."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(MOE_ARCH)
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_NO_DROP_CF))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = _consistency(no_drop, params, CONSISTENCY_S[MOE_ARCH],
+                          phase="phase3f decode-vs-prefill")
+    prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
+    n_slots, max_len, new_tokens = 8, 1024, 32
+    K = cfg.moe.experts_per_token
+    launches_by_kind, turns = {}, []
+    for mode in ("zero_copy", "copy", "copy", "zero_copy"):
+        with _moe_drops() as rec:
+            outs, eng, row, first = _dense_serve(cfg, params, prompts,
+                                                 new_tokens, n_slots, max_len,
+                                                 mode)
+        del eng
+        launches, steps = row["launches"], row["decode_steps"]
+        used = ("paged_attention_global" if mode == "zero_copy"
+                else "paged_attention")
+        assert launches[used] == cfg.n_layers * steps, (mode, launches)
+        assert launches["flash_attention_fwd"] >= cfg.n_layers, launches
+        _other_launches_zero(launches, (used, "flash_attention_fwd"))
+        row["drops"] = drops = _drop_shares(rec)
+        assert drops["decode"]["pairs"] == cfg.n_layers * steps * n_slots * K
+        row["first_token_rel_reading"] = _first_token_check(
+            cfg, params, prompts, first, gate=False)
+        if not turns:
+            zc_outs = outs
+        row["tokens_equal_to_first_zero_copy"] = sum(
+            a == b for o, z in zip(outs, zc_outs) for a, b in zip(o, z))
+        turns.append(row)
+        launches_by_kind.setdefault(mode, launches)
+    row = turns[0]
+    row.update(arch=MOE_ARCH, dtype=cfg.activation_dtype,
+               n_layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_head=cfg.d_head,
+               experts=cfg.moe.n_experts, top_k=K, d_ff=cfg.moe.d_ff,
+               capacity_factor=cfg.moe.capacity_factor, vocab=cfg.vocab_size,
+               requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+               new_tokens=new_tokens, slots=n_slots, max_len=max_len,
+               page=PAGE, init_s=init_s,
+               weights_gib=sum(t.numel() * t.element_size()
+                               for t in _leaves(params)) / 2**30)
+    emit("phase3f serve", **row)
+    emit("phase3f copy serve", arch=MOE_ARCH,
+         turns="zero_copy copy copy zero_copy", serves=turns[1:])
+    # (c): no choice drops in the serve's prefill nor in a B=1 prefill
+    outs, eng, row, first = _dense_serve(no_drop, params, prompts,
+                                         new_tokens, n_slots, max_len)
+    del eng
+    assert row["launches"]["paged_attention_global"] == \
+        cfg.n_layers * row["decode_steps"], row["launches"]
+    rels = _first_token_check(no_drop, params, prompts, first)
+    emit("phase3f first-token", arch=MOE_ARCH,
+         capacity_factor=MOE_NO_DROP_CF, first_token_rel=rels,
+         **{k: row[k] for k in ("decode_ms_per_step", "tokens_per_s",
+                                "ttft_ms_median", "peak_mem_gib")})
+    del params
+    torch.cuda.empty_cache()
+    return launches_by_kind
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1437,15 +1667,20 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
 
 # ------------------------------------------------------------------ phase 4
 
-CROSS_ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b")
-SCHEDULED_ARCHS = ("llama3.2-1b", "qwen2-7b")
+CROSS_ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b",
+               "olmoe-1b-7b", "kimi-k2-1t-a32b")
+SCHEDULED_ARCHS = ("llama3.2-1b", "qwen2-7b", "olmoe-1b-7b")
 
 
 def phase_cross_check(arch: str, device: str = "cuda") -> None:
     """The smoke-reduced ``arch`` (fp32) served on ``device`` and on the CPU:
     zero-copy, then copy (an arch with sliding-window layers must refuse
     copy mode past its window of 8, and serves its rings in zero-copy), and
-    for SCHEDULED_ARCHS the continuous and disaggregated kinds."""
+    for SCHEDULED_ARCHS the continuous and disaggregated kinds. Each must
+    give the same tokens on both devices. An MoE arch's capacity, and so
+    its drops, depend on the batch (copy mode prefills one prompt at its
+    length), so its kinds' agreement with one another is recorded, not
+    asserted: the reference has no such property either."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.core.serving.engine import ServingEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1458,6 +1693,7 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
                        system_len=20, lo=8, hi=40)
     kw = dict(max_tokens=8, n_slots=4, max_len=64, page=8)
     windowed = "attn_mlp_local" in cfg.layer_kinds()
+    moe = cfg.moe is not None
     modes = [("zero_copy", {})]
     if windowed:
         assert min(map(len, prompts)) > cfg.sliding_window
@@ -1506,9 +1742,9 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
         return
     same = runs["copy"] == runs["zero_copy_unshared"]
     emit("phase4 copy-vs-zero_copy", arch=cfg.name, device=device,
-         prefix_sharing=False, identical_tokens=same)
-    assert same, (f"{arch}: copy {runs['copy']} vs zero_copy without prefix "
-                  f"sharing {runs['zero_copy_unshared']}")
+         prefix_sharing=False, identical_tokens=same, asserted=not moe)
+    assert same or moe, (f"{arch}: copy {runs['copy']} vs zero_copy without "
+                         f"prefix sharing {runs['zero_copy_unshared']}")
     if arch not in SCHEDULED_ARCHS:
         return
     # The scheduled kinds, the continuous engine over a pool of SMOKE_POOL
@@ -1538,7 +1774,7 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
              launches=launches, staging_copies=s["staging_copies"])
         assert same, (f"{arch} {kind}: greedy tokens differ: {device} "
                       f"{dev_outs} vs cpu {cpu_outs}")
-        assert dev_outs == runs["zero_copy"], (
+        assert moe or dev_outs == runs["zero_copy"], (
             f"{arch} {kind}: {dev_outs} vs the fixed engine "
             f"{runs['zero_copy']}")
         if kind == "continuous":
@@ -2037,6 +2273,7 @@ def main(argv=None) -> int:
     copy_launches = phase_copy_serve(*served, zc_outs, zc_figures)
     scheduled_launches = phase_scheduled_serve(*served, zc_outs)
     dense_launches = phase_dense_archs(served[1])
+    moe_launches = phase_moe_arch()
     if args.profile:
         phase_profile(*served)
     for arch in CROSS_ARCHS:
@@ -2058,6 +2295,8 @@ def main(argv=None) -> int:
          "launches_scheduled": scheduled_launches,
          "launches_dense_archs": {a: n["paged_attention_global"]
                                   for a, n in dense_launches.items()},
+         "launches_moe_arch": moe_launches["zero_copy"][
+             "paged_attention_global"],
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
@@ -2071,6 +2310,7 @@ def main(argv=None) -> int:
          "launches": copy_launches["paged_attention"],
          "launches_dense_archs": {a: n["paged_attention"]
                                   for a, n in dense_launches.items()},
+         "launches_moe_arch_copy": moe_launches["copy"]["paged_attention"],
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
          **_precision_fields(res["precision"]["slot"]),
@@ -2086,6 +2326,8 @@ def main(argv=None) -> int:
          "wgmma_launches": launches["flash_attention_fwd_wgmma"],
          "launches_dense_archs": {a: n["flash_attention_fwd"]
                                   for a, n in dense_launches.items()},
+         "launches_moe_arch": {m: n["flash_attention_fwd"]
+                               for m, n in moe_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

@@ -1,8 +1,8 @@
 """Architecture registry of the port: only the archs it serves.
 
 ``get_config(arch)`` returns the same config as the JAX package for the four
-dense decoders the port serves; ``base.py`` and the per-arch modules are
-copies of the reference's.
+dense decoders and the two MoE decoders the port serves; ``base.py`` and
+the per-arch modules are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

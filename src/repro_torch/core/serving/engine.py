@@ -173,7 +173,7 @@ class ServingEngine:
                 or any(k not in SERVED_KINDS for k in kinds)):
             raise NotImplementedError(
                 f"{cfg.name}: layers with recurrent state or cross-KV are "
-                f"not ported; the port serves dense {SERVED_KINDS} decoders")
+                f"not ported; the port serves {SERVED_KINDS} decoders")
         all_shared = all(k in SHARE_KINDS for k in kinds)
         if scheduler == "continuous" and not all_shared:
             raise NotImplementedError(
@@ -195,7 +195,8 @@ class ServingEngine:
         self.offload_mode = offload_mode
         self.eos = eos_token
         self.max_pages = -(-max_len // page_size)
-        kv_bytes = (2 * cfg.n_kv_heads * cfg.d_head * len(cfg.layer_kinds())
+        kv_bytes = (2 * cfg.n_kv_heads * cfg.d_head
+                    * sum(1 for k in kinds if "attn" in k or k == "cross_mlp")
                     * torch_dtype(cfg.activation_dtype).itemsize)
         self._can_share = (offload_mode == "zero_copy" and prefix_sharing
                            and all_shared)

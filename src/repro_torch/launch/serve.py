@@ -5,9 +5,11 @@
       --offload-mode zero_copy     # or: copy
 
 ``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (llama3.2-1b,
-gemma2-2b, llama3.2-3b, qwen2-7b). gemma2-2b serves copy mode only while
-``--max-len`` fits its sliding window (8 tokens at ``--smoke``), as the
-reference.
+gemma2-2b, llama3.2-3b, qwen2-7b, olmoe-1b-7b, kimi-k2-1t-a32b). gemma2-2b
+serves copy mode only while ``--max-len`` fits its sliding window (8 tokens
+at ``--smoke``), as the reference. kimi-k2-1t-a32b serves with ``--smoke``
+only: at full width its weights take about 2 TB in bf16, and the flash
+kernel has no head dim of 112.
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
 output as ``repro.launch.serve``: ``zero_copy`` shows ``staging_copies: 0``,
@@ -26,6 +28,11 @@ from repro_torch.configs import ARCH_IDS, get_config, reduce_for_smoke
 from repro_torch.core.serving.engine import ServingEngine
 from repro_torch.models import init_params
 from repro_torch.models.params import resolve_device
+
+
+# Archs that serve at smoke size only, and why.
+SMOKE_ONLY = {"kimi-k2-1t-a32b": "about 2 TB of bf16 weights at full width, "
+                                 "and no flash kernel at d_head 112"}
 
 
 def main(argv=None) -> int:
@@ -47,6 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.arch in SMOKE_ONLY and not args.smoke:
+        ap.error(f"--arch {args.arch} needs --smoke: "
+                 f"{SMOKE_ONLY[args.arch]}")
 
     cfg = get_config(args.arch)
     if args.smoke:

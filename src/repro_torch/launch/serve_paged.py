@@ -1,7 +1,8 @@
 """Paged serving demo of the PyTorch port (the twin of
-``examples/serve_paged.py``): the smoke-reduced qwen2-7b served with
-zero-copy admission, copy-on-write prefix sharing, SVA/TLB statistics and
-the adaptive translation front-end.
+``examples/serve_paged.py``): the smoke-reduced qwen2-7b (or ``--arch``,
+any arch of the registry at smoke size) served with zero-copy admission,
+copy-on-write prefix sharing, SVA/TLB statistics and the adaptive
+translation front-end.
 
 Most requests open with the same system prompt, so admission maps the
 already-resident prefix pages (refcount++) and prefills only each prompt's
@@ -13,6 +14,8 @@ CoW-duplicates it on its first divergent token.
       --tlb-prefetch stream --tlb-autotune 4
   PYTHONPATH=src python -m repro_torch.launch.serve_paged --device cpu \\
       --scheduler continuous        # or: --disagg share | copy
+  PYTHONPATH=src python -m repro_torch.launch.serve_paged --device cpu \\
+      --arch olmoe-1b-7b            # or: kimi-k2-1t-a32b
 
 ``--scheduler continuous`` serves the same requests as two bursty arrival
 waves over an oversubscribed page pool (``--pool-pages``, 16 by default):
@@ -31,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import ARCH_IDS, get_config, reduce_for_smoke
 from repro_torch.core.serving.disagg import DisaggEngine
 from repro_torch.core.serving.engine import ServingEngine
 from repro_torch.core.sva.iommu import IOMMU, Sv39Walk, TLBConfig
@@ -63,6 +66,8 @@ def _args(argv):
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="physical KV page pool (0 = n_slots * pages; the "
                          "continuous demo defaults to 16 pages)")
+    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_IDS,
+                    help="the arch served, reduced to smoke size")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)
 
@@ -82,7 +87,7 @@ def _prompts(vocab: int):
 def main(argv=None) -> int:
     args = _args(argv)
     device = resolve_device(args.device)
-    cfg = reduce_for_smoke(get_config("qwen2-7b"))
+    cfg = reduce_for_smoke(get_config(args.arch))
     cfg = dataclasses.replace(
         cfg,
         serve_tlb_prefetch_policy=args.tlb_prefetch,

@@ -1,5 +1,6 @@
 """Per-layer forward (port of ``repro/models/blocks.py``: the ``attn_mlp``
-and ``attn_mlp_local`` layers of the dense decoders).
+and ``attn_mlp_local`` layers of the dense decoders, and ``attn_moe``, the
+same attention before an MoE FFN).
 
 Two execution modes reach a layer here:
   prefill  a right-padded batch of prompts; KV is scattered into the shared
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import glu_mlp, rmsnorm, rope
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import SERVED_KINDS
 
 
@@ -181,9 +183,10 @@ def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
 
 
 def apply_layer(kind: str, p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
-    """One ``attn_mlp`` or ``attn_mlp_local`` layer (the latter attends over
-    its last ``sliding_window`` tokens in prefill; in decode its ring holds
-    only those); returns (x, updated PagedKV or None)."""
+    """One ``attn_mlp``, ``attn_mlp_local`` (attends over its last
+    ``sliding_window`` tokens in prefill; in decode its ring holds only
+    those) or ``attn_moe`` layer (the MoE FFN in place of the MLP); returns
+    (x, updated PagedKV or None)."""
     if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     cfg = ctx.cfg
@@ -192,5 +195,6 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
     y, kv = _self_attention(p["attn"], h, ctx, kv, window)
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + glu_mlp(p["mlp"], h, cfg.act)
-    return x, kv
+    if kind == "attn_moe":
+        return x + moe_ffn(p["moe"], h, cfg), kv
+    return x + glu_mlp(p["mlp"], h, cfg.act), kv

@@ -1,9 +1,12 @@
 """Model assembly (port of ``repro/models/model.py``, serving subset):
-embedding -> blocks (a Python loop) -> final norm -> tied head.
+embedding -> first dense layers -> blocks (a Python loop) -> final norm ->
+head.
 
-The cache is a list with one :class:`PagedKV` per layer, in the global or the
-per-slot layout, chosen per layer (the JAX package stacks the same leaves
-under a leading ``(n_blocks,)`` axis).
+The cache is a list with one :class:`PagedKV` per layer in
+``cfg.layer_kinds()`` order (``first_k_dense`` layers first), in the global
+or the per-slot layout, chosen per layer (the JAX package keeps the first
+layers' under ``"first"`` and stacks the blocks' under a leading
+``(n_blocks,)`` axis).
 
   init_cache(cfg, batch, max_len, page_size, global_pages=None, device)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
@@ -11,7 +14,7 @@ under a leading ``(n_blocks,)`` axis).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -84,17 +87,23 @@ def install_tables(cache: Cache, tables: torch.Tensor,
     return [kv._replace(block_table=tables, length=lengths) for kv in cache]
 
 
+def layers(cfg: ModelConfig, params) -> List[Tuple[str, dict]]:
+    """(kind, parameters) of every layer in ``cfg.layer_kinds()`` order:
+    the ``first_k_dense`` dense layers, then the blocks'."""
+    first = [("attn_mlp", params["first"][str(i)])
+             for i in range(cfg.first_k_dense)]
+    return first + [(kind, blk[str(i)]) for blk in params["blocks"]
+                    for i, kind in enumerate(cfg.block_pattern)]
+
+
 def _run_blocks(cfg: ModelConfig, params, x, ctx: FwdCtx,
                 cache: Optional[Cache]):
     new_cache = [] if cache is not None else None
-    li = 0
-    for p_blk in params["blocks"]:
-        for i, kind in enumerate(cfg.block_pattern):
-            kv = cache[li] if cache is not None else None
-            x, kv = apply_layer(kind, p_blk[str(i)], x, ctx, kv)
-            if new_cache is not None:
-                new_cache.append(kv)
-            li += 1
+    for li, (kind, p) in enumerate(layers(cfg, params)):
+        kv = cache[li] if cache is not None else None
+        x, kv = apply_layer(kind, p, x, ctx, kv)
+        if new_cache is not None:
+            new_cache.append(kv)
     return x, new_cache
 
 

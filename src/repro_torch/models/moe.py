@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): GShard
+capacity routing of each token to its top-K experts, and an optional
+shared expert.
+
+  moe_specs(cfg, damp)   the layer's ParamSpecs (the router float32)
+  route(p, x2, cfg)      the routing both versions share: fp32 logits,
+                         softmax, top-K, renormalised gates
+  moe_ffn_ref(p, x, cfg) the plain version: the reference's one-hot
+                         dispatch and combine einsums, line for line
+  moe_ffn(p, x, cfg)     the main path: the same function by index
+                         dispatch, with no (T, E, C) tensor
+
+The reference's semantics, held exactly with one token group (G = 1, what
+its ``_n_groups`` gives without a mesh):
+
+* ``capacity = max(ceil(T*K/E*capacity_factor), 1)`` with T = B*S. Every
+  position routes and takes capacity: a right-padded prefill's padding,
+  the engine's padding rows and its idle decode slots too, so the batch's
+  make-up changes which choices a real token keeps, as in the reference.
+* Logits in fp32 (x cast, the router float32), softmax, then top-K with
+  ties to the lower expert index (``jax.lax.top_k``'s order).
+* The gates are renormalised by ``max(sum, 1e-9)`` BEFORE the capacity
+  drop; a dropped choice's gate becomes 0 and the kept gates are not
+  renormalised again.
+* A choice's position in its expert's buffer is choice-major: every
+  token's first choice comes before any second choice, tokens in flattened
+  (B, S) order; a choice at position >= capacity is dropped.
+* The gate is cast to x's dtype before weighting; the shared expert is a
+  GLU MLP over x at width ``d_ff * n_shared_experts``.
+
+The main path makes no host sync: every shape follows from x's, and the
+capacity is computed on the host from those shapes.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import _ACTS, glu_mlp
+from repro_torch.models.params import ParamSpec, glu_specs, residual
+
+
+def moe_specs(cfg: ModelConfig, damp: float) -> Dict[str, object]:
+    """Router (d, E) float32 at std d**-0.5 (not damped); the experts'
+    (E, d, d_ff) gate and up and (E, d_ff, d) down, whose fan-in is d_ff
+    and which is damped as every ``w_down``; the shared expert's GLU."""
+    m = cfg.moe
+    d, E = cfg.d_model, m.n_experts
+    out: Dict[str, object] = {
+        "router": ParamSpec((d, E), "normal", d ** -0.5, dtype="float32"),
+        "w_gate": ParamSpec((E, d, m.d_ff)),
+        "w_up": ParamSpec((E, d, m.d_ff)),
+        "w_down": residual((E, m.d_ff, d), damp)}
+    if m.n_shared_experts:
+        out["shared"] = glu_specs(d, m.d_ff * m.n_shared_experts, damp)
+    return out
+
+
+def capacity(n_tokens: int, m: MoEConfig) -> int:
+    """Slots an expert holds for ``n_tokens`` tokens (Python floats, in the
+    reference's order of operations)."""
+    return max(int(math.ceil(n_tokens * m.experts_per_token / m.n_experts
+                             * m.capacity_factor)), 1)
+
+
+def route(p: dict, x2: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 (T, d) -> (experts (T, K) int64, gates (T, K) fp32): each token's
+    top-K experts, highest probability first and ties to the lower index,
+    and their probabilities renormalised to sum to one (before any drop)."""
+    K = cfg.moe.experts_per_token
+    logits = x2.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    # torch.topk does not promise an order among equal values; a stable
+    # descending sort keeps the lower index first, as jax.lax.top_k does
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = vals[:, :K], idx[:, :K]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return experts, gates
+
+
+def positions(experts: torch.Tensor) -> torch.Tensor:
+    """(T, K) each choice's position in its expert's buffer, choice-major,
+    by a stable sort of the choices by expert: a choice's rank among those
+    of its expert, with no (T, K, E) one-hot."""
+    T, K = experts.shape
+    flat = experts.t().reshape(-1)                     # choice-major
+    order = torch.argsort(flat, stable=True)
+    ranked = flat[order]
+    first = torch.searchsorted(ranked, ranked)         # where its run starts
+    rank = torch.arange(flat.numel(), device=flat.device) - first
+    pos = torch.empty_like(flat).scatter_(0, order, rank)
+    return pos.view(K, T).t()
+
+
+def moe_ffn_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                return_keep: bool = False):
+    """The plain version: the reference's ``moe_ffn`` line for line, its
+    (T, E, C) combine and dispatch tensors included. x (B, S, d) ->
+    (B, S, d), and the (T, K) keep mask if ``return_keep``."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E = m.n_experts
+    C = capacity(T, m)
+    xt = x.reshape(T, d)
+    experts, gates = route(p, xt, cfg)
+    onehot = F.one_hot(experts, E).to(torch.int32)              # (T,K,E)
+    K = experts.shape[1]
+    oh_flat = onehot.transpose(0, 1).reshape(K * T, E)          # choice-major
+    pos_flat = torch.cumsum(oh_flat, dim=0) - 1
+    pos = (pos_flat.reshape(K, T, E).transpose(0, 1) * onehot).sum(-1)
+    keep = pos < C
+    gates = gates * keep
+    slot_oh = F.one_hot(torch.where(keep, pos, C), C + 1).to(
+        x.dtype)[..., :C]                                       # (T,K,C)
+    combine = torch.einsum("tke,tkc->tec", onehot.to(x.dtype)
+                           * gates[..., None].to(x.dtype), slot_oh)
+    dispatch = (combine > 0).to(x.dtype)
+    de = torch.einsum("tec,td->ecd", dispatch, xt)              # (E,C,d)
+    h = _ACTS[cfg.act](torch.einsum("ecd,edf->ecf", de, p["w_gate"])) \
+        * torch.einsum("ecd,edf->ecf", de, p["w_up"])
+    eo = torch.einsum("ecf,efd->ecd", h, p["w_down"])           # (E,C,d)
+    out = torch.einsum("tec,ecd->td", combine, eo).reshape(B, S, d)
+    if "shared" in p:
+        out = out + glu_mlp(p["shared"], x, cfg.act)
+    return (out, keep) if return_keep else out
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            return_keep: bool = False):
+    """The main path, the same function as :func:`moe_ffn_ref`: each kept
+    (token, choice) pair fills row ``expert * C + position`` of an
+    (E*C + 1, d) buffer by a gather of x (empty rows read a zero row), the
+    three expert products run as batched matmuls over (E, C, .), and each
+    token sums its K gated rows of the output (a dropped pair reads the
+    last, zero row at gate 0)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = m.n_experts, m.experts_per_token
+    C = capacity(T, m)
+    dev = x.device
+    xt = x.reshape(T, d)
+    experts, gates = route(p, xt, cfg)
+    pos = positions(experts)
+    keep = pos < C
+    trash = E * C
+    slot = torch.where(keep, experts * C + pos, trash)
+    # The token each buffer row holds (T: none). Kept slots are distinct;
+    # only the trash row, never read, is written more than once.
+    tokens = torch.arange(T, device=dev)[:, None].expand(T, K).reshape(-1)
+    src = torch.full((trash + 1,), T, dtype=torch.long, device=dev)
+    src.scatter_(0, slot.reshape(-1), tokens)
+    xz = torch.cat([xt, xt.new_zeros(1, d)])
+    buf = xz[src[:trash]].view(E, C, d)
+    h = _ACTS[cfg.act](torch.bmm(buf, p["w_gate"])) \
+        * torch.bmm(buf, p["w_up"])
+    eo = torch.bmm(h, p["w_down"]).view(trash, d)
+    eo = torch.cat([eo, eo.new_zeros(1, d)])
+    w = (gates * keep).to(x.dtype)
+    out = torch.bmm(w[:, None, :], eo[slot]).view(B, S, d)
+    if "shared" in p:
+        out = out + glu_mlp(p["shared"], x, cfg.act)
+    return (out, keep) if return_keep else out

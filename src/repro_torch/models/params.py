@@ -5,9 +5,13 @@ A spec walk over the same tree the JAX package builds
 ``model.py::model_specs``): the same shapes, the same initializers
 (``normal * fan_in**-0.5`` with ``fan_in = shape[-2]``, ``ones``, ``zeros``),
 the 0.02 embedding scale and the 1/sqrt(2L) residual damping of ``wo`` and
-``w_down``. The port keeps its blocks as a list of per-block dicts instead
-of one stacked tree; ``from_jax_params`` converts a JAX parameter tree
-(as numpy leaves) into that form.
+every ``w_down`` (an MoE layer's experts' and shared expert's too). Every
+leaf takes ``cfg.param_dtype`` but where its spec names a dtype: an MoE
+router is float32 whatever the parameters' dtype, as the reference's. The
+port keeps its blocks as a list of per-block dicts instead of one stacked
+tree (and ``first_k_dense`` dense layers under ``"first"``, as the
+reference); ``from_jax_params`` converts a JAX parameter tree (as numpy
+leaves) into that form.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# attn_mlp_local (a sliding-window layer) has the same leaves as attn_mlp.
-SERVED_KINDS = ("attn_mlp", "attn_mlp_local")
+# attn_mlp_local (a sliding-window layer) has the same leaves as attn_mlp;
+# attn_moe has the same attention and an MoE FFN (models/moe.py).
+SERVED_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe")
 
 
 @dataclass(frozen=True)
@@ -30,6 +35,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"            # normal | zeros | ones
     scale: Optional[float] = None   # None -> 1/sqrt(fan_in)
+    dtype: Optional[str] = None     # None -> cfg.param_dtype
 
     def fan_in(self) -> int:
         if len(self.shape) <= 1:
@@ -38,6 +44,9 @@ class ParamSpec:
 
     def std(self) -> float:
         return self.scale if self.scale is not None else self.fan_in() ** -0.5
+
+    def torch_dtype(self, cfg: ModelConfig) -> torch.dtype:
+        return DTYPES[self.dtype or cfg.param_dtype]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -53,36 +62,44 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def residual(shape: Tuple[int, ...], damp: float) -> ParamSpec:
+    """A residual-writing projection: its fan-in std times ``damp``."""
+    return ParamSpec(shape, "normal", ParamSpec(shape).std() * damp)
+
+
+def glu_specs(d: int, ff: int, damp: float) -> Dict[str, ParamSpec]:
+    return {"w_gate": ParamSpec((d, ff)), "w_up": ParamSpec((d, ff)),
+            "w_down": residual((ff, d), damp)}
+
+
 def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
     if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   f"(the port serves {SERVED_KINDS})")
     d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
-
-    def residual(shape):
-        return ParamSpec(shape, "normal", ParamSpec(shape).std() * damp)
-
     attn = {"wq": ParamSpec((d, hq, dh)), "wk": ParamSpec((d, hkv, dh)),
-            "wv": ParamSpec((d, hkv, dh)), "wo": residual((hq, dh, d))}
+            "wv": ParamSpec((d, hkv, dh)), "wo": residual((hq, dh, d), damp)}
     if cfg.qkv_bias:
         attn["bq"] = ParamSpec((hq, dh), "zeros")
         attn["bk"] = ParamSpec((hkv, dh), "zeros")
         attn["bv"] = ParamSpec((hkv, dh), "zeros")
     if cfg.act == "relu":
         raise NotImplementedError("the 2-layer relu MLP is not ported")
-    return {"ln1": ParamSpec((d,), "ones"), "attn": attn,
-            "ln2": ParamSpec((d,), "ones"),
-            "mlp": {"w_gate": ParamSpec((d, cfg.d_ff)),
-                    "w_up": ParamSpec((d, cfg.d_ff)),
-                    "w_down": residual((cfg.d_ff, d))}}
+    out = {"ln1": ParamSpec((d,), "ones"), "attn": attn,
+           "ln2": ParamSpec((d,), "ones")}
+    if kind == "attn_moe":
+        from repro_torch.models.moe import moe_specs
+        out["moe"] = moe_specs(cfg, damp)
+    else:
+        out["mlp"] = glu_specs(d, cfg.d_ff, damp)
+    return out
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """{"embed": {"table"[, "head"]}, "final_ln", "blocks": [per-block
-    {"0": layer, ...}]} of ParamSpecs."""
-    if cfg.first_k_dense or cfg.is_encdec or cfg.n_image_tokens \
-            or cfg.moe is not None or cfg.ssm is not None:
-        raise NotImplementedError(f"{cfg.name}: only dense decoders of "
+    """{"embed": {"table"[, "head"]}, "final_ln", ["first": {"0": dense
+    layer, ...},] "blocks": [per-block {"0": layer, ...}]} of ParamSpecs."""
+    if cfg.is_encdec or cfg.n_image_tokens or cfg.ssm is not None:
+        raise NotImplementedError(f"{cfg.name}: only decoders of "
                                   f"{SERVED_KINDS} layers are ported")
     damp = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     embed = {"table": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 0.02)}
@@ -91,8 +108,12 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     blocks = [{str(i): _layer_specs(cfg, kind, damp)
                for i, kind in enumerate(cfg.block_pattern)}
               for _ in range(cfg.n_blocks)]
-    return {"embed": embed, "final_ln": ParamSpec((cfg.d_model,), "ones"),
-            "blocks": blocks}
+    out = {"embed": embed, "final_ln": ParamSpec((cfg.d_model,), "ones"),
+           "blocks": blocks}
+    if cfg.first_k_dense:
+        out["first"] = {str(i): _layer_specs(cfg, "attn_mlp", damp)
+                        for i in range(cfg.first_k_dense)}
+    return out
 
 
 def _map(fn, tree):
@@ -108,10 +129,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights built directly on ``device`` from ``generator`` (which
     must live on that device). Same init rules as the JAX package; the
     numbers differ, since the generators differ."""
+    return materialize(model_specs(cfg), cfg, generator, device)
+
+
+def materialize(specs, cfg: ModelConfig, generator: torch.Generator,
+                device="cuda"):
+    """A tree of ParamSpecs as tensors on ``device``, drawn from
+    ``generator`` in the tree's order."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.param_dtype)
 
     def mk(s: ParamSpec) -> torch.Tensor:
+        dt = s.torch_dtype(cfg)
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dt, device=dev)
         if s.init == "ones":
@@ -120,14 +148,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=dev)
         return (w * s.std()).to(dt)
 
-    return _map(mk, model_specs(cfg))
+    return _map(mk, specs)
 
 
 def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """Turn the numpy leaves of a JAX ``init_params`` tree into the port's
     parameters: stacked ``blocks`` leaves (leading ``(n_blocks,)`` axis)
-    become one dict per block. Shapes are checked against the port's specs."""
+    become one dict per block; ``first`` is taken as it is. Shapes are
+    checked against the port's specs, and each leaf takes its spec's
+    dtype."""
     dev = resolve_device(device)
     specs = model_specs(cfg)
 
@@ -138,7 +168,7 @@ def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
         # a float32 copy: JAX hands out read-only buffers, and ml_dtypes'
         # bfloat16 has no torch counterpart in numpy
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=torch_dtype(cfg.param_dtype))
+            device=dev, dtype=spec.torch_dtype(cfg))
 
     def walk(spec, arr):
         if isinstance(spec, dict):
@@ -149,9 +179,12 @@ def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
 
     blocks = [walk(spec, _map(lambda a, b=b: a[b], np_tree["blocks"]))
               for b, spec in enumerate(specs["blocks"])]
-    return {"embed": walk(specs["embed"], np_tree["embed"]),
-            "final_ln": leaf(specs["final_ln"], np_tree["final_ln"]),
-            "blocks": blocks}
+    out = {"embed": walk(specs["embed"], np_tree["embed"]),
+           "final_ln": leaf(specs["final_ln"], np_tree["final_ln"]),
+           "blocks": blocks}
+    if "first" in specs:
+        out["first"] = walk(specs["first"], np_tree["first"])
+    return out
 
 
 def count_params(tree) -> int:

@@ -37,6 +37,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models.params import model_specs  # noqa: E402
 
 ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b")
+SPEC_ARCHS = ARCHS + ("olmoe-1b-7b", "kimi-k2-1t-a32b")
 CHAOTIC = 0.5           # chip_smoke.py's threshold of the same name
 QK_SCALE = 0.1
 STABLE = 0.05
@@ -68,7 +69,7 @@ def _flat(tree, path=()):
     return {path: (tuple(tree.shape), tree.init, std)}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
 def test_init_distribution_equals_reference(arch):
     """Full-size specs: every leaf's shape, init kind and std agree."""
     cfg, tcfg = get_config(arch), tconfigs.get_config(arch)
