@@ -22,6 +22,10 @@ Phases (each prints one line; any failure exits non-zero):
      8192 tokens with window 4096 and softcap 50). olmoe-1b-7b's shapes
      (16 query heads over 16 KV heads, D 128): its global and per-slot
      decode rows, and its prefill (8 x 512) timed on the wgmma kernel. The
+     jamba's attention layer (64 query heads over 8 KV heads, G = 8, D
+     128): its global and per-slot decode rows, its prefill (8 x 512)
+     timed on the wgmma kernel, and held against the plain version at each
+     exact-length prefill shape of phase 3g's serves. The
      MoE FFN (no kernel of its own: batched matmuls) at olmoe's full width
      in bf16, index dispatch against the reference's one-hot einsums on a
      decode batch of 8 tokens and a right-padded prefill of 8 x 512: keep
@@ -66,8 +70,26 @@ Phases (each prints one line; any failure exits non-zero):
      each request's first-token logits against a B=1 prefill, on a serve
      at capacity 16 (at 1.25 the batch's make-up changes which choices
      drop). Chaotic weights serve q/k-scaled, as in 3e.
+  3g. the recurrent-state decoders (bf16, random seeded weights): rwkv6-3b
+     as get_config gives it (32 rwkv layers, no attention), and jamba at
+     full width on the first five layers of its period (mamba, mamba_moe,
+     mamba, mamba_moe, attn: ~44 GiB; a whole period of 8 is 84 GiB).
+     Per arch: (a) decode against prefill layer by layer (for a recurrent
+     layer the chunked scan against the step recurrence) and end to end
+     where not chaotic, jamba at capacity factor 16; (b) a zero-copy serve,
+     then copy, copy, zero-copy in turns, at exact-length prefill (prompt
+     lengths the reference's chunking takes: rwkv6 multiples of 32 in
+     192-480, jamba under 512, two pairs of equal lengths, so 6 prefills
+     for 8 requests in zero-copy): rwkv6 launches no attention kernel,
+     jamba one global (copy: per-slot) decode a step and one flash a
+     prefill; (c) each request's first-token logits against a B=1 prefill
+     (jamba at capacity 16, where no choice drops), within 5e-2 for every
+     request whose serve prefill chose the B=1 prefill's experts in every
+     MoE layer; where one choice flipped, a reading beside the count of
+     flipped tokens.
   4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b, gemma2-2b,
-     olmoe-1b-7b and kimi-k2-1t-a32b (fp32) served on cuda and on cpu over
+     olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b and jamba (fp32) served on cuda
+     and on cpu over
      the same seeded workload, in zero_copy and (but gemma2, which must
      refuse it) in copy mode; then llama3.2-1b, qwen2-7b and olmoe by the
      continuous engine (a pool of 8 pages: it preempts) and the
@@ -334,7 +356,13 @@ DECODE_ARCHS = [("qwen2-7b", "global", 8, 28, 4, 128, 64, None, 185, 513),
                 # phase 3f's: MHA, two head groups of 8; global and the
                 # per-slot pools of its copy serve
                 ("olmoe-1b-7b", "global", 8, 16, 16, 128, 64, None, 185, 513),
-                ("olmoe-1b-7b", "slot", 8, 16, 16, 128, 64, None, 185, 513)]
+                ("olmoe-1b-7b", "slot", 8, 16, 16, 128, 64, None, 185, 513),
+                # phase 3g's jamba attention layer: G = 8, D 128; global,
+                # and the per-slot pools of its copy serve
+                ("jamba-1.5-large-398b", "global", 8, 64, 8, 128, 64, None,
+                 100, 543),
+                ("jamba-1.5-large-398b", "slot", 8, 64, 8, 128, 64, None,
+                 100, 543)]
 DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
 
 
@@ -666,15 +694,18 @@ FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     # gemma2's local layers at its bucket of 8192
                     (8, 512, 512, 24, 8, 128, True, None, None, 0),
                     (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, 0)]
+# (bf16 also runs phase 3g's jamba prefills: _jamba_prefill_cases)
 # Timed shapes (B, Sq, Skv, Hq, Hkv, D), causal: the serve's prefill, then
 # llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
 # without its softcap: SDPA has none), then olmoe-1b-7b's prefill of phase
-# 3f (8 x 512, 16/16, D 128). bf16; the first also in fp32.
+# 3f (8 x 512, 16/16, D 128) and jamba's of phase 3g (8 x 512, 64/8, D
+# 128). bf16; the first also in fp32.
 FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D),
                (1, 4096, 4096, 32, 8, 64),
                (1, 4096, 4096, 28, 4, 128),
                (1, 4096, 4096, 8, 4, 256),
-               (8, 512, 512, 16, 16, 128)]
+               (8, 512, 512, 16, 16, 128),
+               (8, 512, 512, 64, 8, 128)]
 
 
 def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
@@ -699,14 +730,29 @@ def _flash_check(q, k, v, kw) -> float:
     return err
 
 
+def _jamba_prefill_cases() -> list:
+    """Phase 3g's jamba prefills as flash takes them (causal, no window,
+    exact lengths, none a tile multiple): each exact-length group of the
+    zero-copy serve (B its rows, padded to a power of two as the engine
+    pads) and each length at B 1 (copy mode, and the first-token check)."""
+    cfg = _recurrent_cfg("jamba-1.5-large-398b")
+    lens = [len(p) for p in _recurrent_requests(
+        cfg, np.random.default_rng(SEED))]
+    shapes = set()
+    for L in lens:
+        shapes |= {(1, L), (1 << (lens.count(L) - 1).bit_length(), L)}
+    return [(B, L, L, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True, None,
+             None, 0) for B, L in sorted(shapes)]
+
+
 def _flash_cases() -> list:
     from repro_torch.kernels.flash_attention.ops import kernel_for
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
+    wide = FLASH_WIDE_CASES + _jamba_prefill_cases()
     for dtype in (torch.float32, torch.bfloat16):
         for (B, Sq, Skv, Hq, Hkv, Dh, causal, window, cap, qoff) in (
-                FLASH_CASES + (FLASH_WIDE_CASES if dtype == torch.bfloat16
-                               else [])):
+                FLASH_CASES + (wide if dtype == torch.bfloat16 else [])):
             q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
             err = _flash_check(q, k, v, kw)
@@ -939,14 +985,19 @@ def check_serve(cfg, eng, outs, prompts, max_tokens) -> dict:
     assert len({tuple(o) for o in outs}) > 1, "every request decoded alike"
     if eng.offload_mode == "copy":
         assert s["staging_copies"] == len(prompts), s["staging_copies"]
-        assert s["sva"]["bytes_copied"] > 0 and s["sva"]["bytes_mapped"] == 0
+        # the manager models KV bytes only: an arch without attention
+        # layers (rwkv6) stages none
+        has_kv = eng.mgr.kv_bytes_per_token > 0
+        assert (s["sva"]["bytes_copied"] > 0) == has_kv
+        assert s["sva"]["bytes_mapped"] == 0
     else:
         assert s["staging_copies"] == 0, "zero-copy serve made a staging copy"
     if eng._can_share and eng.sched is None:
         assert s["shared_admissions"] > 0 and s["prefill_tokens_saved"] > 0
         assert s["cow_page_copies"] > 0, "no CoW page copy was exercised"
-    for kv in eng.cache:
-        assert torch.isfinite(kv.k_pool).all() and torch.isfinite(kv.v_pool).all()
+    for entry in eng.cache:         # pools, and recurrent states
+        assert all(torch.isfinite(t).all() for t in entry
+                   if t.is_floating_point())
     return s
 
 
@@ -1174,7 +1225,10 @@ DENSE_ARCHS = ("qwen2-7b", "llama3.2-3b", "gemma2-2b")
 # decode-against-prefill length: gemma2's passes its 4096-token window and
 # is no multiple of it, so its rings wrap unaligned
 CONSISTENCY_S = {"llama3.2-1b": 1000, "qwen2-7b": 1000, "llama3.2-3b": 1000,
-                 "gemma2-2b": 4500, "olmoe-1b-7b": 1000}
+                 "gemma2-2b": 4500, "olmoe-1b-7b": 1000,
+                 # S and S + 1 both lengths the reference's chunking takes:
+                 # rwkv6 1023 = 31 x 33 and 1024 = 32 x 32; mamba one chunk
+                 "rwkv6-3b": 1023, "jamba-1.5-large-398b": 500}
 LOGIT_REL = 5e-2        # max|d logits| / max|logit| in bf16
 LONG_MAX_LEN = 8192     # gemma2's serve: 4 slots of 512 pages
 # The reference's init draws wq and wk at std heads**-0.5 (its fan-in is
@@ -1198,9 +1252,11 @@ def _rel(out, ref) -> float:
 
 
 def _qk_scaled(params, scale: float = QK_SCALE):
-    """The same weights with every layer's wq and wk scaled (new tensors
-    for those two; every other leaf shared)."""
+    """The same weights with every attention layer's wq and wk scaled (new
+    tensors for those two; every other leaf shared)."""
     def layer(p):
+        if "attn" not in p:
+            return p
         attn = dict(p["attn"], wq=p["attn"]["wq"] * scale,
                     wk=p["attn"]["wk"] * scale)
         return dict(p, attn=attn)
@@ -1275,7 +1331,10 @@ def _layerwise_decode_vs_prefill(cfg, params, S: int, B: int = 2) -> float:
         x = _embed_in(cfg, params, toks)
         for li, (kind, p) in enumerate(layers(cfg, params)):
             x_next, _ = apply_layer(kind, p, x, full, None)
-            apply_layer(kind, p, x[:, :S].contiguous(), pre, view[li])
+            # a recurrent layer returns its new state (a pool is written
+            # in place)
+            _, view[li] = apply_layer(kind, p, x[:, :S].contiguous(), pre,
+                                      view[li])
             _merge_prefill_view([cache[li]], [view[li]],
                                 torch.arange(B, device="cuda"))
             kv = _install_tables([cache[li]], tables, lengths)[0]
@@ -1293,16 +1352,17 @@ def _decode_vs_prefill(cfg, params, S: int, B: int = 2) -> dict:
                                                  _install_tables,
                                                  _merge_prefill_view)
     from repro_torch.models import forward_decode, forward_prefill
+    from repro_torch.models.model import is_state, per_slot
     toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED)
     with torch.no_grad():
         ref, _ = forward_prefill(cfg, params, {"tokens": toks}, None)
         view = _build_prefill_view(cache, tables, lengths)
-        forward_prefill(cfg, params, {"tokens": toks[:, :S],
-                                      "lengths": lengths}, view)
+        _, view = forward_prefill(cfg, params, {"tokens": toks[:, :S],
+                                                "lengths": lengths}, view)
         _merge_prefill_view(cache, view, torch.arange(B, device="cuda"))
         dec, _ = forward_decode(cfg, params, toks[:, S:], lengths,
                                 _install_tables(cache, tables, lengths))
-    rings = [kv for kv in cache if kv.k_pool.dim() == 5]
+    rings = [kv for kv in cache if per_slot(kv) and not is_state(kv)]
     return dict(rel=_rel(dec, ref),
                 ring_tokens=rings[0].capacity if rings else None,
                 ring_layers=len(rings))
@@ -1314,7 +1374,7 @@ def _consistency(cfg, params, S: int,
     gates every arch. The end-to-end ``rel`` gates an arch whose weights
     are not chaotic (``sensitivity`` below CHAOTIC); on chaotic weights it
     is a reading (~1), and the serve runs on their q/k-scaled copy, which
-    is returned."""
+    is returned with the row."""
     row = dict(arch=cfg.name, S=S, B=2,
                sensitivity=_input_sensitivity(cfg, params, S),
                layer_rel=_layerwise_decode_vs_prefill(cfg, params, S),
@@ -1330,49 +1390,74 @@ def _consistency(cfg, params, S: int,
     emit(phase, **row)
     assert row["layer_rel"] < LOGIT_REL, row
     assert row["chaotic"] or row["rel"] < LOGIT_REL, row
-    return served
+    return served, row
+
+
+@contextlib.contextmanager
+def _routes():
+    """While a model runs, records every MoE routing's top-K experts in
+    call order, each token's K choices sorted ((T, K), left on the card)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, []
+
+    def recorded(p, x2, cfg):
+        experts, gates = real(p, x2, cfg)
+        rec.append(experts.sort(dim=-1).values)
+        return experts, gates
+    with mock.patch.object(moe, "route", recorded):
+        yield rec
 
 
 @contextlib.contextmanager
 def _first_logits():
     """While a serve runs, records every prefill call of the engine as
-    (each row's full prompt length, its tokens, its last logits): the
-    serve's own first-token logits."""
+    (each row's full prompt length, its tokens, its last logits, its
+    tokens' expert choices in each MoE layer): the serve's own first-token
+    logits and the routing that led to them."""
     from repro_torch.core.serving import engine as eng_mod
     real, rows = eng_mod.forward_prefill, []
 
     def prefill(cfg, params, batch, cache):
-        logits, cache = real(cfg, params, batch, cache)
+        with _routes() as routes:
+            logits, cache = real(cfg, params, batch, cache)
         toks, lens = batch["tokens"], batch.get("lengths")
         lens = ([toks.shape[1]] * toks.shape[0] if lens is None
                 else lens.tolist())
         pre = batch.get("prefix_lens")
         pre = [0] * len(lens) if pre is None else pre.tolist()
+        B = toks.shape[0]
         for i, (n, k) in enumerate(zip(lens, pre)):
-            rows.append((k + n, toks[i, :n].tolist(), logits[i, -1]))
+            choices = [r.view(B, -1, r.shape[-1])[i, :n] for r in routes]
+            rows.append((k + n, toks[i, :n].tolist(), logits[i, -1],
+                         choices))
         return logits, cache
     with mock.patch.object(eng_mod, "forward_prefill", prefill):
         yield rows
 
 
 def _first_token_check(cfg, params, prompts, served_rows,
-                       gate: bool = True) -> list:
+                       gate: bool = True) -> tuple:
     """Each request's first-token logits from the serve (the prefill row
     of its length whose tokens end its prompt) against a B=1
     forward_prefill of its prompt on the card: the engine's padded,
     table-driven (mixed-layout) prefill, where bf16 tokens cannot be
-    compared. With ``gate`` False a reading only."""
+    compared. Returns (rels, flips): ``flips`` counts, a request, the
+    (token, MoE layer) pairs whose expert set differs between the two
+    prefills (0 without MoE layers). With ``gate`` False a reading only."""
     from repro_torch.models import forward_prefill
-    rels = []
+    rels, flips = [], []
     for p in prompts:
-        served = [lg for n, toks, lg in served_rows
+        served = [(lg, ch) for n, toks, lg, ch in served_rows
                   if n == len(p) and p[n - len(toks):] == toks]
-        with torch.no_grad():
+        lg, choices = served[-1]
+        with torch.no_grad(), _routes() as routes:
             ref, _ = forward_prefill(cfg, params, {"tokens": torch.tensor(
                 [p], device="cuda")}, None)
-        rels.append(_rel(served[-1], ref[0, -1]))
+        rels.append(_rel(lg, ref[0, -1]))
+        flips.append(sum(int((c != r[-len(c):]).any(-1).sum())
+                         for c, r in zip(choices, routes)))
     assert not gate or max(rels) < LOGIT_REL, rels
-    return rels
+    return rels, flips
 
 
 def _long_requests(vocab: int, rng, n: int = 4, lo: int = 4500,
@@ -1429,7 +1514,7 @@ def phase_dense_archs(control_params) -> dict:
         params = init_params(cfg, gen, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        params = _consistency(cfg, params, CONSISTENCY_S[arch])
+        params, _ = _consistency(cfg, params, CONSISTENCY_S[arch])
         kinds = cfg.layer_kinds()
         n_ring = sum(k == "attn_mlp_local" for k in kinds)
         n_global = len(kinds) - n_ring
@@ -1455,7 +1540,7 @@ def phase_dense_archs(control_params) -> dict:
             assert all(kv.capacity == cfg.sliding_window for kv in rings)
             assert all(int(kv.length.min()) > kv.capacity for kv in rings)
         del eng
-        rels = _first_token_check(cfg, params, prompts, first)
+        rels, _ = _first_token_check(cfg, params, prompts, first)
         row.update(arch=arch, dtype=cfg.activation_dtype,
                    n_layers=cfg.n_layers, d_model=cfg.d_model,
                    heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
@@ -1493,7 +1578,7 @@ def phase_dense_archs(control_params) -> dict:
                             == cfg.n_layers * c_row["decode_steps"]), c_launches
                     assert c_launches["paged_attention_global"] == 0
                     c_row["first_token_rel"] = _first_token_check(
-                        cfg, params, prompts, c_first)
+                        cfg, params, prompts, c_first)[0]
                     c_row["tokens_equal_to_zero_copy"] = sum(
                         a == b for o, z in zip(c_outs, outs)
                         for a, b in zip(o, z))
@@ -1560,8 +1645,8 @@ def phase_moe_arch() -> dict:
     params = init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    params = _consistency(no_drop, params, CONSISTENCY_S[MOE_ARCH],
-                          phase="phase3f decode-vs-prefill")
+    params, _ = _consistency(no_drop, params, CONSISTENCY_S[MOE_ARCH],
+                             phase="phase3f decode-vs-prefill")
     prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
     n_slots, max_len, new_tokens = 8, 1024, 32
     K = cfg.moe.experts_per_token
@@ -1581,7 +1666,7 @@ def phase_moe_arch() -> dict:
         row["drops"] = drops = _drop_shares(rec)
         assert drops["decode"]["pairs"] == cfg.n_layers * steps * n_slots * K
         row["first_token_rel_reading"] = _first_token_check(
-            cfg, params, prompts, first, gate=False)
+            cfg, params, prompts, first, gate=False)[0]
         if not turns:
             zc_outs = outs
         row["tokens_equal_to_first_zero_copy"] = sum(
@@ -1608,14 +1693,151 @@ def phase_moe_arch() -> dict:
     del eng
     assert row["launches"]["paged_attention_global"] == \
         cfg.n_layers * row["decode_steps"], row["launches"]
-    rels = _first_token_check(no_drop, params, prompts, first)
+    rels, flips = _first_token_check(no_drop, params, prompts, first)
     emit("phase3f first-token", arch=MOE_ARCH,
          capacity_factor=MOE_NO_DROP_CF, first_token_rel=rels,
+         first_token_flips=flips,
          **{k: row[k] for k in ("decode_ms_per_step", "tokens_per_s",
                                 "ttft_ms_median", "peak_mem_gib")})
     del params
     torch.cuda.empty_cache()
     return launches_by_kind
+
+
+# ------------------------------------------------------------------ phase 3g
+
+RECURRENT_ARCHS = ("rwkv6-3b", "jamba-1.5-large-398b")
+# jamba's cut: the first five layers of its period of 8 (mamba, mamba_moe,
+# mamba, mamba_moe, attn), every layer kind at its published width and the
+# shortest cut that holds the attention layer; one period is 84 GiB of
+# bf16, past the card.
+JAMBA_CUT = 5
+
+
+def _recurrent_cfg(arch: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_CUT,
+                                  block_pattern=cfg.block_pattern[:JAMBA_CUT])
+    return cfg
+
+
+def _recurrent_requests(cfg, rng, n: int = 8) -> list:
+    """n prompts at lengths the reference's chunking takes (its reshape
+    fails elsewhere, and so does the port's): for rwkv6 multiples of 32 in
+    192-480 (T // 32 divides T), for jamba's mamba layers 100-511 (one
+    chunk under 512). The first two lengths recur once each, so the
+    zero-copy engine prefills 8 requests in n - 2 exact-length groups."""
+    lens = (np.arange(192, 481, 32) if cfg.ssm is None
+            else np.arange(100, 512))
+    lens = [int(x) for x in rng.choice(lens, n - 2, replace=False)]
+    lens += lens[:2]
+    return [rng.integers(0, cfg.vocab_size, size=L).tolist() for L in lens]
+
+
+def phase_recurrent_archs() -> dict:
+    """rwkv6-3b as get_config gives it and jamba at full width on JAMBA_CUT
+    layers (bf16, random weights from SEED built on the card), one at a
+    time: (a) decode against prefill, layer by layer (a recurrent layer's
+    chunked scan against its step recurrence) and end to end where not
+    chaotic, jamba at capacity factor MOE_NO_DROP_CF; (b) on the weights as
+    built or, where chaotic, q/k-scaled, a zero-copy serve, then copy, copy
+    and zero-copy in turns, at the published capacity: figures, exact-
+    length prefills against requests, staging copies, launches (rwkv6 none
+    of any attention kernel; jamba one decode a step and one flash a
+    prefill, its one attention layer), jamba's dropped shares; (c) each
+    request's first-token logits against a B=1 prefill on the first
+    zero-copy serve (jamba on one more at MOE_NO_DROP_CF, where no choice
+    drops), with the tokens whose expert set differs between the serve's
+    prefill and the B=1 one counted: a gate for every request whose
+    prefill made the B=1 prefill's choices, a reading where a choice
+    flipped (a rounding of another batch's matmul shapes that moves one
+    choice changes that token's MoE output, and the recurrent state carries
+    it to every later token)."""
+    from repro_torch.models import init_params
+    launches_by_arch = {}
+    for arch in RECURRENT_ARCHS:
+        cfg = _recurrent_cfg(arch)
+        no_drop = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe,
+                                         capacity_factor=MOE_NO_DROP_CF))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 2**30
+        params, cons = _consistency(no_drop, params, CONSISTENCY_S[arch],
+                                    phase="phase3g decode-vs-prefill")
+        prompts = _recurrent_requests(cfg, np.random.default_rng(SEED))
+        n_slots, max_len, new_tokens = 8, 1024, 32
+        kinds = cfg.layer_kinds()
+        n_attn = sum(k == "attn" for k in kinds)
+        n_moe = sum(k == "mamba_moe" for k in kinds)
+        turns = []
+        for mode in ("zero_copy", "copy", "copy", "zero_copy"):
+            with _moe_drops() as rec:
+                outs, eng, row, first = _dense_serve(
+                    cfg, params, prompts, new_tokens, n_slots, max_len, mode)
+            del eng
+            launches, steps = row["launches"], row["decode_steps"]
+            used = ("paged_attention_global" if mode == "zero_copy"
+                    else "paged_attention")
+            assert launches[used] == n_attn * steps, (arch, mode, launches)
+            assert launches["flash_attention_fwd"] == \
+                n_attn * row["prefills"], (arch, mode, launches)
+            _other_launches_zero(launches, (used, "flash_attention_fwd"))
+            assert row["prefills"] == (len(prompts) if mode == "copy"
+                                       else len({len(p) for p in prompts}))
+            if n_moe:
+                row["drops"] = drops = _drop_shares(rec)
+                assert drops["decode"]["pairs"] == (
+                    n_moe * steps * n_slots * cfg.moe.experts_per_token)
+            if not turns:
+                zc_outs, zc_first = outs, first
+            row["tokens_equal_to_first_zero_copy"] = sum(
+                a == b for o, z in zip(outs, zc_outs) for a, b in zip(o, z))
+            turns.append(row)
+            launches_by_arch.setdefault(f"{arch} {mode}", launches)
+        row = turns[0]
+        row.update(arch=arch, dtype=cfg.activation_dtype,
+                   n_layers=cfg.n_layers, layer_kinds=list(kinds),
+                   d_model=cfg.d_model,
+                   heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_head=cfg.d_head,
+                   vocab=cfg.vocab_size, requests=len(prompts),
+                   prompt_lens=[len(p) for p in prompts],
+                   new_tokens=new_tokens, slots=n_slots, max_len=max_len,
+                   page=PAGE, init_s=init_s, weights_gib=weights_gib,
+                   served_weights="q/k-scaled" if cons["chaotic"]
+                   else "as built",
+                   **({"capacity_factor": cfg.moe.capacity_factor,
+                       "experts": cfg.moe.n_experts,
+                       "d_ff_expert": cfg.moe.d_ff} if n_moe else {}))
+        emit("phase3g serve", **row)
+        emit("phase3g copy serve", arch=arch,
+             turns="zero_copy copy copy zero_copy", serves=turns[1:])
+        first = zc_first
+        if n_moe:       # the serve again at MOE_NO_DROP_CF: no drops
+            _, eng, row, first = _dense_serve(no_drop, params, prompts,
+                                              new_tokens, n_slots, max_len)
+            del eng
+        rels, flips = _first_token_check(no_drop, params, prompts, first,
+                                         gate=False)
+        gated = [r for r, f in zip(rels, flips) if f == 0]
+        emit("phase3g first-token", arch=arch,
+             capacity_factor=(no_drop.moe.capacity_factor if n_moe
+                              else None), first_token_rel=rels,
+             first_token_flips=flips, prefill_rows=[
+                 sum(len(q) == len(p) for q in prompts) for p in prompts],
+             gated=len(gated),
+             **{k: row[k] for k in ("decode_ms_per_step", "tokens_per_s",
+                                    "ttft_ms_median", "peak_mem_gib")})
+        assert gated and max(gated) < LOGIT_REL, (rels, flips)
+        del params
+        torch.cuda.empty_cache()
+    return launches_by_arch
 
 
 def _leaves(tree):
@@ -1668,7 +1890,7 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
 # ------------------------------------------------------------------ phase 4
 
 CROSS_ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b",
-               "olmoe-1b-7b", "kimi-k2-1t-a32b")
+               "olmoe-1b-7b", "kimi-k2-1t-a32b") + RECURRENT_ARCHS
 SCHEDULED_ARCHS = ("llama3.2-1b", "qwen2-7b", "olmoe-1b-7b")
 
 
@@ -1685,6 +1907,7 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
     from repro_torch.core.serving.engine import ServingEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import init_params
+    from repro_torch.models.params import RECURRENT_KINDS
     cfg = reduce_for_smoke(get_config(arch))
     params_cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
@@ -1725,6 +1948,8 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
                     if mode == "copy"
                     else ("paged_attention_global", "flash_attention_fwd")
                     + (("paged_attention",) if windowed else ()))
+            if all(k in RECURRENT_KINDS for k in cfg.layer_kinds()):
+                used = ()           # rwkv6: no attention layer
             assert all(launches[k] > 0 for k in used), launches
             assert all(n == 0 for k, n in launches.items()
                        if k not in used), launches
@@ -2274,6 +2499,7 @@ def main(argv=None) -> int:
     scheduled_launches = phase_scheduled_serve(*served, zc_outs)
     dense_launches = phase_dense_archs(served[1])
     moe_launches = phase_moe_arch()
+    recurrent_launches = phase_recurrent_archs()
     if args.profile:
         phase_profile(*served)
     for arch in CROSS_ARCHS:
@@ -2297,6 +2523,9 @@ def main(argv=None) -> int:
                                   for a, n in dense_launches.items()},
          "launches_moe_arch": moe_launches["zero_copy"][
              "paged_attention_global"],
+         "launches_recurrent_archs": {
+             a: n["paged_attention_global"]
+             for a, n in recurrent_launches.items()},
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
@@ -2311,6 +2540,8 @@ def main(argv=None) -> int:
          "launches_dense_archs": {a: n["paged_attention"]
                                   for a, n in dense_launches.items()},
          "launches_moe_arch_copy": moe_launches["copy"]["paged_attention"],
+         "launches_recurrent_archs": {a: n["paged_attention"]
+                                      for a, n in recurrent_launches.items()},
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
          **_precision_fields(res["precision"]["slot"]),
@@ -2328,6 +2559,8 @@ def main(argv=None) -> int:
                                   for a, n in dense_launches.items()},
          "launches_moe_arch": {m: n["flash_attention_fwd"]
                                for m, n in moe_launches.items()},
+         "launches_recurrent_archs": {a: n["flash_attention_fwd"]
+                                      for a, n in recurrent_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

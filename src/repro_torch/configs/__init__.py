@@ -1,8 +1,9 @@
 """Architecture registry of the port: only the archs it serves.
 
 ``get_config(arch)`` returns the same config as the JAX package for the four
-dense decoders and the two MoE decoders the port serves; ``base.py`` and
-the per-arch modules are copies of the reference's.
+dense decoders, the two MoE decoders and the two recurrent-state decoders
+(rwkv6-3b, and the hybrid jamba) the port serves; ``base.py`` and the
+per-arch modules are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

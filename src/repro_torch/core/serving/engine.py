@@ -45,7 +45,16 @@ scattered back to their slots, and decode appends modulo the ring. Such an
 arch serves without prefix sharing and without the continuous scheduler,
 and in copy mode only while ``max_len`` fits its window, as the reference.
 
-Not ported here: archs with recurrent state or cross-KV; they raise
+Recurrent layers (rwkv6's ``rwkv``, jamba's ``mamba`` and ``mamba_moe``)
+keep one per-slot state row a slot beside the pool. They scan every
+position of a row, so right-padding would corrupt their final state: such
+an arch prefills at exact lengths, a wave grouped by suffix length, one
+call a group, with no bucket (the reference's ``_exact_prefill``). Its
+fresh zero state rows are scattered back to their slots as a ring's are.
+It serves in zero_copy and in copy mode, without prefix sharing and
+without the continuous scheduler, as the reference.
+
+Not ported here: archs with cross-KV (an encoder or images); they raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -64,12 +73,13 @@ from repro_torch.core.serving.sequence_buffer import SequenceBuffer
 from repro_torch.core.sva.iommu import (AutoTuneConfig, PrefetchConfig,
                                         TLBConfig, default_autotune_candidates)
 from repro_torch.core.sva.kv_manager import PagedKVManager
-from repro_torch.models import attention as attn
 from repro_torch.models.model import (Cache, forward_decode,
-                                      forward_prefill, init_cache,
-                                      install_tables, layer_capacity)
-from repro_torch.models.params import (SERVED_KINDS, resolve_device,
-                                       torch_dtype)
+                                      forward_prefill, fresh_rows,
+                                      init_cache, install, install_tables,
+                                      is_state, layer_capacity, per_slot,
+                                      scatter_rows)
+from repro_torch.models.params import (RECURRENT_KINDS, SERVED_KINDS,
+                                       resolve_device, torch_dtype)
 
 # Layer kinds whose KV lives wholly in the shared global pool: prefix
 # sharing and chunked prefill (the continuous scheduler) read a sequence's
@@ -97,8 +107,8 @@ class Request:
 
 def _write_slot(batch_cache: Cache, single_cache: Cache, slot: int) -> None:
     """Copy one sequence's prefilled per-slot cache (batch 1) into batch slot
-    ``slot`` of every layer, in place: the staging baseline's O(cache-size)
-    admission walk."""
+    ``slot`` of every layer, in place: every leaf of a PagedKV or of a
+    recurrent state. The staging baseline's O(cache-size) admission walk."""
     for bkv, skv in zip(batch_cache, single_cache):
         for dst, src in zip(bkv, skv):
             dst[slot].copy_(src[0])
@@ -109,42 +119,31 @@ def _build_prefill_view(cache: Cache, tables: torch.Tensor,
     """The batch cache as a batched prefill of ``nb = tables.shape[0]`` rows
     sees it: global-pool layers keep the same pools with the rows' tables
     (KV lands in place: zero-copy); a per-slot ring gets fresh zero rows,
-    which :func:`_merge_prefill_view` scatters back to their slots."""
+    and a recurrent layer fresh zero state rows, which
+    :func:`_merge_prefill_view` scatters back to their slots."""
     nb = tables.shape[0]
-    view = []
-    for kv in cache:
-        if attn.is_global_layout(kv):
-            view.append(kv._replace(block_table=tables, length=lengths))
-            continue
-        n_pages = kv.block_table.shape[-1]
-        shape = (nb, *kv.k_pool.shape[1:])
-        view.append(attn.PagedKV(
-            kv.k_pool.new_zeros(shape), kv.v_pool.new_zeros(shape),
-            torch.arange(n_pages, dtype=torch.int32, device=tables.device)
-            .expand(nb, n_pages), torch.zeros_like(lengths)))
-    return view
+    return [fresh_rows(kv, nb) if per_slot(kv)
+            else install(kv, tables, lengths) for kv in cache]
 
 
 def _merge_prefill_view(cache: Cache, view: Cache,
                         slots: torch.Tensor) -> None:
-    """Scatter each ring's first ``len(slots)`` prefilled rows to ``slots``
-    in place (the padding rows after them are dropped); the global pools
-    were written in place."""
-    n = slots.shape[0]
+    """Scatter each ring's and each recurrent state's first ``len(slots)``
+    prefilled rows to ``slots`` in place (the padding rows after them are
+    dropped); the global pools were written in place. ``view`` is the cache
+    the prefill returned: a recurrent layer's state is a new tensor."""
     for kv, w in zip(cache, view):
-        if not attn.is_global_layout(kv):
-            kv.k_pool[slots] = w.k_pool[:n]
-            kv.v_pool[slots] = w.v_pool[:n]
+        if per_slot(kv):
+            scatter_rows(kv, w, slots)
 
 
 def _install_tables(cache: Cache, tables: torch.Tensor,
                     lengths: torch.Tensor) -> Cache:
-    """The zero-copy decode's install into a serving cache: every layer
-    takes ``lengths``; each global-pool layer takes ``tables`` (B, P), and a
-    sliding-window ring, the one per-slot layer a serving cache holds,
-    keeps its identity table."""
-    return [kv._replace(block_table=tables, length=lengths)
-            if attn.is_global_layout(kv) else kv._replace(length=lengths)
+    """The zero-copy decode's install into a serving cache: every attention
+    layer takes ``lengths``; each global-pool layer takes ``tables`` (B, P),
+    a sliding-window ring keeps its identity table, and a recurrent state
+    passes through."""
+    return [install(kv, None if per_slot(kv) else tables, lengths)
             for kv in cache]
 
 
@@ -172,14 +171,14 @@ class ServingEngine:
         if (cfg.is_encdec or cfg.n_image_tokens
                 or any(k not in SERVED_KINDS for k in kinds)):
             raise NotImplementedError(
-                f"{cfg.name}: layers with recurrent state or cross-KV are "
-                f"not ported; the port serves {SERVED_KINDS} decoders")
+                f"{cfg.name}: layers with cross-KV are not ported; the port "
+                f"serves {SERVED_KINDS} decoders")
         all_shared = all(k in SHARE_KINDS for k in kinds)
         if scheduler == "continuous" and not all_shared:
             raise NotImplementedError(
                 "continuous scheduling needs all KV state in the shared "
                 "global pool: chunked prefill cannot reconstruct per-slot "
-                "ring buffers")
+                "ring buffers or recurrent states")
         if offload_mode == "copy" and any(
                 -(-layer_capacity(cfg, k, max_len) // page_size)
                 < -(-max_len // page_size) for k in kinds):
@@ -249,6 +248,10 @@ class ServingEngine:
         self._waiting_reqs: Dict[int, Request] = {}
         self._next_id = 0
         self._step_count = 0
+        # Recurrent layers scan left to right: right-padding would corrupt
+        # their final states, so those archs prefill at exact lengths
+        # (batching only same-length prompts).
+        self._exact_prefill = any(k in RECURRENT_KINDS for k in kinds)
         self.metrics = {"prefills": 0, "prefill_reqs": 0, "decode_steps": 0,
                         "tokens": 0, "staging_copies": 0, "prefill_s": 0.0,
                         "decode_s": 0.0, "admit_s": 0.0,
@@ -394,7 +397,15 @@ class ServingEngine:
                 page_wave[pg] = w
             waves.setdefault(w, []).append((req, st))
         for w in sorted(waves):
-            self._batched_prefill(waves[w])
+            if not self._exact_prefill:
+                self._batched_prefill(waves[w])
+                continue
+            groups: Dict[int, list] = {}
+            for item in waves[w]:
+                suf = len(item[0].prompt) - item[1].prefill_start
+                groups.setdefault(suf, []).append(item)
+            for group in groups.values():
+                self._batched_prefill(group)
         for req, st in admitted:
             self.active[req.req_id] = req
 
@@ -407,13 +418,15 @@ class ServingEngine:
         return min(lb, self.max_pages * self.page_size)
 
     def _batched_prefill(self, group):
-        """ONE padded prefill call for a wave of admitted requests: KV is
-        scattered straight into the shared pool through their tables.
-        Prefix-shared admissions feed only their suffix."""
+        """ONE padded prefill call for a wave of admitted requests (a group
+        of one suffix length where the arch prefills at exact lengths, with
+        no bucket): KV is scattered straight into the shared pool through
+        their tables. Prefix-shared admissions feed only their suffix."""
         t0 = time.perf_counter()
         sufs = [len(req.prompt) - st.prefill_start for req, st in group]
         sharing = any(st.shared_pages for _, st in group)
-        lb = self._bucket_len(max(sufs))
+        lb = max(sufs) if self._exact_prefill else \
+            self._bucket_len(max(sufs))
         nb = 1
         while nb < len(group):
             nb *= 2
@@ -439,7 +452,7 @@ class ServingEngine:
         view = _build_prefill_view(self.cache, self._dev(tables),
                                    batch["lengths"])
         with torch.no_grad():
-            logits, _ = forward_prefill(self.cfg, self.params, batch, view)
+            logits, view = forward_prefill(self.cfg, self.params, batch, view)
         _merge_prefill_view(self.cache, view, self._dev(np.asarray(
             [st.slot for _, st in group], np.int64)))
         logits = logits[:, -1].float().cpu().numpy()
@@ -483,8 +496,12 @@ class ServingEngine:
         """Install per-slot block tables and lengths into a PER-SLOT cache
         (the copy-baseline path). Rejects, instead of wrapping, table entries
         past a layer's pool: wrapping page indices would alias distinct
-        logical pages onto one physical page and corrupt KV."""
-        n_pages = cache[0].block_table.shape[-1]    # every layer alike
+        logical pages onto one physical page and corrupt KV. Recurrent
+        states pass through (an arch of them alone has no table)."""
+        kvs = [kv for kv in cache if not is_state(kv)]
+        if not kvs:
+            return cache
+        n_pages = kvs[0].block_table.shape[-1]      # every layer alike
         sub = tables[..., :n_pages]
         if sub.size and int(sub.max()) >= n_pages:
             raise ValueError(
@@ -502,7 +519,7 @@ class ServingEngine:
         rows = torch.nonzero(dst < self.null_page, as_tuple=True)[0]
         src, dst = src[rows].long(), dst[rows].long()
         for kv in self.cache:
-            if not attn.is_global_layout(kv):
+            if per_slot(kv):
                 continue
             for pool in (kv.k_pool, kv.v_pool):
                 pages = pool[src]                # gathered copy, then write

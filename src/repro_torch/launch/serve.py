@@ -5,11 +5,15 @@
       --offload-mode zero_copy     # or: copy
 
 ``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (llama3.2-1b,
-gemma2-2b, llama3.2-3b, qwen2-7b, olmoe-1b-7b, kimi-k2-1t-a32b). gemma2-2b
-serves copy mode only while ``--max-len`` fits its sliding window (8 tokens
-at ``--smoke``), as the reference. kimi-k2-1t-a32b serves with ``--smoke``
-only: at full width its weights take about 2 TB in bf16, and the flash
-kernel has no head dim of 112.
+gemma2-2b, llama3.2-3b, qwen2-7b, olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b,
+jamba-1.5-large-398b). gemma2-2b serves copy mode only while ``--max-len``
+fits its sliding window (8 tokens at ``--smoke``), as the reference.
+kimi-k2-1t-a32b and jamba-1.5-large-398b serve with ``--smoke`` only (see
+``SMOKE_ONLY``). The recurrent archs (rwkv6-3b, jamba) prefill at exact
+lengths, and their chunked scans take only the prompt lengths the
+reference's chunking takes: under 64 tokens, or any length ``T`` that
+``T // 32`` divides, for rwkv6; under 512, or any ``T`` that ``T // 256``
+divides, for jamba's mamba layers.
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
 output as ``repro.launch.serve``: ``zero_copy`` shows ``staging_copies: 0``,
@@ -32,7 +36,11 @@ from repro_torch.models.params import resolve_device
 
 # Archs that serve at smoke size only, and why.
 SMOKE_ONLY = {"kimi-k2-1t-a32b": "about 2 TB of bf16 weights at full width, "
-                                 "and no flash kernel at d_head 112"}
+                                 "and no flash kernel at d_head 112",
+              "jamba-1.5-large-398b": "398 B parameters are about 0.8 TB of "
+                                      "bf16 weights, and one period of 8 "
+                                      "layers alone is 84 GiB, past an 80 GB "
+                                      "card"}
 
 
 def main(argv=None) -> int:

@@ -15,7 +15,8 @@ CoW-duplicates it on its first divergent token.
   PYTHONPATH=src python -m repro_torch.launch.serve_paged --device cpu \\
       --scheduler continuous        # or: --disagg share | copy
   PYTHONPATH=src python -m repro_torch.launch.serve_paged --device cpu \\
-      --arch olmoe-1b-7b            # or: kimi-k2-1t-a32b
+      --arch olmoe-1b-7b            # or: kimi-k2-1t-a32b, rwkv6-3b,
+                                    # jamba-1.5-large-398b (fixed only)
 
 ``--scheduler continuous`` serves the same requests as two bursty arrival
 waves over an oversubscribed page pool (``--pool-pages``, 16 by default):
@@ -157,7 +158,8 @@ def main(argv=None) -> int:
               f"{t['pages_shared']} copied={t['pages_copied']}, payload "
               f"{t['payload_bytes']}B + table {t['table_bytes']}B, "
               f"remote-DMA PTW {t['ptw_cycles']:.0f} cycles")
-    print(f"prefix cache: {s['prefix']}")
+    # an arch with per-slot state (rings, recurrent layers) shares no prefix
+    print(f"prefix cache: {s.get('prefix', 'off')}")
     print(f"prefill tokens saved: {s['prefill_tokens_saved']} "
           f"(shared admissions: {s['shared_admissions']}); "
           f"CoW page copies: {s['cow_page_copies']}")

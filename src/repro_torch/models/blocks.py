@@ -1,6 +1,16 @@
 """Per-layer forward (port of ``repro/models/blocks.py``: the ``attn_mlp``
-and ``attn_mlp_local`` layers of the dense decoders, and ``attn_moe``, the
-same attention before an MoE FFN).
+and ``attn_mlp_local`` layers of the dense decoders and jamba's ``attn``,
+the same layer; ``attn_moe``, the same attention before an MoE FFN;
+``rwkv``, a time mix and a channel mix, each with its own token shift; and
+jamba's ``mamba`` and ``mamba_moe``, the selective SSM before a GLU MLP or
+an MoE FFN).
+
+A layer's cache entry is a :class:`PagedKV` for an attention layer, an
+:class:`RWKVState` or a :class:`MambaState` for a recurrent one. A
+recurrent layer ignores ``seq_lengths``: it scans every position of its
+rows, so the engine prefills such archs at exact lengths. Its new state is
+returned (not written in place); a prefill without a cache starts from
+zero state.
 
 Two execution modes reach a layer here:
   prefill  a right-padded batch of prompts; KV is scattered into the shared
@@ -20,9 +30,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.layers import glu_mlp, rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import SERVED_KINDS
+from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
 
 
 @dataclass(frozen=True)
@@ -182,19 +194,47 @@ def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
                        .to(kv.length.dtype))
 
 
-def apply_layer(kind: str, p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV]):
-    """One ``attn_mlp``, ``attn_mlp_local`` (attends over its last
-    ``sliding_window`` tokens in prefill; in decode its ring holds only
-    those) or ``attn_moe`` layer (the MoE FFN in place of the MLP); returns
-    (x, updated PagedKV or None)."""
+def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
+    cfg = ctx.cfg
+    st0 = st if st is not None else \
+        rwkv.zero_state(cfg, x.shape[0], x.dtype, x.device)
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h_prev, new_tm = rwkv.token_shift(h, st0.shift_tm)
+    if ctx.mode == "decode":
+        y, wkv = rwkv.rwkv_time_mix_step(p["tm"], h, h_prev, cfg, st0.wkv)
+    else:
+        y, wkv = rwkv.rwkv_time_mix(p["tm"], h, h_prev, cfg, st0.wkv)
+    x = x + y
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    h_prev, new_cm = rwkv.token_shift(h, st0.shift_cm)
+    x = x + rwkv.rwkv_channel_mix(p["cm"], h, h_prev)
+    return x, (rwkv.RWKVState(wkv, new_tm, new_cm) if st is not None
+               else None)
+
+
+def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
+    """One layer of ``kind``; ``cache`` is its PagedKV (attention kinds),
+    RWKVState (rwkv) or MambaState (mamba kinds), or None. Returns (x, the
+    updated entry, or None without one). An attention layer attends over
+    its last ``sliding_window`` tokens where it is ``attn_mlp_local`` (in
+    decode its ring holds only those)."""
     if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     cfg = ctx.cfg
-    window = cfg.sliding_window if kind == "attn_mlp_local" else None
+    if kind == "rwkv":
+        return _rwkv_layer(p, x, ctx, cache)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, kv = _self_attention(p["attn"], h, ctx, kv, window)
+    if kind in MAMBA_KINDS:
+        st = cache if cache is not None else \
+            mam.zero_state(cfg, x.shape[0], x.dtype, x.device)
+        step = mam.mamba_mix_step if ctx.mode == "decode" else mam.mamba_mix
+        y, st = step(p["mamba"], h, cfg, st)
+        cache = st if cache is not None else None
+    else:
+        window = cfg.sliding_window if kind == "attn_mlp_local" else None
+        y, cache = _self_attention(p["attn"], h, ctx, cache, window)
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind == "attn_moe":
-        return x + moe_ffn(p["moe"], h, cfg), kv
-    return x + glu_mlp(p["mlp"], h, cfg.act), kv
+    if kind in ("attn_moe", "mamba_moe"):
+        return x + moe_ffn(p["moe"], h, cfg), cache
+    return x + glu_mlp(p["mlp"], h, cfg.act), cache

@@ -2,11 +2,12 @@
 embedding -> first dense layers -> blocks (a Python loop) -> final norm ->
 head.
 
-The cache is a list with one :class:`PagedKV` per layer in
-``cfg.layer_kinds()`` order (``first_k_dense`` layers first), in the global
-or the per-slot layout, chosen per layer (the JAX package keeps the first
-layers' under ``"first"`` and stacks the blocks' under a leading
-``(n_blocks,)`` axis).
+The cache is a list with one entry per layer in ``cfg.layer_kinds()``
+order (``first_k_dense`` layers first): a :class:`PagedKV` for an attention
+layer, in the global or the per-slot layout, chosen per layer, or a
+per-slot recurrent state, :class:`RWKVState` or :class:`MambaState`, for a
+recurrent one (the JAX package keeps the first layers' under ``"first"``
+and stacks the blocks' under a leading ``(n_blocks,)`` axis).
 
   init_cache(cfg, batch, max_len, page_size, global_pages=None, device)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
@@ -14,17 +15,20 @@ layers' under ``"first"`` and stacks the blocks' under a leading
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.blocks import FwdCtx, apply_layer
 from repro_torch.models.layers import embed, logits_fn, rmsnorm
-from repro_torch.models.params import resolve_device, torch_dtype
+from repro_torch.models.params import (MAMBA_KINDS, resolve_device,
+                                       torch_dtype)
 
-Cache = List[attn.PagedKV]
+Cache = List[Union[attn.PagedKV, rwkv.RWKVState, mam.MambaState]]
 
 
 def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
@@ -46,7 +50,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     layer, and every layer without ``global_pages``, gets per-slot pools
     (batch, n_pages, page, Hkv, D) with identity tables: a sliding-window
     layer's is a ring of ``ceil(window / page)`` pages, which needs no
-    dynamic paging.
+    dynamic paging. A recurrent layer gets its zero state, one row a slot,
+    in the shapes and dtypes of the reference's ``rwkv_state_specs`` and
+    ``mamba_state_specs``.
     """
     dev = resolve_device(device)
     dt = torch_dtype(cfg.activation_dtype)
@@ -54,6 +60,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     max_pages = -(-max_len // page_size)
     cache = []
     for kind in cfg.layer_kinds():
+        if kind == "rwkv":
+            cache.append(rwkv.zero_state(cfg, batch, dt, dev))
+            continue
+        if kind in MAMBA_KINDS:
+            cache.append(mam.zero_state(cfg, batch, dt, dev))
+            continue
         cap = layer_capacity(cfg, kind, max_len)
         if global_pages is not None and cap == max_len:
             shape = (global_pages, *tail)
@@ -71,10 +83,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     return cache
 
 
+def is_state(entry) -> bool:
+    """Whether a cache entry is a recurrent layer's state (an RWKVState or
+    a MambaState) rather than an attention layer's PagedKV."""
+    return not isinstance(entry, attn.PagedKV)
+
+
+def per_slot(entry) -> bool:
+    """Whether an entry holds one row a slot (a recurrent state, or
+    per-slot pools such as a sliding-window ring) rather than a view of the
+    shared global pool."""
+    return is_state(entry) or not attn.is_global_layout(entry)
+
+
+def fresh_rows(entry, nb: int):
+    """``nb`` zero rows of a per-slot entry: a state's zero leaves, or zero
+    pools with identity tables and lengths 0."""
+    if is_state(entry):
+        return type(entry)(*(t.new_zeros((nb, *t.shape[1:])) for t in entry))
+    n_pages = entry.block_table.shape[-1]
+    shape = (nb, *entry.k_pool.shape[1:])
+    return attn.PagedKV(
+        entry.k_pool.new_zeros(shape), entry.v_pool.new_zeros(shape),
+        torch.arange(n_pages, dtype=torch.int32,
+                     device=entry.block_table.device).expand(nb, n_pages),
+        entry.length.new_zeros(nb))
+
+
+def scatter_rows(entry, rows, slots: torch.Tensor) -> None:
+    """Write the first ``len(slots)`` rows of ``rows`` (the entry as a
+    prefill returned it) to ``slots`` of a per-slot entry, in place."""
+    n = slots.shape[0]
+    pairs = (zip(entry, rows) if is_state(entry) else
+             ((entry.k_pool, rows.k_pool), (entry.v_pool, rows.v_pool)))
+    for dst, src in pairs:
+        dst[slots] = src[:n]
+
+
+def install(entry, tables: Optional[torch.Tensor], lengths: torch.Tensor):
+    """A PagedKV pointed at ``tables`` (B, P) (None: its own) and
+    ``lengths``; a recurrent state passes through."""
+    if is_state(entry):
+        return entry
+    if tables is None:
+        return entry._replace(length=lengths)
+    return entry._replace(block_table=tables, length=lengths)
+
+
 def set_cache_length(cache: Cache, length) -> Cache:
-    """``length``: scalar or (B,) per-sequence lengths."""
+    """``length``: scalar or (B,) per-sequence lengths; recurrent states
+    pass through."""
     out = []
     for kv in cache:
+        if is_state(kv):
+            out.append(kv)
+            continue
         ln = torch.as_tensor(length, device=kv.length.device)
         out.append(kv._replace(length=torch.broadcast_to(ln, kv.length.shape)
                                .to(kv.length.dtype)))
@@ -83,8 +146,9 @@ def set_cache_length(cache: Cache, length) -> Cache:
 
 def install_tables(cache: Cache, tables: torch.Tensor,
                    lengths: torch.Tensor) -> Cache:
-    """Point every layer's PagedKV at ``tables`` (B, P) and ``lengths``."""
-    return [kv._replace(block_table=tables, length=lengths) for kv in cache]
+    """Point every layer's PagedKV at ``tables`` (B, P) and ``lengths``;
+    recurrent states pass through."""
+    return [install(kv, tables, lengths) for kv in cache]
 
 
 def layers(cfg: ModelConfig, params) -> List[Tuple[str, dict]]:

@@ -1,15 +1,19 @@
 """Parameter specs and initialization for the port (no JAX dtypes).
 
 A spec walk over the same tree the JAX package builds
-(``repro/models/params.py``, ``layers.py``, ``attention.py``,
-``model.py::model_specs``): the same shapes, the same initializers
-(``normal * fan_in**-0.5`` with ``fan_in = shape[-2]``, ``ones``, ``zeros``),
-the 0.02 embedding scale and the 1/sqrt(2L) residual damping of ``wo`` and
-every ``w_down`` (an MoE layer's experts' and shared expert's too). Every
-leaf takes ``cfg.param_dtype`` but where its spec names a dtype: an MoE
-router is float32 whatever the parameters' dtype, as the reference's. The
-port keeps its blocks as a list of per-block dicts instead of one stacked
-tree (and ``first_k_dense`` dense layers under ``"first"``, as the
+(``repro/models/params.py``, ``layers.py``, ``attention.py``, ``rwkv6.py``,
+``mamba.py``, ``model.py::model_specs``): the same shapes, the same
+initializers (``normal * fan_in**-0.5`` with ``fan_in = shape[-2]``,
+``uniform_pm``: uniform in +-scale, ``ones``, ``zeros``), the 0.02
+embedding scale and the 1/sqrt(2L) residual damping of the reference's
+``_residual_init_damping`` (every ``wo``, ``w_down`` and ``out_proj``:
+attention's, rwkv time-mix's, an MoE layer's experts' and shared
+expert's, mamba's). Every leaf takes ``cfg.param_dtype`` but where its
+spec names a dtype: an MoE router, rwkv's decay (``w0``, ``w_lora_b``),
+bonus (``u``) and group-norm weight, and mamba's ``A_log``, ``dt_bias``
+and ``D`` are float32 whatever the parameters' dtype, as the reference's.
+The port keeps its blocks as a list of per-block dicts instead of one
+stacked tree (and ``first_k_dense`` dense layers under ``"first"``, as the
 reference); ``from_jax_params`` converts a JAX parameter tree (as numpy
 leaves) into that form.
 """
@@ -25,16 +29,24 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# attn_mlp_local (a sliding-window layer) has the same leaves as attn_mlp;
-# attn_moe has the same attention and an MoE FFN (models/moe.py).
-SERVED_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe")
+# attn_mlp_local (a sliding-window layer) and jamba's attn have the same
+# leaves as attn_mlp; attn_moe has the same attention and an MoE FFN
+# (models/moe.py); rwkv a time mix and a channel mix (models/rwkv6.py);
+# mamba and mamba_moe mamba's selective SSM (models/mamba.py) before a GLU
+# MLP or an MoE FFN.
+SERVED_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe", "attn", "rwkv",
+                "mamba", "mamba_moe")
+MAMBA_KINDS = ("mamba", "mamba_moe")
+# layers that keep a per-slot state (scanned left to right) instead of KV
+RECURRENT_KINDS = MAMBA_KINDS + ("rwkv",)
 
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"            # normal | zeros | ones
-    scale: Optional[float] = None   # None -> 1/sqrt(fan_in)
+    init: str = "normal"            # normal | zeros | ones | uniform_pm
+    scale: Optional[float] = None   # normal: None -> 1/sqrt(fan_in);
+                                    # uniform_pm: the half-width
     dtype: Optional[str] = None     # None -> cfg.param_dtype
 
     def fan_in(self) -> int:
@@ -77,19 +89,32 @@ def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   f"(the port serves {SERVED_KINDS})")
     d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
-    attn = {"wq": ParamSpec((d, hq, dh)), "wk": ParamSpec((d, hkv, dh)),
-            "wv": ParamSpec((d, hkv, dh)), "wo": residual((hq, dh, d), damp)}
-    if cfg.qkv_bias:
-        attn["bq"] = ParamSpec((hq, dh), "zeros")
-        attn["bk"] = ParamSpec((hkv, dh), "zeros")
-        attn["bv"] = ParamSpec((hkv, dh), "zeros")
-    if cfg.act == "relu":
-        raise NotImplementedError("the 2-layer relu MLP is not ported")
-    out = {"ln1": ParamSpec((d,), "ones"), "attn": attn,
-           "ln2": ParamSpec((d,), "ones")}
-    if kind == "attn_moe":
+    out: Dict[str, Any] = {"ln1": ParamSpec((d,), "ones")}
+    if kind == "rwkv":                 # no MLP: the channel mix is its FFN
+        from repro_torch.models.rwkv6 import (rwkv_channel_mix_specs,
+                                              rwkv_time_mix_specs)
+        out["tm"] = rwkv_time_mix_specs(cfg, damp)
+        out["ln2"] = ParamSpec((d,), "ones")
+        out["cm"] = rwkv_channel_mix_specs(cfg)
+        return out
+    if kind in MAMBA_KINDS:
+        from repro_torch.models.mamba import mamba_specs
+        out["mamba"] = mamba_specs(cfg, damp)
+    else:
+        attn = {"wq": ParamSpec((d, hq, dh)), "wk": ParamSpec((d, hkv, dh)),
+                "wv": ParamSpec((d, hkv, dh)),
+                "wo": residual((hq, dh, d), damp)}
+        if cfg.qkv_bias:
+            attn["bq"] = ParamSpec((hq, dh), "zeros")
+            attn["bk"] = ParamSpec((hkv, dh), "zeros")
+            attn["bv"] = ParamSpec((hkv, dh), "zeros")
+        out["attn"] = attn
+    out["ln2"] = ParamSpec((d,), "ones")
+    if kind in ("attn_moe", "mamba_moe"):
         from repro_torch.models.moe import moe_specs
         out["moe"] = moe_specs(cfg, damp)
+    elif cfg.act == "relu":
+        raise NotImplementedError("the 2-layer relu MLP is not ported")
     else:
         out["mlp"] = glu_specs(d, cfg.d_ff, damp)
     return out
@@ -98,9 +123,10 @@ def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """{"embed": {"table"[, "head"]}, "final_ln", ["first": {"0": dense
     layer, ...},] "blocks": [per-block {"0": layer, ...}]} of ParamSpecs."""
-    if cfg.is_encdec or cfg.n_image_tokens or cfg.ssm is not None:
+    if cfg.is_encdec or cfg.n_image_tokens:
         raise NotImplementedError(f"{cfg.name}: only decoders of "
-                                  f"{SERVED_KINDS} layers are ported")
+                                  f"{SERVED_KINDS} layers are ported "
+                                  "(no encoder, cross-attention or images)")
     damp = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     embed = {"table": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 0.02)}
     if not cfg.tie_embeddings:
@@ -144,6 +170,10 @@ def materialize(specs, cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(s.shape, dtype=dt, device=dev)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dt, device=dev)
+        if s.init == "uniform_pm":
+            u = torch.rand(s.shape, generator=generator, dtype=torch.float32,
+                           device=dev)
+            return ((u * 2 - 1) * s.scale).to(dt)
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return (w * s.std()).to(dt)

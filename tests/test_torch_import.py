@@ -24,7 +24,8 @@ COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "configs/qwen2_7b.py",
           "core/sva/kv_manager.py", "core/serving/sequence_buffer.py",
           "core/serving/scheduler.py", "configs/deployment.py",
           "core/serving/disagg/workers.py", "core/serving/disagg/__init__.py",
-          "configs/olmoe_1b_7b.py", "configs/kimi_k2_1t_a32b.py")
+          "configs/olmoe_1b_7b.py", "configs/kimi_k2_1t_a32b.py",
+          "configs/rwkv6_3b.py", "configs/jamba_1_5_large_398b.py")
 
 
 def test_import_all_submodules_without_jax():
@@ -70,7 +71,8 @@ def test_copied_module_matches_original(rel):
 def test_registry_serves_only_ported_archs():
     from repro_torch.configs import ARCH_IDS, get_config
     assert ARCH_IDS == ("llama3.2-1b", "gemma2-2b", "llama3.2-3b", "qwen2-7b",
-                        "olmoe-1b-7b", "kimi-k2-1t-a32b")
+                        "olmoe-1b-7b", "kimi-k2-1t-a32b", "rwkv6-3b",
+                        "jamba-1.5-large-398b")
     assert [get_config(a).name for a in ARCH_IDS] == list(ARCH_IDS)
     with pytest.raises(KeyError):
-        get_config("rwkv6-3b")
+        get_config("seamless-m4t-medium")

@@ -16,6 +16,14 @@ With wq and wk scaled by 0.1 the same move stays below 0.05. At the
 smoke widths all four archs read chaotic; the gain depends on width too,
 so ``chip_smoke.py`` phase 3e reads it on the card at full width
 (``sensitivity``) and chooses its end-to-end checks by it.
+
+The recurrent archs differ. rwkv6-3b has no attention and is not chaotic
+at full depth, so phase 3g serves it as built and gates its end-to-end
+checks. jamba's five-layer cut (phase 3g's) is chaotic as built, and with
+wq and wk scaled it still reads above 0.05 (the scaling leaves its four
+mamba layers and its expert routing as they were). So phase 3g's first-
+token check holds each jamba request whose serve prefill made the B=1
+prefill's expert choices, and reads the rest beside their flipped choices.
 """
 import dataclasses
 
@@ -37,7 +45,9 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models.params import model_specs  # noqa: E402
 
 ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b")
-SPEC_ARCHS = ARCHS + ("olmoe-1b-7b", "kimi-k2-1t-a32b")
+RWKV, JAMBA = "rwkv6-3b", "jamba-1.5-large-398b"
+SPEC_ARCHS = ARCHS + ("olmoe-1b-7b", "kimi-k2-1t-a32b", RWKV, JAMBA)
+JAMBA_CUT = 5           # chip_smoke.py phase 3g's cut of jamba's period
 CHAOTIC = 0.5           # chip_smoke.py's threshold of the same name
 QK_SCALE = 0.1
 STABLE = 0.05
@@ -58,41 +68,93 @@ def _j_leaves(tree, path=()):
             yield from _j_leaves(v, path + (k,))
 
 
-def _flat(tree, path=()):
-    """{path: (shape, init kind, std or None)} of the port's specs."""
+def _flat(tree, cfg, path=()):
+    """{path: (shape, init kind, std (normal) or half-width (uniform_pm) or
+    None, dtype name)} of the port's specs."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            out.update(_flat(v, path + (k,)))
+            out.update(_flat(v, cfg, path + (k,)))
         return out
-    std = tree.std() if tree.init == "normal" else None
-    return {path: (tuple(tree.shape), tree.init, std)}
+    std = tree.std() if tree.init in ("normal", "uniform_pm") else None
+    return {path: (tuple(tree.shape), tree.init, std,
+                   str(tree.torch_dtype(cfg)).split(".")[-1])}
 
 
-@pytest.mark.parametrize("arch", SPEC_ARCHS)
-def test_init_distribution_equals_reference(arch):
-    """Full-size specs: every leaf's shape, init kind and std agree."""
-    cfg, tcfg = get_config(arch), tconfigs.get_config(arch)
+def _ref_flat(cfg):
+    """The same of the reference's specs, the blocks unstacked."""
     ref = {}
     for path, s in _j_leaves(j_model_specs(cfg)):
         shape = s.shape[1:] if path[0] == "blocks" else s.shape
         assert path[0] != "blocks" or s.shape[0] == cfg.n_blocks
         std = (s.scale if s.scale is not None else s.fan_in() ** -0.5) \
-            if s.init == "normal" else None
-        ref[path] = (tuple(shape), s.init, std)
-    specs = model_specs(tcfg)
-    blocks = specs.pop("blocks")
-    assert len(blocks) == tcfg.n_blocks
-    assert all(_flat(b) == _flat(blocks[0]) for b in blocks)
-    got = {**_flat(specs), **_flat(blocks[0], ("blocks",))}
+            if s.init in ("normal", "uniform_pm") else None
+        ref[path] = (tuple(shape), s.init, std, jnp.dtype(s.dtype).name)
+    return ref
+
+
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_init_distribution_equals_reference(arch):
+    """Full-size specs: every leaf's shape, init kind, std (or uniform
+    half-width) and dtype agree."""
+    cfg, tcfg = get_config(arch), tconfigs.get_config(arch)
+    ref = _ref_flat(cfg)
+    got = _port_flat(tcfg)
     assert set(got) == set(ref)
     for p in ref:
         assert got[p][:2] == ref[p][:2], p
+        assert got[p][3] == ref[p][3], p
         if ref[p][2] is not None:
             assert got[p][2] == pytest.approx(ref[p][2], rel=1e-12), p
     # the heads axis is the fan-in of wq: std heads**-0.5, not d_model**-0.5
-    wq = got[("blocks", "0", "attn", "wq")]
-    assert wq[2] == pytest.approx(cfg.n_heads ** -0.5)
+    attn = [p for p in got if p[-2:] == ("attn", "wq")]
+    assert attn or arch == RWKV
+    for p in attn:
+        assert got[p][2] == pytest.approx(cfg.n_heads ** -0.5)
+
+
+def _port_flat(tcfg):
+    specs = model_specs(tcfg)
+    blocks = specs.pop("blocks")
+    assert len(blocks) == tcfg.n_blocks
+    assert all(_flat(b, tcfg) == _flat(blocks[0], tcfg) for b in blocks)
+    return {**_flat(specs, tcfg), **_flat(blocks[0], tcfg, ("blocks",))}
+
+
+@pytest.mark.parametrize("arch,damped,fp32,uniform", [
+    (RWKV, {("tm", "wo")}, {("tm", k) for k in ("w0", "w_lora_b", "u",
+                                                 "ln_w")},
+     {("tm", "mu"): 0.5, ("tm", "w0"): 1.0, ("tm", "u"): 0.5,
+      ("cm", "mu_k"): 0.5, ("cm", "mu_r"): 0.5}),
+    (JAMBA, {("attn", "wo"), ("mlp", "w_down"), ("moe", "w_down"),
+             ("mamba", "out_proj")},
+     {("moe", "router")} | {("mamba", k) for k in ("dt_bias", "A_log", "D")},
+     {("mamba", "dt_bias"): 4.0, ("mamba", "A_log"): 1.0})])
+def test_recurrent_leaves(arch, damped, fp32, uniform):
+    """Full size, bf16 parameters: the leaves whose std is damped by
+    1/sqrt(2L) (rwkv's channel-mix wv is not: the reference damps only
+    wo, w_down, w2 and out_proj), the float32 leaves and the uniform_pm
+    half-widths, over every layer of a block."""
+    tcfg = tconfigs.get_config(arch)
+    assert tcfg.param_dtype == "bfloat16"
+    got = _port_flat(tcfg)
+    damp = (2.0 * tcfg.n_layers) ** -0.5
+    layer = lambda p: p[2:] if p[0] == "blocks" else None
+    assert damped == {layer(p) for p, (shape, init, std, _) in got.items()
+                      if p[0] == "blocks" and init == "normal"
+                      and std != pytest.approx(_undamped(shape))}
+    for p, (shape, init, std, dt) in got.items():
+        if layer(p) in damped:
+            assert std == pytest.approx(_undamped(shape) * damp), p
+        assert (dt == "float32") == (layer(p) in fp32), p
+        if init == "uniform_pm":
+            assert std == uniform[layer(p)], p
+    assert {layer(p) for p in got if got[p][1] == "uniform_pm"} == \
+        set(uniform)
+
+
+def _undamped(shape):
+    return shape[-2] ** -0.5 if len(shape) > 1 else shape[-1] ** -0.5
 
 
 def _sensitivity(cfg, params, qk_scale=1.0, S=64, B=2):
@@ -126,3 +188,28 @@ def test_reference_init_is_chaotic_at_full_depth(arch):
     params = j_init_params(cfg, jax.random.key(0))
     assert _sensitivity(cfg, params) >= CHAOTIC
     assert _sensitivity(cfg, params, QK_SCALE) < STABLE
+
+
+def _cut(arch, n_layers=None, pattern=None):
+    """Smoke widths at ``n_layers`` (the full config's by default) over
+    ``pattern`` (the config's by default)."""
+    full = get_config(arch)
+    pattern = pattern or full.block_pattern
+    return dataclasses.replace(reduce_for_smoke(full),
+                               n_layers=n_layers or full.n_layers,
+                               block_pattern=pattern)
+
+
+def test_recurrent_sensitivity_at_smoke_widths():
+    """What phase 3g's (a) reads on the card, at smoke widths: rwkv6 at
+    full depth is not chaotic (served as built); jamba's cut is chaotic as
+    built and, q/k-scaled, still above STABLE."""
+    rwkv = _cut(RWKV)
+    assert rwkv.n_layers == 32
+    assert _sensitivity(rwkv, j_init_params(rwkv, jax.random.key(0))) \
+        < CHAOTIC
+    full = get_config(JAMBA)
+    cut = _cut(JAMBA, JAMBA_CUT, full.block_pattern[:JAMBA_CUT])
+    params = j_init_params(cut, jax.random.key(0))
+    assert _sensitivity(cut, params) >= CHAOTIC
+    assert _sensitivity(cut, params, QK_SCALE) >= STABLE
