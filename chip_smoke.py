@@ -25,7 +25,19 @@ Phases (each prints one line; any failure exits non-zero):
      jamba's attention layer (64 query heads over 8 KV heads, G = 8, D
      128): its global and per-slot decode rows, its prefill (8 x 512)
      timed on the wgmma kernel, and held against the plain version at each
-     exact-length prefill shape of phase 3g's serves. The
+     exact-length prefill shape of phase 3g's serves. Flash without the
+     causal mask at phase 3h's shapes, timed: seamless's encoder (8 x
+     3072, 16/16, D 64), its cross prefill (8 x 512 over 3072) and its
+     cross decode (one query row over 3072), llama-vision's cross prefill
+     (8 x 512 over 4096 image tokens, 64/8, D 128) and its cross decode
+     (one row over 4096); and held against the plain version where fewer
+     query rows than one tile (Sq 1 to 33) reach either kernel and at every
+     prefill shape of phase 3h's serves (the zero-copy bucket, each
+     prompt's length at B 1, seamless's encoder at B 8 and 1). Flash is
+     held to the smaller of the dtype's limit and 2e-2 of the plain
+     output's largest value; every non-causal case over more than one KV
+     tile also shows that the plain version with one tile of keys dropped
+     misses that limit. The
      MoE FFN (no kernel of its own: batched matmuls) at olmoe's full width
      in bf16, index dispatch against the reference's one-hot einsums on a
      decode batch of 8 tokens and a right-padded prefill of 8 x 512: keep
@@ -87,9 +99,26 @@ Phases (each prints one line; any failure exits non-zero):
      request whose serve prefill chose the B=1 prefill's experts in every
      MoE layer; where one choice flipped, a reading beside the count of
      flipped tokens.
+  3h. the cross-attention models (bf16, random seeded weights, every
+     cross gate at 1.0, where the reference draws 0): seamless-m4t-medium
+     as get_config gives it (a 12-layer encoder over 3072 frames, the
+     reference's stub, and 12 cross_mlp decoder layers; ~1.6 GiB) and
+     llama-vision at full width on its first two periods (8 attn_mlp, 2
+     xattn_mlp over 4096 image tokens; ~20 GiB; all 100 layers are ~175
+     GB). Per arch: (a) decode against prefill layer by layer and end to
+     end (where not chaotic) over random encoder input or image
+     embeddings; (b) a zero-copy serve of phase 3's requests, then copy,
+     copy, zero-copy in turns (the engine feeds a zero source, as the
+     reference's): one global (copy: per-slot) decode a self-attention
+     layer a step, one flash a cross layer a step (the cross decode, Sq 1)
+     and one an encoder, self- and cross-attention layer a prefill call
+     (seamless 12 and 36, the vision cut 2 and 10), and each serve's peak
+     GiB past what earlier phases keep resident; (c) each request's
+     first-token logits within 5e-2 of a B=1 prefill.
   4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b, gemma2-2b,
-     olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b and jamba (fp32) served on cuda
-     and on cpu over
+     olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b, jamba, seamless-m4t-medium
+     and llama-vision (at src_len 8, its smoke image tokens) (fp32) served
+     on cuda and on cpu over
      the same seeded workload, in zero_copy and (but gemma2, which must
      refuse it) in copy mode; then llama3.2-1b, qwen2-7b and olmoe by the
      continuous engine (a pool of 8 pages: it preempts) and the
@@ -151,6 +180,11 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
               torch.float32: 67e12}     # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Flash is also held to this share of its plain output's largest value,
+# where that is the tighter limit: a long non-causal softmax is nearly
+# flat, so its outputs are small (about sqrt(e / Skv) for random inputs).
+FLASH_REL_TOL = 2e-2
+FLASH_KV_TILE = 64      # the wgmma kernel's KV rows a tile (kBKW)
 SMOKE_POOL = 8          # phase 4's tight pool (tests/conformance.py's POOL)
 # Decode/prefill shapes of the full-width serve below.
 HQ, HKV, D, PAGE = 32, 8, 64, 16
@@ -343,7 +377,7 @@ def _flash_flops(B, Sq, Skv, Hq, D, causal, window, q_offset):
 DECODE_LONG = [("global", 32, 32, 8, 64, 4096),
                ("global", 16, 28, 4, 128, 8192),
                ("slot", 32, 32, 8, 64, 4096)]
-# The decode kernels at phase 3e's serving shapes, bf16: (arch, layout, B,
+# The decode kernels at phases 3e-3h's serving shapes, bf16: (arch, layout, B,
 # Hq, Hkv, D, pages a row, softcap, lowest and highest length). Global: a
 # pool of B x pages-a-row pages behind random tables, NULL past each row's
 # length, as the serve's tables are. Per-slot: gemma2's rings of 256 pages,
@@ -362,7 +396,14 @@ DECODE_ARCHS = [("qwen2-7b", "global", 8, 28, 4, 128, 64, None, 185, 513),
                 ("jamba-1.5-large-398b", "global", 8, 64, 8, 128, 64, None,
                  100, 543),
                 ("jamba-1.5-large-398b", "slot", 8, 64, 8, 128, 64, None,
-                 100, 543)]
+                 100, 543),
+                # phase 3h's seamless decoder: MHA 16/16, D 64; global and
+                # per-slot (llama-vision's self-attention has jamba's
+                # shape, held above)
+                ("seamless-m4t-medium", "global", 8, 16, 16, 64, 64, None,
+                 185, 513),
+                ("seamless-m4t-medium", "slot", 8, 16, 16, 64, 64, None,
+                 185, 513)]
 DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
 
 
@@ -685,7 +726,16 @@ FLASH_CASES = [(2, 100, 100, 8, 2, 64, True, None, 30.0, 0),
                (2, 100, 164, 8, 2, 64, True, None, None, 64),
                (2, 96, 96, 4, 4, 64, False, None, None, 0),
                (2, 80, 80, 4, 2, 16, True, 24, 20.0, 0),
-               (1, 70, 90, 4, 1, 32, True, None, None, 20)]
+               (1, 70, 90, 4, 1, 32, True, None, None, 20),
+               # fewer query rows than a tile: cross-attention's decode
+               # (Sq = 1, non-causal) over sources shorter and longer than
+               # a KV tile (phase 4's smoke: 16 or 8 keys at D 16), and a
+               # few causal rows with an offset
+               (4, 1, 16, 4, 4, 16, False, None, None, 0),
+               (4, 1, 8, 4, 2, 16, False, None, None, 0),
+               (3, 1, 200, 8, 2, 64, False, None, None, 0),
+               (2, 5, 100, 4, 2, 64, False, None, None, 0),
+               (1, 33, 70, 4, 2, 32, True, None, None, 37)]
 FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     (1, 130, 130, 4, 4, 128, False, None, None, 0),
                     (2, 77, 141, 4, 2, 256, True, 48, 50.0, 64),
@@ -693,19 +743,34 @@ FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     # phase 3e's prefills: llama3.2-3b's bucket of 512,
                     # gemma2's local layers at its bucket of 8192
                     (8, 512, 512, 24, 8, 128, True, None, None, 0),
-                    (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, 0)]
-# (bf16 also runs phase 3g's jamba prefills: _jamba_prefill_cases)
-# Timed shapes (B, Sq, Skv, Hq, Hkv, D), causal: the serve's prefill, then
+                    (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, 0),
+                    # Sq < 64 on the wgmma kernel at D 128 and 256: the
+                    # 128-row TMA box of q reads zeros past Sq
+                    (2, 1, 77, 8, 1, 128, False, None, None, 0),
+                    (2, 5, 100, 4, 2, 256, False, None, None, 0),
+                    (1, 17, 9, 4, 4, 128, False, None, None, 0)]
+# (bf16 also runs phase 3g's jamba prefills, _jamba_prefill_cases, and
+# phase 3h's, _cross_prefill_cases)
+# Timed shapes (B, Sq, Skv, Hq, Hkv, D, causal): the serve's prefill, then
 # llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
 # without its softcap: SDPA has none), then olmoe-1b-7b's prefill of phase
 # 3f (8 x 512, 16/16, D 128) and jamba's of phase 3g (8 x 512, 64/8, D
-# 128). bf16; the first also in fp32.
-FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D),
-               (1, 4096, 4096, 32, 8, 64),
-               (1, 4096, 4096, 28, 4, 128),
-               (1, 4096, 4096, 8, 4, 256),
-               (8, 512, 512, 16, 16, 128),
-               (8, 512, 512, 64, 8, 128)]
+# 128); then phase 3h's non-causal shapes: seamless's encoder (8 x 3072,
+# 16/16, D 64), its cross prefill (8 x 512 over 3072) and its cross decode
+# (Sq 1 over 3072), llama-vision's cross prefill (8 x 512 over 4096 image
+# tokens, 64/8, D 128) and its cross decode (Sq 1 over 4096). bf16; the
+# first also in fp32.
+FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D, True),
+               (1, 4096, 4096, 32, 8, 64, True),
+               (1, 4096, 4096, 28, 4, 128, True),
+               (1, 4096, 4096, 8, 4, 256, True),
+               (8, 512, 512, 16, 16, 128, True),
+               (8, 512, 512, 64, 8, 128, True),
+               (8, 3072, 3072, 16, 16, 64, False),
+               (8, 512, 3072, 16, 16, 64, False),
+               (8, 1, 3072, 16, 16, 64, False),
+               (8, 512, 4096, 64, 8, 128, False),
+               (8, 1, 4096, 64, 8, 128, False)]
 
 
 def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
@@ -713,8 +778,13 @@ def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
     return mk(B, Sq, Hq, Dh), mk(B, Skv, Hkv, Dh), mk(B, Skv, Hkv, Dh)
 
 
-def _flash_check(q, k, v, kw) -> float:
-    """Kernel against its plain version; returns the max abs error."""
+def _flash_check(q, k, v, kw) -> dict:
+    """Kernel against its plain version: the max abs error, and the limit
+    it is held to, the smaller of TOL[dtype] and FLASH_REL_TOL of the plain
+    output's largest value. Where a non-causal call spans more than one KV
+    tile, the plain version with its first tile of keys dropped must miss
+    that limit (``drop_err``): the limit would catch a kernel that skipped
+    a tile."""
     from repro_torch.kernels import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ops import kernel_for
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -723,11 +793,20 @@ def _flash_check(q, k, v, kw) -> float:
     ref = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = min(TOL[q.dtype], FLASH_REL_TOL * ref_max)
     want = kernel_for(q.dtype, q.shape[-1]) == "wgmma"
     assert flash_attention_fwd.wgmma_launches == wgmma + want, "wgmma count"
     assert torch.isfinite(out).all(), "flash kernel: non-finite"
-    assert err <= TOL[q.dtype], f"flash {q.dtype} {kw} {tuple(q.shape)}: {err}"
-    return err
+    where = f"flash {q.dtype} {kw} {tuple(q.shape)} over {k.shape[1]}"
+    assert err <= tol, f"{where}: err {err} > {tol}"
+    row = dict(max_abs_err=err, tol=tol, ref_max=ref_max)
+    if not kw["causal"] and k.shape[1] > FLASH_KV_TILE:
+        drop = flash_attention_ref(q, k[:, FLASH_KV_TILE:],
+                                   v[:, FLASH_KV_TILE:], **kw)
+        row["drop_err"] = (drop.float() - ref.float()).abs().max().item()
+        assert row["drop_err"] > tol, f"{where}: a dropped tile passes {row}"
+    return row
 
 
 def _jamba_prefill_cases() -> list:
@@ -745,20 +824,48 @@ def _jamba_prefill_cases() -> list:
              None, 0) for B, L in sorted(shapes)]
 
 
+def _cross_prefill_cases() -> list:
+    """Phase 3h's prefills as flash takes them, for each arch at its
+    width over its source (``_src_len``): the zero-copy serve's one call,
+    its 8 requests padded to the engine's bucket (self-attention causal,
+    cross-attention over the source); each request's exact length at B 1
+    (copy mode, and the first-token check), both alike; and seamless's
+    encoder over the source at B 8 and B 1, non-causal."""
+    cases = set()
+    for arch in CROSS_ATTN_ARCHS:
+        cfg = _cross_arch_cfg(arch)
+        src = _src_len(cfg)
+        lens = [len(p) for p in requests(cfg.vocab_size,
+                                         np.random.default_rng(SEED))]
+        bucket = PAGE       # the engine's _bucket_len at max_len 1024
+        while bucket < max(lens):
+            bucket *= 2
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+        shapes = {(len(lens), bucket, bucket, True),
+                  (len(lens), bucket, src, False)}
+        for L in lens:
+            shapes |= {(1, L, L, True), (1, L, src, False)}
+        if cfg.is_encdec:
+            shapes |= {(len(lens), src, src, False), (1, src, src, False)}
+        cases |= {(B, Sq, Skv, *heads, causal, None,
+                   cfg.attn_softcap if causal else None, 0)
+                  for B, Sq, Skv, causal in shapes}
+    return sorted(cases, key=lambda c: c[:7])
+
+
 def _flash_cases() -> list:
     from repro_torch.kernels.flash_attention.ops import kernel_for
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    wide = FLASH_WIDE_CASES + _jamba_prefill_cases()
+    wide = FLASH_WIDE_CASES + _jamba_prefill_cases() + _cross_prefill_cases()
     for dtype in (torch.float32, torch.bfloat16):
         for (B, Sq, Skv, Hq, Hkv, Dh, causal, window, cap, qoff) in (
                 FLASH_CASES + (wide if dtype == torch.bfloat16 else [])):
             q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
-            err = _flash_check(q, k, v, kw)
             row = dict(dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
-                       D=Dh, kernel=kernel_for(dtype, Dh), max_abs_err=err,
-                       tol=TOL[dtype], **kw)
+                       D=Dh, kernel=kernel_for(dtype, Dh),
+                       **_flash_check(q, k, v, kw), **kw)
             emit("phase2 flash", **row)
             rows.append(row)
     return rows
@@ -797,12 +904,12 @@ def _flash_timed() -> list:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
-    for i, (B, Sq, Skv, Hq, Hkv, Dh) in enumerate(FLASH_TIMED):
+    for i, (B, Sq, Skv, Hq, Hkv, Dh, causal) in enumerate(FLASH_TIMED):
         for dtype in ((torch.float32, torch.bfloat16) if i == 0
                       else (torch.bfloat16,)):
             q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
-            kw = dict(causal=True, window=None, softcap=None, q_offset=0)
-            err = _flash_check(q, k, v, kw)
+            kw = dict(causal=causal, window=None, softcap=None, q_offset=0)
+            check = _flash_check(q, k, v, kw)
             kind = kernel_for(dtype, Dh)
             call = lambda: flash_attention_fwd(q, k, v, **kw)
             ms = cuda_ms(call)
@@ -816,13 +923,13 @@ def _flash_timed() -> list:
             kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
             vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
             sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+                qt, kt, vt, is_causal=causal))
             del qt, kt, vt
-            flops = _flash_flops(B, Sq, Skv, Hq, Dh, True, None, 0)
+            flops = _flash_flops(B, Sq, Skv, Hq, Dh, causal, None, 0)
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             bound, by = _bound(nbytes, flops, dtype)
             row = dict(dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
-                       D=Dh, kernel=kind, max_abs_err=err, ms=ms,
+                       D=Dh, causal=causal, kernel=kind, **check, ms=ms,
                        device_ms=dev, device_launches_recorded=dev_n,
                        plain_ms=plain, library_ms=sdpa,
                        bound_ms=bound, bound_by=by,
@@ -1228,7 +1335,8 @@ CONSISTENCY_S = {"llama3.2-1b": 1000, "qwen2-7b": 1000, "llama3.2-3b": 1000,
                  "gemma2-2b": 4500, "olmoe-1b-7b": 1000,
                  # S and S + 1 both lengths the reference's chunking takes:
                  # rwkv6 1023 = 31 x 33 and 1024 = 32 x 32; mamba one chunk
-                 "rwkv6-3b": 1023, "jamba-1.5-large-398b": 500}
+                 "rwkv6-3b": 1023, "jamba-1.5-large-398b": 500,
+                 "seamless-m4t-medium": 1000, "llama-3.2-vision-90b": 1000}
 LOGIT_REL = 5e-2        # max|d logits| / max|logit| in bf16
 LONG_MAX_LEN = 8192     # gemma2's serve: 4 slots of 512 pages
 # The reference's init draws wq and wk at std heads**-0.5 (its fan-in is
@@ -1252,14 +1360,13 @@ def _rel(out, ref) -> float:
 
 
 def _qk_scaled(params, scale: float = QK_SCALE):
-    """The same weights with every attention layer's wq and wk scaled (new
-    tensors for those two; every other leaf shared)."""
+    """The same weights with every attention's wq and wk scaled, self- and
+    cross-attention alike (new tensors for those two; every other leaf
+    shared)."""
     def layer(p):
-        if "attn" not in p:
-            return p
-        attn = dict(p["attn"], wq=p["attn"]["wq"] * scale,
-                    wk=p["attn"]["wk"] * scale)
-        return dict(p, attn=attn)
+        return dict(p, **{k: dict(p[k], wq=p[k]["wq"] * scale,
+                                  wk=p[k]["wk"] * scale)
+                          for k in ("attn", "xattn") if k in p})
     out = dict(params, blocks=[{k: layer(v) for k, v in blk.items()}
                                for blk in params["blocks"]])
     if "first" in params:
@@ -1267,10 +1374,45 @@ def _qk_scaled(params, scale: float = QK_SCALE):
     return out
 
 
+def _src_len(cfg) -> int:
+    """Rows of a cross-attention's source at full width: the image tokens,
+    or the reference's stubbed audio-frame count for an encoder-decoder."""
+    from repro_torch.models.model import ENCDEC_SRC_LEN
+    return cfg.n_image_tokens or ENCDEC_SRC_LEN
+
+
+def _cross_inputs(cfg, B: int, seed=None) -> dict:
+    """A prefill's image embeddings or encoder input for B rows of
+    ``_src_len(cfg)``: random from ``seed``, or zeros (as the engine feeds
+    them) without one; nothing for a decoder alone."""
+    from repro_torch.models.params import torch_dtype
+    if not (cfg.is_encdec or cfg.n_image_tokens):
+        return {}
+    shape = (B, _src_len(cfg), cfg.d_model)
+    if seed is None:
+        x = torch.zeros(shape, device="cuda")
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(shape, generator=g, device="cuda")
+    return {"img_x" if cfg.n_image_tokens else "enc_x":
+            x.to(torch_dtype(cfg.activation_dtype))}
+
+
+def _cross_x(cfg, params, B: int, seed: int):
+    """What a prefill's cross-attention attends over for random inputs
+    from ``seed`` (the encoder's output, or the image embeddings); None for
+    a decoder alone."""
+    from repro_torch.models.model import _cross_source
+    with torch.no_grad():
+        return _cross_source(cfg, params, _cross_inputs(cfg, B, seed))
+
+
 def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
     """rel of the last logits of a prefill of S tokens when each element
     of its embeddings moves by one part in 128 (a bf16 rounding step or
-    two): the model's own gain on a rounding difference."""
+    two): the model's own gain on a rounding difference. A cross-attention
+    arch attends over random image embeddings or encoder input, the same
+    in both prefills."""
     from repro_torch.models.blocks import FwdCtx, apply_layer
     from repro_torch.models.layers import logits_fn, rmsnorm
     from repro_torch.models.model import _embed_in, layers
@@ -1279,7 +1421,8 @@ def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
                          device="cuda")
     sign = torch.randint(0, 2, (B, S, cfg.d_model), generator=g,
                          device="cuda") * 2 - 1
-    ctx = FwdCtx(cfg=cfg, mode="prefill")
+    ctx = FwdCtx(cfg=cfg, mode="prefill",
+                 cross_x=_cross_x(cfg, params, B, SEED + 4))
     out = []
     with torch.no_grad():
         x0 = _embed_in(cfg, params, toks)
@@ -1293,15 +1436,16 @@ def _input_sensitivity(cfg, params, S: int, B: int = 2) -> float:
 
 def _serving_cache(cfg, S: int, B: int, seed: int):
     """B rows of S + 1 random tokens and, for their first S, the serving
-    layout (the global pool, and rings for sliding-window layers) with its
-    tables and lengths."""
+    layout (the global pool, and rings for sliding-window layers, cross K/V
+    of ``_src_len(cfg)`` rows) with its tables and lengths."""
     from repro_torch.models import init_cache
     g = torch.Generator(device="cuda").manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
                          device="cuda")
     n_pages = -(-(S + 1) // PAGE)
     cache = init_cache(cfg, B, n_pages * PAGE, PAGE,
-                       global_pages=B * n_pages, device="cuda")
+                       global_pages=B * n_pages, device="cuda",
+                       src_len=_src_len(cfg))
     tables = torch.arange(B * n_pages, dtype=torch.int32,
                           device="cuda").view(B, n_pages)
     lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
@@ -1315,50 +1459,59 @@ def _layerwise_decode_vs_prefill(cfg, params, S: int, B: int = 2) -> float:
     layout followed by one decode step of token S. Returns the largest
     rel of a layer's update (output minus input) at token S. No error
     carries from layer to layer, so this holds on weights whose
-    end-to-end output rounding scrambles."""
+    end-to-end output rounding scrambles. A cross-attention arch attends
+    over random image embeddings or encoder input in all three."""
     from repro_torch.core.serving.engine import (_build_prefill_view,
                                                  _install_tables,
                                                  _merge_prefill_view)
     from repro_torch.models.blocks import FwdCtx, apply_layer
-    from repro_torch.models.model import _embed_in, layers
+    from repro_torch.models.model import _embed_in, by_layer, flat, layers
     toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED + 1)
-    view = _build_prefill_view(cache, tables, lengths)
-    full = FwdCtx(cfg=cfg, mode="prefill")
-    pre = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths)
+    view = by_layer(cfg, _build_prefill_view(cache, tables, lengths))
+    cross_x = _cross_x(cfg, params, B, SEED + 5)
+    full = FwdCtx(cfg=cfg, mode="prefill", cross_x=cross_x)
+    pre = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths,
+                 cross_x=cross_x)
     dec = FwdCtx(cfg=cfg, mode="decode", q_offset=lengths)
     worst = 0.0
     with torch.no_grad():
-        x = _embed_in(cfg, params, toks)
+        xs = [_embed_in(cfg, params, toks)]     # each layer's input
         for li, (kind, p) in enumerate(layers(cfg, params)):
-            x_next, _ = apply_layer(kind, p, x, full, None)
-            # a recurrent layer returns its new state (a pool is written
-            # in place)
+            x = xs[-1]
+            # a recurrent state or a cross K/V comes back new (a pool is
+            # written in place)
             _, view[li] = apply_layer(kind, p, x[:, :S].contiguous(), pre,
                                       view[li])
-            _merge_prefill_view([cache[li]], [view[li]],
-                                torch.arange(B, device="cuda"))
-            kv = _install_tables([cache[li]], tables, lengths)[0]
-            y, _ = apply_layer(kind, p, x[:, S:].contiguous(), dec, kv)
-            worst = max(worst, _rel(y - x[:, S:], x_next[:, S:] - x[:, S:]))
-            x = x_next
+            xs.append(apply_layer(kind, p, x, full, None)[0])
+        _merge_prefill_view(cache, flat(cfg, view),
+                            torch.arange(B, device="cuda"))
+        kv = by_layer(cfg, _install_tables(cache, tables, lengths))
+        for li, (kind, p) in enumerate(layers(cfg, params)):
+            x, x_next = xs[li][:, S:], xs[li + 1][:, S:]
+            y, _ = apply_layer(kind, p, x.contiguous(), dec, kv[li])
+            worst = max(worst, _rel(y - x, x_next - x))
     return worst
 
 
 def _decode_vs_prefill(cfg, params, S: int, B: int = 2) -> dict:
     """forward_prefill of S tokens into the serving layout, then one
     forward_decode, against the last logits of a prefill of S + 1 tokens:
-    the card's tests/test_decode_consistency.py."""
+    the card's tests/test_decode_consistency.py (a cross-attention arch
+    with random image embeddings or encoder input)."""
     from repro_torch.core.serving.engine import (_build_prefill_view,
                                                  _install_tables,
                                                  _merge_prefill_view)
     from repro_torch.models import forward_decode, forward_prefill
     from repro_torch.models.model import is_state, per_slot
     toks, cache, tables, lengths = _serving_cache(cfg, S, B, SEED)
+    extra = _cross_inputs(cfg, B, SEED + 5)
     with torch.no_grad():
-        ref, _ = forward_prefill(cfg, params, {"tokens": toks}, None)
+        ref, _ = forward_prefill(cfg, params, {"tokens": toks, **extra},
+                                 None)
         view = _build_prefill_view(cache, tables, lengths)
         _, view = forward_prefill(cfg, params, {"tokens": toks[:, :S],
-                                                "lengths": lengths}, view)
+                                                "lengths": lengths, **extra},
+                                  view)
         _merge_prefill_view(cache, view, torch.arange(B, device="cuda"))
         dec, _ = forward_decode(cfg, params, toks[:, S:], lengths,
                                 _install_tables(cache, tables, lengths))
@@ -1443,7 +1596,9 @@ def _first_token_check(cfg, params, prompts, served_rows,
     table-driven (mixed-layout) prefill, where bf16 tokens cannot be
     compared. Returns (rels, flips): ``flips`` counts, a request, the
     (token, MoE layer) pairs whose expert set differs between the two
-    prefills (0 without MoE layers). With ``gate`` False a reading only."""
+    prefills (0 without MoE layers). With ``gate`` False a reading only.
+    A cross-attention arch's B=1 prefill takes the zero source the
+    engine's does."""
     from repro_torch.models import forward_prefill
     rels, flips = [], []
     for p in prompts:
@@ -1452,7 +1607,7 @@ def _first_token_check(cfg, params, prompts, served_rows,
         lg, choices = served[-1]
         with torch.no_grad(), _routes() as routes:
             ref, _ = forward_prefill(cfg, params, {"tokens": torch.tensor(
-                [p], device="cuda")}, None)
+                [p], device="cuda"), **_cross_inputs(cfg, 1)}, None)
         rels.append(_rel(lg, ref[0, -1]))
         flips.append(sum(int((c != r[-len(c):]).any(-1).sum())
                          for c, r in zip(choices, routes)))
@@ -1467,7 +1622,7 @@ def _long_requests(vocab: int, rng, n: int = 4, lo: int = 4500,
 
 
 def _dense_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
-                 offload_mode="zero_copy") -> tuple:
+                 offload_mode="zero_copy", **engine_kw) -> tuple:
     """One fixed-scheduler serve at full width with its launch counts and
     each request's first-token logits."""
     from repro_torch.kernels import reset_launch_counts
@@ -1476,7 +1631,7 @@ def _dense_serve(cfg, params, prompts, new_tokens, n_slots, max_len,
     with _first_logits() as first:
         outs, eng, done, wall = serve(cfg, params, "cuda", prompts,
                                       new_tokens, n_slots, max_len, PAGE,
-                                      offload_mode=offload_mode)
+                                      offload_mode=offload_mode, **engine_kw)
     launches = _serve_launches()
     s = check_serve(cfg, eng, outs, prompts, new_tokens)
     row = dict(offload_mode=offload_mode, **_serve_figures(s, done, wall),
@@ -1625,6 +1780,50 @@ def _drop_shares(rec) -> dict:
     return out
 
 
+SERVE_TURNS = ("zero_copy", "copy", "copy", "zero_copy")
+TURN_SLOTS, TURN_MAX_LEN, TURN_NEW_TOKENS = 8, 1024, 32
+
+
+def _serve_turns(cfg, params, prompts, decode_layers: int, flash_ok,
+                 prefills=None, n_moe: int = 0, **engine_kw) -> tuple:
+    """The requests served in SERVE_TURNS (TURN_SLOTS slots of
+    TURN_MAX_LEN, TURN_NEW_TOKENS new tokens), each by ``_dense_serve``,
+    with its launches held: the global decode kernel (copy mode: the
+    per-slot one) ``decode_layers`` times a step, flash as
+    ``flash_ok(row)`` says, no other kernel; the prefill calls
+    ``prefills[mode]`` where given; and, with ``n_moe`` MoE layers, the
+    dropped shares, every decode choice counted. Returns (each turn's row,
+    with its tokens equal to the first zero-copy serve's; each turn's
+    first-token rows; the launches of each mode's first turn)."""
+    rows, firsts, by_mode = [], [], {}
+    for mode in SERVE_TURNS:
+        with _moe_drops() as rec:
+            outs, eng, row, first = _dense_serve(
+                cfg, params, prompts, TURN_NEW_TOKENS, TURN_SLOTS,
+                TURN_MAX_LEN, mode, **engine_kw)
+        del eng
+        launches, steps = row["launches"], row["decode_steps"]
+        used = ("paged_attention_global" if mode == "zero_copy"
+                else "paged_attention")
+        where = (cfg.name, mode, row["prefills"], launches)
+        assert launches[used] == decode_layers * steps, where
+        assert flash_ok(row), where
+        _other_launches_zero(launches, (used, "flash_attention_fwd"))
+        assert prefills is None or row["prefills"] == prefills[mode], where
+        if n_moe:
+            row["drops"] = drops = _drop_shares(rec)
+            assert drops["decode"]["pairs"] == (
+                n_moe * steps * TURN_SLOTS * cfg.moe.experts_per_token)
+        if not rows:
+            zc_outs = outs
+        row["tokens_equal_to_first_zero_copy"] = sum(
+            a == b for o, z in zip(outs, zc_outs) for a, b in zip(o, z))
+        rows.append(row)
+        firsts.append(first)
+        by_mode.setdefault(mode, launches)
+    return rows, firsts, by_mode
+
+
 def phase_moe_arch() -> dict:
     """olmoe-1b-7b as get_config gives it (bf16, 16 attn_moe layers, random
     weights from SEED built on the card): (a) decode against prefill, layer
@@ -1648,40 +1847,23 @@ def phase_moe_arch() -> dict:
     params, _ = _consistency(no_drop, params, CONSISTENCY_S[MOE_ARCH],
                              phase="phase3f decode-vs-prefill")
     prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
-    n_slots, max_len, new_tokens = 8, 1024, 32
-    K = cfg.moe.experts_per_token
-    launches_by_kind, turns = {}, []
-    for mode in ("zero_copy", "copy", "copy", "zero_copy"):
-        with _moe_drops() as rec:
-            outs, eng, row, first = _dense_serve(cfg, params, prompts,
-                                                 new_tokens, n_slots, max_len,
-                                                 mode)
-        del eng
-        launches, steps = row["launches"], row["decode_steps"]
-        used = ("paged_attention_global" if mode == "zero_copy"
-                else "paged_attention")
-        assert launches[used] == cfg.n_layers * steps, (mode, launches)
-        assert launches["flash_attention_fwd"] >= cfg.n_layers, launches
-        _other_launches_zero(launches, (used, "flash_attention_fwd"))
-        row["drops"] = drops = _drop_shares(rec)
-        assert drops["decode"]["pairs"] == cfg.n_layers * steps * n_slots * K
+    turns, firsts, launches_by_kind = _serve_turns(
+        cfg, params, prompts, cfg.n_layers,
+        lambda r: r["launches"]["flash_attention_fwd"] >= cfg.n_layers,
+        n_moe=cfg.n_layers)
+    for row, first in zip(turns, firsts):
         row["first_token_rel_reading"] = _first_token_check(
             cfg, params, prompts, first, gate=False)[0]
-        if not turns:
-            zc_outs = outs
-        row["tokens_equal_to_first_zero_copy"] = sum(
-            a == b for o, z in zip(outs, zc_outs) for a, b in zip(o, z))
-        turns.append(row)
-        launches_by_kind.setdefault(mode, launches)
     row = turns[0]
     row.update(arch=MOE_ARCH, dtype=cfg.activation_dtype,
                n_layers=cfg.n_layers, d_model=cfg.d_model,
                heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_head=cfg.d_head,
-               experts=cfg.moe.n_experts, top_k=K, d_ff=cfg.moe.d_ff,
-               capacity_factor=cfg.moe.capacity_factor, vocab=cfg.vocab_size,
-               requests=len(prompts), prompt_lens=[len(p) for p in prompts],
-               new_tokens=new_tokens, slots=n_slots, max_len=max_len,
-               page=PAGE, init_s=init_s,
+               experts=cfg.moe.n_experts, top_k=cfg.moe.experts_per_token,
+               d_ff=cfg.moe.d_ff, capacity_factor=cfg.moe.capacity_factor,
+               vocab=cfg.vocab_size, requests=len(prompts),
+               prompt_lens=[len(p) for p in prompts],
+               new_tokens=TURN_NEW_TOKENS, slots=TURN_SLOTS,
+               max_len=TURN_MAX_LEN, page=PAGE, init_s=init_s,
                weights_gib=sum(t.numel() * t.element_size()
                                for t in _leaves(params)) / 2**30)
     emit("phase3f serve", **row)
@@ -1689,7 +1871,8 @@ def phase_moe_arch() -> dict:
          turns="zero_copy copy copy zero_copy", serves=turns[1:])
     # (c): no choice drops in the serve's prefill nor in a B=1 prefill
     outs, eng, row, first = _dense_serve(no_drop, params, prompts,
-                                         new_tokens, n_slots, max_len)
+                                         TURN_NEW_TOKENS, TURN_SLOTS,
+                                         TURN_MAX_LEN)
     del eng
     assert row["launches"]["paged_attention_global"] == \
         cfg.n_layers * row["decode_steps"], row["launches"]
@@ -1772,35 +1955,18 @@ def phase_recurrent_archs() -> dict:
         params, cons = _consistency(no_drop, params, CONSISTENCY_S[arch],
                                     phase="phase3g decode-vs-prefill")
         prompts = _recurrent_requests(cfg, np.random.default_rng(SEED))
-        n_slots, max_len, new_tokens = 8, 1024, 32
         kinds = cfg.layer_kinds()
         n_attn = sum(k == "attn" for k in kinds)
         n_moe = sum(k == "mamba_moe" for k in kinds)
-        turns = []
-        for mode in ("zero_copy", "copy", "copy", "zero_copy"):
-            with _moe_drops() as rec:
-                outs, eng, row, first = _dense_serve(
-                    cfg, params, prompts, new_tokens, n_slots, max_len, mode)
-            del eng
-            launches, steps = row["launches"], row["decode_steps"]
-            used = ("paged_attention_global" if mode == "zero_copy"
-                    else "paged_attention")
-            assert launches[used] == n_attn * steps, (arch, mode, launches)
-            assert launches["flash_attention_fwd"] == \
-                n_attn * row["prefills"], (arch, mode, launches)
-            _other_launches_zero(launches, (used, "flash_attention_fwd"))
-            assert row["prefills"] == (len(prompts) if mode == "copy"
-                                       else len({len(p) for p in prompts}))
-            if n_moe:
-                row["drops"] = drops = _drop_shares(rec)
-                assert drops["decode"]["pairs"] == (
-                    n_moe * steps * n_slots * cfg.moe.experts_per_token)
-            if not turns:
-                zc_outs, zc_first = outs, first
-            row["tokens_equal_to_first_zero_copy"] = sum(
-                a == b for o, z in zip(outs, zc_outs) for a, b in zip(o, z))
-            turns.append(row)
-            launches_by_arch.setdefault(f"{arch} {mode}", launches)
+        turns, firsts, by_mode = _serve_turns(
+            cfg, params, prompts, n_attn,
+            lambda r: (r["launches"]["flash_attention_fwd"]
+                       == n_attn * r["prefills"]),
+            prefills={"copy": len(prompts),
+                      "zero_copy": len({len(p) for p in prompts})},
+            n_moe=n_moe)
+        launches_by_arch.update({f"{arch} {m}": n
+                                 for m, n in by_mode.items()})
         row = turns[0]
         row.update(arch=arch, dtype=cfg.activation_dtype,
                    n_layers=cfg.n_layers, layer_kinds=list(kinds),
@@ -1808,8 +1974,9 @@ def phase_recurrent_archs() -> dict:
                    heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_head=cfg.d_head,
                    vocab=cfg.vocab_size, requests=len(prompts),
                    prompt_lens=[len(p) for p in prompts],
-                   new_tokens=new_tokens, slots=n_slots, max_len=max_len,
-                   page=PAGE, init_s=init_s, weights_gib=weights_gib,
+                   new_tokens=TURN_NEW_TOKENS, slots=TURN_SLOTS,
+                   max_len=TURN_MAX_LEN, page=PAGE, init_s=init_s,
+                   weights_gib=weights_gib,
                    served_weights="q/k-scaled" if cons["chaotic"]
                    else "as built",
                    **({"capacity_factor": cfg.moe.capacity_factor,
@@ -1818,10 +1985,11 @@ def phase_recurrent_archs() -> dict:
         emit("phase3g serve", **row)
         emit("phase3g copy serve", arch=arch,
              turns="zero_copy copy copy zero_copy", serves=turns[1:])
-        first = zc_first
+        first = firsts[0]
         if n_moe:       # the serve again at MOE_NO_DROP_CF: no drops
             _, eng, row, first = _dense_serve(no_drop, params, prompts,
-                                              new_tokens, n_slots, max_len)
+                                              TURN_NEW_TOKENS, TURN_SLOTS,
+                                              TURN_MAX_LEN)
             del eng
         rels, flips = _first_token_check(no_drop, params, prompts, first,
                                          gate=False)
@@ -1835,6 +2003,102 @@ def phase_recurrent_archs() -> dict:
              **{k: row[k] for k in ("decode_ms_per_step", "tokens_per_s",
                                     "ttft_ms_median", "peak_mem_gib")})
         assert gated and max(gated) < LOGIT_REL, (rels, flips)
+        del params
+        torch.cuda.empty_cache()
+    return launches_by_arch
+
+
+# ------------------------------------------------------------------ phase 3h
+
+CROSS_ATTN_ARCHS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
+# llama-vision's cut: its first two periods of 5 (4 attn_mlp, then one
+# xattn_mlp), every layer kind at its published width; all 100 layers are
+# ~175 GB of bf16, past the card.
+VISION_CUT = 10
+CROSS_GATE = 1.0        # the reference draws every cross gate at 0
+
+
+def _cross_arch_cfg(arch: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.n_image_tokens:
+        cfg = dataclasses.replace(cfg, n_layers=VISION_CUT)
+    return cfg
+
+
+def phase_cross_archs() -> dict:
+    """seamless-m4t-medium as get_config gives it (12 encoder and 12
+    cross_mlp decoder layers) and llama-vision at full width on VISION_CUT
+    layers (8 attn_mlp, 2 xattn_mlp over 4096 image tokens), bf16, random
+    weights from SEED built on the card, every cross gate at CROSS_GATE,
+    one at a time, the source ``_src_len`` rows long (seamless 3072, the
+    reference's stubbed frame count; vision its image tokens): (a) decode
+    against prefill, layer by layer and end to end where not chaotic, over
+    random encoder input or image embeddings; (b) on the weights as built
+    or, where chaotic, q/k-scaled, a zero-copy serve of phase 3's requests,
+    then copy, copy and zero-copy in turns: figures and launches (the
+    global decode, copy mode the per-slot one, once a self-attention layer
+    a step; flash once a cross layer a decode step, the cross decode at Sq
+    1, and once an encoder, self- and cross-attention layer a prefill
+    call); (c) each request's first-token logits against a B=1 prefill,
+    on the first zero-copy serve and the first copy serve. The engine, as
+    the reference's, feeds a zero source."""
+    from repro_torch.models import init_params
+    launches_by_arch = {}
+    for arch in CROSS_ATTN_ARCHS:
+        cfg = _cross_arch_cfg(arch)
+        resident = torch.cuda.memory_allocated()    # earlier phases'
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, device="cuda")
+        for blk in params["blocks"]:
+            for layer in blk.values():
+                if "xattn" in layer:
+                    layer["xattn"]["gate"].fill_(CROSS_GATE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gib = sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 2**30
+        params, cons = _consistency(cfg, params, CONSISTENCY_S[arch],
+                                    phase="phase3h decode-vs-prefill")
+        prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
+        kinds = cfg.layer_kinds()
+        n_self = sum(k != "xattn_mlp" for k in kinds)
+        n_cross = sum(k in ("xattn_mlp", "cross_mlp") for k in kinds)
+        per_prefill = cfg.n_enc_layers + n_self + n_cross
+        turns, firsts, by_mode = _serve_turns(
+            cfg, params, prompts, n_self,
+            lambda r: r["launches"]["flash_attention_fwd"] == (
+                n_cross * r["decode_steps"] + per_prefill * r["prefills"]),
+            prefills={"copy": len(prompts), "zero_copy": 1},
+            src_len=_src_len(cfg))
+        launches_by_arch.update({f"{arch} {m}": n
+                                 for m, n in by_mode.items()})
+        for row, first in zip(turns[:2], firsts):
+            row["first_token_rel"] = _first_token_check(
+                cfg, params, prompts, first)[0]
+        for row in turns:       # the arch's own peak, past what stays
+            row["arch_peak_gib"] = (row["peak_mem_gib"]
+                                    - resident / 2**30)
+        row = turns[0]
+        row.update(arch=arch, dtype=cfg.activation_dtype,
+                   n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                   layer_kinds=sorted(set(kinds)), self_layers=n_self,
+                   cross_layers=n_cross, flash_per_prefill=per_prefill,
+                   src_len=_src_len(cfg), d_model=cfg.d_model,
+                   heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_head=cfg.d_head,
+                   d_ff=cfg.d_ff, act=cfg.act, vocab=cfg.vocab_size,
+                   requests=len(prompts),
+                   prompt_lens=[len(p) for p in prompts],
+                   new_tokens=TURN_NEW_TOKENS, slots=TURN_SLOTS,
+                   max_len=TURN_MAX_LEN, page=PAGE, init_s=init_s,
+                   weights_gib=weights_gib,
+                   resident_gib=resident / 2**30, cross_gate=CROSS_GATE,
+                   served_weights="q/k-scaled" if cons["chaotic"]
+                   else "as built")
+        emit("phase3h serve", **row)
+        emit("phase3h copy serve", arch=arch,
+             turns="zero_copy copy copy zero_copy", serves=turns[1:])
         del params
         torch.cuda.empty_cache()
     return launches_by_arch
@@ -1890,7 +2154,8 @@ def phase_profile(cfg, params, prompts, new_tokens, n_slots, max_len) -> None:
 # ------------------------------------------------------------------ phase 4
 
 CROSS_ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b",
-               "olmoe-1b-7b", "kimi-k2-1t-a32b") + RECURRENT_ARCHS
+               "olmoe-1b-7b", "kimi-k2-1t-a32b") + RECURRENT_ARCHS \
+    + CROSS_ATTN_ARCHS
 SCHEDULED_ARCHS = ("llama3.2-1b", "qwen2-7b", "olmoe-1b-7b")
 
 
@@ -1915,6 +2180,8 @@ def phase_cross_check(arch: str, device: str = "cuda") -> None:
     prompts = requests(cfg.vocab_size, np.random.default_rng(SEED), n=6,
                        system_len=20, lo=8, hi=40)
     kw = dict(max_tokens=8, n_slots=4, max_len=64, page=8)
+    if cfg.n_image_tokens:          # the engine's default 16 would refuse
+        kw["src_len"] = cfg.n_image_tokens
     windowed = "attn_mlp_local" in cfg.layer_kinds()
     moe = cfg.moe is not None
     modes = [("zero_copy", {})]
@@ -2500,6 +2767,7 @@ def main(argv=None) -> int:
     dense_launches = phase_dense_archs(served[1])
     moe_launches = phase_moe_arch()
     recurrent_launches = phase_recurrent_archs()
+    cross_launches = phase_cross_archs()
     if args.profile:
         phase_profile(*served)
     for arch in CROSS_ARCHS:
@@ -2526,6 +2794,8 @@ def main(argv=None) -> int:
          "launches_recurrent_archs": {
              a: n["paged_attention_global"]
              for a, n in recurrent_launches.items()},
+         "launches_cross_archs": {a: n["paged_attention_global"]
+                                  for a, n in cross_launches.items()},
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
@@ -2542,6 +2812,8 @@ def main(argv=None) -> int:
          "launches_moe_arch_copy": moe_launches["copy"]["paged_attention"],
          "launches_recurrent_archs": {a: n["paged_attention"]
                                       for a, n in recurrent_launches.items()},
+         "launches_cross_archs": {a: n["paged_attention"]
+                                  for a, n in cross_launches.items()},
          "max_abs_err": slot["err"],
          "max_abs_err_fp32": res[("slot", torch.float32)]["err"],
          **_precision_fields(res["precision"]["slot"]),
@@ -2561,6 +2833,8 @@ def main(argv=None) -> int:
                                for m, n in moe_launches.items()},
          "launches_recurrent_archs": {a: n["flash_attention_fwd"]
                                       for a, n in recurrent_launches.items()},
+         "launches_cross_archs": {a: n["flash_attention_fwd"]
+                                  for a, n in cross_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

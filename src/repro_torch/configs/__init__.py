@@ -1,9 +1,11 @@
-"""Architecture registry of the port: only the archs it serves.
+"""Architecture registry of the port: every arch of the reference.
 
 ``get_config(arch)`` returns the same config as the JAX package for the four
-dense decoders, the two MoE decoders and the two recurrent-state decoders
-(rwkv6-3b, and the hybrid jamba) the port serves; ``base.py`` and the
-per-arch modules are copies of the reference's.
+dense decoders, the two MoE decoders, the two recurrent-state decoders
+(rwkv6-3b, and the hybrid jamba) and the two cross-attention models
+(llama-3.2-vision-90b's gated image layers, seamless-m4t-medium's encoder
+and decoder), in the reference's order; ``base.py`` and the per-arch
+modules are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "llama-3.2-vision-90b": "repro_torch.configs.llama3_2_vision_90b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 

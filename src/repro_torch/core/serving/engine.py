@@ -54,8 +54,16 @@ fresh zero state rows are scattered back to their slots as a ring's are.
 It serves in zero_copy and in copy mode, without prefix sharing and
 without the continuous scheduler, as the reference.
 
-Not ported here: archs with cross-KV (an encoder or images); they raise
-NotImplementedError.
+Cross-attention archs (llama-vision's ``xattn_mlp``, seamless's encoder and
+``cross_mlp``) keep per-slot cross K/V of ``src_len`` rows (and seamless
+its encoder output) beside the pool, scattered back to their slots as a
+ring's rows are. Every prefill feeds zero image embeddings or zero encoder
+input, ``src_len`` frames of them, as the reference's engine does. They
+serve in zero_copy and in copy mode, without prefix sharing and without
+the continuous scheduler, as the reference. The image K/V a prefill
+writes has ``n_image_tokens`` rows, which the reference's cross cache
+(``src_len`` rows) takes only when the two are equal: the port refuses
+any other ``src_len`` at construction.
 """
 from __future__ import annotations
 
@@ -107,8 +115,9 @@ class Request:
 
 def _write_slot(batch_cache: Cache, single_cache: Cache, slot: int) -> None:
     """Copy one sequence's prefilled per-slot cache (batch 1) into batch slot
-    ``slot`` of every layer, in place: every leaf of a PagedKV or of a
-    recurrent state. The staging baseline's O(cache-size) admission walk."""
+    ``slot`` of every entry, in place: every leaf of a PagedKV, a recurrent
+    state, a cross K/V or the encoder output. The staging baseline's
+    O(cache-size) admission walk."""
     for bkv, skv in zip(batch_cache, single_cache):
         for dst, src in zip(bkv, skv):
             dst[slot].copy_(src[0])
@@ -119,8 +128,9 @@ def _build_prefill_view(cache: Cache, tables: torch.Tensor,
     """The batch cache as a batched prefill of ``nb = tables.shape[0]`` rows
     sees it: global-pool layers keep the same pools with the rows' tables
     (KV lands in place: zero-copy); a per-slot ring gets fresh zero rows,
-    and a recurrent layer fresh zero state rows, which
-    :func:`_merge_prefill_view` scatters back to their slots."""
+    and a recurrent state, a cross K/V and the encoder output fresh zero
+    rows, which :func:`_merge_prefill_view` scatters back to their
+    slots."""
     nb = tables.shape[0]
     return [fresh_rows(kv, nb) if per_slot(kv)
             else install(kv, tables, lengths) for kv in cache]
@@ -128,10 +138,11 @@ def _build_prefill_view(cache: Cache, tables: torch.Tensor,
 
 def _merge_prefill_view(cache: Cache, view: Cache,
                         slots: torch.Tensor) -> None:
-    """Scatter each ring's and each recurrent state's first ``len(slots)``
-    prefilled rows to ``slots`` in place (the padding rows after them are
-    dropped); the global pools were written in place. ``view`` is the cache
-    the prefill returned: a recurrent layer's state is a new tensor."""
+    """Scatter each per-slot entry's first ``len(slots)`` prefilled rows
+    (a ring's, a recurrent state's, a cross K/V's, the encoder output's) to
+    ``slots`` in place (the padding rows after them are dropped); the
+    global pools were written in place. ``view`` is the cache the prefill
+    returned: a recurrent state or a cross K/V is a new tensor."""
     for kv, w in zip(cache, view):
         if per_slot(kv):
             scatter_rows(kv, w, slots)
@@ -141,8 +152,8 @@ def _install_tables(cache: Cache, tables: torch.Tensor,
                     lengths: torch.Tensor) -> Cache:
     """The zero-copy decode's install into a serving cache: every attention
     layer takes ``lengths``; each global-pool layer takes ``tables`` (B, P),
-    a sliding-window ring keeps its identity table, and a recurrent state
-    passes through."""
+    a sliding-window ring keeps its identity table, and every other
+    per-slot entry passes through."""
     return [install(kv, None if per_slot(kv) else tables, lengths)
             for kv in cache]
 
@@ -150,7 +161,7 @@ def _install_tables(cache: Cache, tables: torch.Tensor,
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
                  page_size: int = 8, offload_mode: str = "zero_copy",
-                 eos_token: Optional[int] = None,
+                 src_len: int = 16, eos_token: Optional[int] = None,
                  prefix_sharing: bool = True,
                  record_translation_trace: bool = False,
                  translation_stats: bool = False,
@@ -168,17 +179,26 @@ class ServingEngine:
             raise NotImplementedError(
                 "continuous scheduling requires offload_mode='zero_copy'")
         kinds = cfg.layer_kinds()
-        if (cfg.is_encdec or cfg.n_image_tokens
-                or any(k not in SERVED_KINDS for k in kinds)):
+        if any(k not in SERVED_KINDS for k in kinds):
             raise NotImplementedError(
-                f"{cfg.name}: layers with cross-KV are not ported; the port "
-                f"serves {SERVED_KINDS} decoders")
+                f"{cfg.name}: a layer kind of {sorted(set(kinds))} is not "
+                f"ported; the port serves {SERVED_KINDS}")
         all_shared = all(k in SHARE_KINDS for k in kinds)
         if scheduler == "continuous" and not all_shared:
             raise NotImplementedError(
                 "continuous scheduling needs all KV state in the shared "
-                "global pool: chunked prefill cannot reconstruct per-slot "
-                "ring buffers or recurrent states")
+                "global pool (full-attention archs only): chunked "
+                "prefill cannot reconstruct per-slot ring buffers, "
+                "recurrent states, or cross-KV")
+        if cfg.n_image_tokens and src_len != cfg.n_image_tokens:
+            # The reference sizes the cross cache by src_len and writes the
+            # prefill's image K/V (n_image_tokens rows) into it: its
+            # prefill fails on any other src_len.
+            raise ValueError(
+                f"{cfg.name}: src_len={src_len} != n_image_tokens="
+                f"{cfg.n_image_tokens}; the image cross-KV a prefill writes "
+                f"has {cfg.n_image_tokens} rows a slot, so src_len must "
+                "equal it")
         if offload_mode == "copy" and any(
                 -(-layer_capacity(cfg, k, max_len) // page_size)
                 < -(-max_len // page_size) for k in kinds):
@@ -192,6 +212,7 @@ class ServingEngine:
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_len, self.page_size = n_slots, max_len, page_size
         self.offload_mode = offload_mode
+        self.src_len = src_len
         self.eos = eos_token
         self.max_pages = -(-max_len // page_size)
         kv_bytes = (2 * cfg.n_kv_heads * cfg.d_head
@@ -264,14 +285,14 @@ class ServingEngine:
             self.null_page = n_slots * self.max_pages
             self.cache = init_cache(cfg, n_slots, max_len, page_size,
                                     global_pages=self.null_page,
-                                    device=self.device)
+                                    device=self.device, src_len=src_len)
             self._tables_dev = torch.full((n_slots, self.max_pages),
                                           self.null_page, dtype=torch.int32,
                                           device=self.device)
             self._epoch_seen = -1
         else:
             self.cache = init_cache(cfg, n_slots, max_len, page_size,
-                                    device=self.device)
+                                    device=self.device, src_len=src_len)
         # Continuous batching: dense SequenceBuffer state and a token-budget
         # scheduler composing mixed decode / chunked-prefill steps, with
         # preemption under pool pressure.
@@ -287,6 +308,21 @@ class ServingEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _cross_inputs(self, nb: int) -> Dict[str, torch.Tensor]:
+        """A prefill's zero encoder input (``src_len`` frames) or zero image
+        embeddings (``n_image_tokens``) for ``nb`` rows, as the reference's
+        engine feeds them; nothing for a decoder alone."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.activation_dtype)
+        if cfg.is_encdec:
+            return {"enc_x": torch.zeros((nb, self.src_len, cfg.d_model),
+                                         dtype=dt, device=self.device)}
+        if cfg.n_image_tokens:
+            return {"img_x": torch.zeros((nb, cfg.n_image_tokens,
+                                          cfg.d_model), dtype=dt,
+                                         device=self.device)}
+        return {}
 
     # --------------------------------------------------------------- API
     def submit(self, prompt: List[int], max_tokens: int = 16,
@@ -445,7 +481,7 @@ class ServingEngine:
             wtables[i, :st.shared_pages] = self.mgr.null_page
         self.metrics["admit_table_bytes"] += len(group) * self.max_pages * 4
         batch = {"tokens": self._dev(tokens).long(),
-                 "lengths": self._dev(lengths)}
+                 "lengths": self._dev(lengths), **self._cross_inputs(nb)}
         if sharing:
             batch["prefix_lens"] = self._dev(prefix)
             batch["write_tables"] = self._dev(wtables)
@@ -472,10 +508,11 @@ class ServingEngine:
         (the staging copy), then copy it into batch slot ``slot``."""
         t0 = time.perf_counter()
         single = init_cache(self.cfg, 1, self.max_len, self.page_size,
-                            device=self.device)
+                            device=self.device, src_len=self.src_len)
         single = self._map_tables(single, self.mgr.tables[slot:slot + 1],
                                   np.zeros(1, np.int32))
-        batch = {"tokens": self._dev(np.asarray(req.prompt, np.int64)[None])}
+        batch = {"tokens": self._dev(np.asarray(req.prompt, np.int64)[None]),
+                 **self._cross_inputs(1)}
         with torch.no_grad():
             logits, single = forward_prefill(self.cfg, self.params, batch,
                                              single)
@@ -496,8 +533,9 @@ class ServingEngine:
         """Install per-slot block tables and lengths into a PER-SLOT cache
         (the copy-baseline path). Rejects, instead of wrapping, table entries
         past a layer's pool: wrapping page indices would alias distinct
-        logical pages onto one physical page and corrupt KV. Recurrent
-        states pass through (an arch of them alone has no table)."""
+        logical pages onto one physical page and corrupt KV. Every other
+        per-slot entry passes through (an arch of recurrent states alone has
+        no table)."""
         kvs = [kv for kv in cache if not is_state(kv)]
         if not kvs:
             return cache

@@ -5,11 +5,17 @@
       --offload-mode zero_copy     # or: copy
 
 ``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (llama3.2-1b,
-gemma2-2b, llama3.2-3b, qwen2-7b, olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b,
-jamba-1.5-large-398b). gemma2-2b serves copy mode only while ``--max-len``
-fits its sliding window (8 tokens at ``--smoke``), as the reference.
-kimi-k2-1t-a32b and jamba-1.5-large-398b serve with ``--smoke`` only (see
-``SMOKE_ONLY``). The recurrent archs (rwkv6-3b, jamba) prefill at exact
+gemma2-2b, llama3.2-3b, qwen2-7b, olmoe-1b-7b, kimi-k2-1t-a32b,
+llama-3.2-vision-90b, rwkv6-3b, seamless-m4t-medium,
+jamba-1.5-large-398b). gemma2-2b serves copy mode only while
+``--max-len`` fits its sliding window (8 tokens at ``--smoke``), as the
+reference. kimi-k2-1t-a32b, llama-3.2-vision-90b and jamba-1.5-large-398b
+take ``--smoke`` only (see ``SMOKE_ONLY``). seamless-m4t-medium serves with
+zero encoder input of the engine's default 16 frames. Like the
+reference's CLI this one passes the engine no ``src_len``, so
+llama-3.2-vision-90b does not serve even with ``--smoke``: its 8 smoke
+image tokens are not the default 16, and the engine raises ValueError, where
+the reference's prefill fails. The recurrent archs (rwkv6-3b, jamba) prefill at exact
 lengths, and their chunked scans take only the prompt lengths the
 reference's chunking takes: under 64 tokens, or any length ``T`` that
 ``T // 32`` divides, for rwkv6; under 512, or any ``T`` that ``T // 256``
@@ -40,7 +46,9 @@ SMOKE_ONLY = {"kimi-k2-1t-a32b": "about 2 TB of bf16 weights at full width, "
               "jamba-1.5-large-398b": "398 B parameters are about 0.8 TB of "
                                       "bf16 weights, and one period of 8 "
                                       "layers alone is 84 GiB, past an 80 GB "
-                                      "card"}
+                                      "card",
+              "llama-3.2-vision-90b": "its 100 layers are about 175 GB of "
+                                      "bf16 weights, past an 80 GB card"}
 
 
 def main(argv=None) -> int:

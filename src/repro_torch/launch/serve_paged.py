@@ -16,7 +16,8 @@ CoW-duplicates it on its first divergent token.
       --scheduler continuous        # or: --disagg share | copy
   PYTHONPATH=src python -m repro_torch.launch.serve_paged --device cpu \\
       --arch olmoe-1b-7b            # or: kimi-k2-1t-a32b, rwkv6-3b,
-                                    # jamba-1.5-large-398b (fixed only)
+                                    # jamba-1.5-large-398b,
+                                    # seamless-m4t-medium (fixed only)
 
 ``--scheduler continuous`` serves the same requests as two bursty arrival
 waves over an oversubscribed page pool (``--pool-pages``, 16 by default):

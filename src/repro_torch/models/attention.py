@@ -1,5 +1,6 @@
 """Attention on the serving path (port of ``repro/models/attention.py``,
-serving subset): GQA projections, flash attention for prefill, the paged KV
+serving subset): GQA projections (self- and cross-attention, the latter
+gated), flash attention for prefill and for cross-attention, the paged KV
 cache in both layouts (the GLOBAL shared pool of zero-copy serving and the
 PER-SLOT pools of the copy baseline) with its append and decode attention,
 and prefix-context attention.
@@ -27,20 +28,36 @@ from repro_torch.kernels.paged_attention.ref import \
 
 # ------------------------------------------------------------ projections
 
-def qkv_proj(p: dict, x: torch.Tensor):
-    """x: (B, S, d) -> q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh)."""
-    def proj(w):
-        d, h, k = w.shape
-        return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) through w: (d, H, Dh) -> (B, S, H, Dh)."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def qkv_proj(p: dict, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None):
+    """x: (B, S, d) -> q (B, S, Hq, Dh), and k/v (B, Skv, Hkv, Dh) from
+    ``kv_x`` (B, Skv, d) (cross-attention) or, without it, from x."""
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = _proj(p["wq"], x), _proj(p["wk"], kv_x), _proj(p["wv"], kv_x)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
 
 
+def q_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The query projection alone (cross-attention's decode, whose K/V are
+    cached): x (B, S, d) -> (B, S, Hq, Dh)."""
+    return _proj(p["wq"], x)
+
+
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hq, Dh) -> (B, S, d); a cross-attention's ``gate`` scales the
+    result by tanh(gate), taken in fp32 and cast to the output's dtype."""
     h, k, d = p["wo"].shape
-    return o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    y = o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    if "gate" in p:
+        y = torch.tanh(p["gate"].float()).to(y.dtype) * y
+    return y
 
 
 def _softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -59,6 +76,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset, kv_chunk=kv_chunk,
                                q_chunk=q_chunk)
+
+
+# ------------------------------------------------------------ cross-attention KV
+
+class CrossKV(NamedTuple):
+    """A cross-attention layer's K/V over the source (the encoder's output
+    or the image embeddings), one row a slot: k, v (B, src_len, Hkv, D),
+    written whole by a prefill and read, not changed, by every decode."""
+    k: torch.Tensor
+    v: torch.Tensor
 
 
 # ------------------------------------------------------------ paged KV cache

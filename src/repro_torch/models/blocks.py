@@ -1,12 +1,19 @@
 """Per-layer forward (port of ``repro/models/blocks.py``: the ``attn_mlp``
 and ``attn_mlp_local`` layers of the dense decoders and jamba's ``attn``,
 the same layer; ``attn_moe``, the same attention before an MoE FFN;
-``rwkv``, a time mix and a channel mix, each with its own token shift; and
+``rwkv``, a time mix and a channel mix, each with its own token shift;
 jamba's ``mamba`` and ``mamba_moe``, the selective SSM before a GLU MLP or
-an MoE FFN).
+an MoE FFN; llama-vision's ``xattn_mlp``, a gated cross-attention over the
+image embeddings before its MLP; and seamless's ``cross_mlp``,
+self-attention, then cross-attention over the encoder's output, then its
+MLP, the 2-layer relu MLP where ``cfg.act`` is relu).
 
 A layer's cache entry is a :class:`PagedKV` for an attention layer, an
-:class:`RWKVState` or a :class:`MambaState` for a recurrent one. A
+:class:`RWKVState` or a :class:`MambaState` for a recurrent one, a
+:class:`CrossKV` for ``xattn_mlp`` and the pair (PagedKV, CrossKV) for
+``cross_mlp``. A cross-attention layer attends, without rope or a mask,
+over its source: in a prefill it projects ``ctx.cross_x`` to K/V (the
+layer's new CrossKV), in a decode it reads the cached ones. A
 recurrent layer ignores ``seq_lengths``: it scans every position of its
 rows, so the engine prefills such archs at exact lengths. Its new state is
 returned (not written in place); a prefill without a cache starts from
@@ -17,7 +24,9 @@ Two execution modes reach a layer here:
            global pool through per-sequence block tables (zero-copy), or,
            with a cached prefix, only the suffix is computed; or, on a
            per-slot cache (the copy baseline, or a sliding-window layer's
-           ring), written into each slot's own pages through its table
+           ring), written into each slot's own pages through its table.
+           Without a cache and with ``causal`` False, it is the encoder's
+           pass over its full source
   decode   one token per sequence: append through the table, then attend
            over the pool through it
 """
@@ -32,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.layers import glu_mlp, rmsnorm, rope
+from repro_torch.models.layers import glu_mlp, mlp2, rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
 
@@ -41,7 +50,11 @@ from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
 class FwdCtx:
     cfg: ModelConfig
     mode: str                   # prefill | decode
+    causal: bool = True         # self-attention's mask (the encoder: False)
     q_offset: Any = 0           # rope/mask offset of token 0 (decode: (B,) lengths)
+    # image or encoder embeddings (B, src_len, d) a prefill's cross-attention
+    # projects to K/V
+    cross_x: Optional[torch.Tensor] = None
     seq_lengths: Optional[torch.Tensor] = None     # (B,) real prompt lengths
     # CoW prefix sharing (suffix-only prefill): tokens already resident in
     # the shared pool per row, and the scatter tables whose shared entries
@@ -80,7 +93,7 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
     positions = torch.arange(S, device=x.device)[None] + ctx.q_offset
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = attn.flash_attention(q, k, v, causal=True, window=window,
+    o = attn.flash_attention(q, k, v, causal=ctx.causal, window=window,
                              softcap=cfg.attn_softcap,
                              q_chunk=cfg.flash_q_chunk,
                              kv_chunk=cfg.flash_kv_chunk)
@@ -194,6 +207,27 @@ def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
                        .to(kv.length.dtype))
 
 
+def _cross_attention(p, x, ctx: FwdCtx, xkv: Optional[attn.CrossKV]):
+    """Cross-attention, non-causal, no rope. Prefill: K/V projected from
+    ``ctx.cross_x`` become the layer's new entry (where it has one).
+    Decode: the query alone, over the cached K/V (Sq = 1)."""
+    cfg = ctx.cfg
+    if ctx.mode == "decode":
+        q, k, v = attn.q_proj(p, x), xkv.k, xkv.v
+    else:
+        q, k, v = attn.qkv_proj(p, x, kv_x=ctx.cross_x.to(x.dtype))
+    o = attn.flash_attention(q, k, v, causal=False,
+                             q_chunk=cfg.flash_q_chunk,
+                             kv_chunk=cfg.flash_kv_chunk)
+    if ctx.mode != "decode" and xkv is not None:
+        xkv = attn.CrossKV(k, v)
+    return attn.out_proj(p, o), xkv
+
+
+def _apply_mlp(p, x, cfg: ModelConfig):
+    return mlp2(p, x, cfg.act) if "w1" in p else glu_mlp(p, x, cfg.act)
+
+
 def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
     cfg = ctx.cfg
     st0 = st if st is not None else \
@@ -214,10 +248,11 @@ def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
 
 def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     """One layer of ``kind``; ``cache`` is its PagedKV (attention kinds),
-    RWKVState (rwkv) or MambaState (mamba kinds), or None. Returns (x, the
-    updated entry, or None without one). An attention layer attends over
-    its last ``sliding_window`` tokens where it is ``attn_mlp_local`` (in
-    decode its ring holds only those)."""
+    RWKVState (rwkv), MambaState (mamba kinds), CrossKV (xattn_mlp) or
+    (PagedKV, CrossKV) (cross_mlp), or None. Returns (x, the updated entry,
+    or None without one). An attention layer attends over its last
+    ``sliding_window`` tokens where it is ``attn_mlp_local`` (in decode its
+    ring holds only those)."""
     if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     cfg = ctx.cfg
@@ -230,6 +265,15 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
         step = mam.mamba_mix_step if ctx.mode == "decode" else mam.mamba_mix
         y, st = step(p["mamba"], h, cfg, st)
         cache = st if cache is not None else None
+    elif kind == "xattn_mlp":
+        y, cache = _cross_attention(p["xattn"], h, ctx, cache)
+    elif kind == "cross_mlp":
+        kv, xkv = cache if cache is not None else (None, None)
+        y, kv = _self_attention(p["attn"], h, ctx, kv, None)
+        x = x + y
+        h = rmsnorm(x, p["lnx"], cfg.norm_eps)
+        y, xkv = _cross_attention(p["xattn"], h, ctx, xkv)
+        cache = (kv, xkv) if cache is not None else None
     else:
         window = cfg.sliding_window if kind == "attn_mlp_local" else None
         y, cache = _self_attention(p["attn"], h, ctx, cache, window)
@@ -237,4 +281,4 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind in ("attn_moe", "mamba_moe"):
         return x + moe_ffn(p["moe"], h, cfg), cache
-    return x + glu_mlp(p["mlp"], h, cfg.act), cache
+    return x + _apply_mlp(p["mlp"], h, cfg), cache

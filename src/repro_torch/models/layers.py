@@ -1,5 +1,6 @@
 """Shared layers (port of ``repro/models/layers.py``, dense subset):
-norm, GLU MLP, rotary embedding, embedding and tied head."""
+norm, GLU MLP, the 2-layer MLP, rotary embedding, embedding and tied
+head."""
 from __future__ import annotations
 
 from typing import Optional
@@ -22,6 +23,11 @@ _ACTS = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh"),
 def glu_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     h = _ACTS[act](x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def mlp2(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The 2-layer MLP (seamless's relu FFN): no gate, no bias."""
+    return _ACTS[act](x @ p["w1"]) @ p["w2"]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

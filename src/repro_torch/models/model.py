@@ -1,21 +1,32 @@
 """Model assembly (port of ``repro/models/model.py``, serving subset):
-embedding -> first dense layers -> blocks (a Python loop) -> final norm ->
-head.
+(the encoder, for an encoder-decoder) -> embedding -> first dense layers ->
+blocks (a Python loop) -> final norm -> head.
 
-The cache is a list with one entry per layer in ``cfg.layer_kinds()``
-order (``first_k_dense`` layers first): a :class:`PagedKV` for an attention
-layer, in the global or the per-slot layout, chosen per layer, or a
-per-slot recurrent state, :class:`RWKVState` or :class:`MambaState`, for a
-recurrent one (the JAX package keeps the first layers' under ``"first"``
-and stacks the blocks' under a leading ``(n_blocks,)`` axis).
+The cache is a flat list of entries, one per layer in ``cfg.layer_kinds()``
+order (``first_k_dense`` layers first) and two for a ``cross_mlp`` layer:
+a :class:`PagedKV` for an attention layer, in the global or the per-slot
+layout, chosen per layer; a per-slot recurrent state, :class:`RWKVState`
+or :class:`MambaState`, for a recurrent one; a per-slot :class:`CrossKV`
+for a cross-attention (``xattn_mlp``'s only entry, ``cross_mlp``'s second
+beside its PagedKV). An encoder-decoder's list ends with one more per-slot
+entry, :class:`EncOut`, the encoder's output, which the reference keeps as
+``cache["enc_out"]`` (the JAX package keeps the first layers' entries under
+``"first"`` and stacks the blocks' under a leading ``(n_blocks,)`` axis).
+Every entry that is not a PagedKV is a NamedTuple of tensors with one row
+a slot, which the walkers below treat alike.
 
-  init_cache(cfg, batch, max_len, page_size, global_pages=None, device)
+  init_cache(cfg, batch, max_len, page_size, global_pages=None, device,
+             src_len=ENCDEC_SRC_LEN)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
+
+A prefill's ``batch`` carries ``enc_x`` (B, src_len, d) for an
+encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
+(B, n_image_tokens, d) for an image model.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -28,7 +39,23 @@ from repro_torch.models.layers import embed, logits_fn, rmsnorm
 from repro_torch.models.params import (MAMBA_KINDS, resolve_device,
                                        torch_dtype)
 
-Cache = List[Union[attn.PagedKV, rwkv.RWKVState, mam.MambaState]]
+ENCDEC_SRC_LEN = 3072          # the reference's stubbed audio-frame count
+
+
+class EncOut(NamedTuple):
+    """An encoder-decoder's encoder output, one row a slot: x (B, src_len,
+    d), kept beside the cache as the reference keeps it."""
+    x: torch.Tensor
+
+
+Cache = List[Union[attn.PagedKV, attn.CrossKV, rwkv.RWKVState,
+                   mam.MambaState, EncOut]]
+
+
+def _layer_entries(kind: str) -> int:
+    """Cache entries of one layer of ``kind``: a cross_mlp layer's PagedKV
+    and CrossKV, one entry for every other kind."""
+    return 2 if kind == "cross_mlp" else 1
 
 
 def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
@@ -41,7 +68,8 @@ def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
-               global_pages: Optional[int] = None, device="cuda") -> Cache:
+               global_pages: Optional[int] = None, device="cuda",
+               src_len: int = ENCDEC_SRC_LEN) -> Cache:
     """Zero-filled cache, lengths 0, one layout chosen per layer.
 
     With ``global_pages``, a layer that holds all ``max_len`` tokens gets one
@@ -52,14 +80,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     layer's is a ring of ``ceil(window / page)`` pages, which needs no
     dynamic paging. A recurrent layer gets its zero state, one row a slot,
     in the shapes and dtypes of the reference's ``rwkv_state_specs`` and
-    ``mamba_state_specs``.
+    ``mamba_state_specs``. A cross-attention gets zero K/V of ``src_len``
+    rows a slot, and an encoder-decoder a zero encoder output as long.
     """
     dev = resolve_device(device)
     dt = torch_dtype(cfg.activation_dtype)
     tail = (page_size, cfg.n_kv_heads, cfg.d_head)
     max_pages = -(-max_len // page_size)
     cache = []
+    cross = (batch, src_len, cfg.n_kv_heads, cfg.d_head)
+
+    def zero_cross():
+        return attn.CrossKV(torch.zeros(cross, dtype=dt, device=dev),
+                            torch.zeros(cross, dtype=dt, device=dev))
+
     for kind in cfg.layer_kinds():
+        if kind == "xattn_mlp":
+            cache.append(zero_cross())
+            continue
         if kind == "rwkv":
             cache.append(rwkv.zero_state(cfg, batch, dt, dev))
             continue
@@ -80,19 +118,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
             torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev), table,
             torch.zeros((batch,), dtype=torch.int32, device=dev)))
+        if kind == "cross_mlp":
+            cache.append(zero_cross())
+    if cfg.is_encdec:
+        cache.append(EncOut(torch.zeros((batch, src_len, cfg.d_model),
+                                        dtype=dt, device=dev)))
     return cache
 
 
 def is_state(entry) -> bool:
-    """Whether a cache entry is a recurrent layer's state (an RWKVState or
-    a MambaState) rather than an attention layer's PagedKV."""
+    """Whether a cache entry is a per-slot NamedTuple of rows (a recurrent
+    layer's RWKVState or MambaState, a CrossKV, an EncOut) rather than an
+    attention layer's PagedKV."""
     return not isinstance(entry, attn.PagedKV)
 
 
 def per_slot(entry) -> bool:
-    """Whether an entry holds one row a slot (a recurrent state, or
-    per-slot pools such as a sliding-window ring) rather than a view of the
-    shared global pool."""
+    """Whether an entry holds one row a slot (a recurrent state, cross K/V,
+    the encoder output, or per-slot pools such as a sliding-window ring)
+    rather than a view of the shared global pool."""
     return is_state(entry) or not attn.is_global_layout(entry)
 
 
@@ -160,15 +204,60 @@ def layers(cfg: ModelConfig, params) -> List[Tuple[str, dict]]:
                     for i, kind in enumerate(cfg.block_pattern)]
 
 
+def by_layer(cfg: ModelConfig, cache: Cache) -> list:
+    """The layers' entries of a flat cache, one item a layer in
+    ``cfg.layer_kinds()`` order: the entry, or a cross_mlp layer's
+    (PagedKV, CrossKV) pair. An encoder-decoder's EncOut is left out."""
+    out, i = [], 0
+    for kind in cfg.layer_kinds():
+        n = _layer_entries(kind)
+        out.append(cache[i] if n == 1 else tuple(cache[i:i + n]))
+        i += n
+    return out
+
+
+def flat(cfg: ModelConfig, entries: list) -> Cache:
+    """The inverse of :func:`by_layer` (without the EncOut)."""
+    out = []
+    for kind, e in zip(cfg.layer_kinds(), entries):
+        out.extend(e if _layer_entries(kind) > 1 else [e])
+    return out
+
+
 def _run_blocks(cfg: ModelConfig, params, x, ctx: FwdCtx,
                 cache: Optional[Cache]):
-    new_cache = [] if cache is not None else None
+    entries = by_layer(cfg, cache) if cache is not None else None
+    new = [] if cache is not None else None
     for li, (kind, p) in enumerate(layers(cfg, params)):
-        kv = cache[li] if cache is not None else None
-        x, kv = apply_layer(kind, p, x, ctx, kv)
-        if new_cache is not None:
-            new_cache.append(kv)
-    return x, new_cache
+        x, e = apply_layer(kind, p, x, ctx,
+                           entries[li] if entries is not None else None)
+        if new is not None:
+            new.append(e)
+    return x, (flat(cfg, new) if new is not None else None)
+
+
+def _run_encoder(cfg: ModelConfig, params, enc_x: torch.Tensor
+                 ) -> torch.Tensor:
+    """The encoder over ``enc_x`` (B, src_len, d): its blocks over the full
+    sequence, non-causal and without a cache (the reference runs them in
+    its ``"train"`` mode), then its final norm."""
+    ctx = FwdCtx(cfg=cfg, mode="prefill", causal=False)
+    x = enc_x.to(torch_dtype(cfg.activation_dtype))
+    enc = params["encoder"]
+    for blk in enc["blocks"]:
+        for i, kind in enumerate(cfg.enc_block_pattern):
+            x, _ = apply_layer(kind, blk[str(i)], x, ctx, None)
+    return rmsnorm(x, enc["final_ln"], cfg.norm_eps)
+
+
+def _cross_source(cfg: ModelConfig, params, batch) -> Optional[torch.Tensor]:
+    """What a prefill's cross-attention attends over: the encoder's output
+    over ``enc_x``, or ``img_x`` itself; None for a decoder alone."""
+    if cfg.is_encdec:
+        return _run_encoder(cfg, params, batch["enc_x"])
+    if cfg.n_image_tokens:
+        return batch["img_x"].to(torch_dtype(cfg.activation_dtype))
+    return None
 
 
 def _embed_in(cfg: ModelConfig, params, tokens):
@@ -183,16 +272,21 @@ def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     """``batch``: tokens (B, S) right-padded; lengths (B,) real lengths;
     optionally prefix_lens (B,) (tokens already resident in the shared pool;
     ``tokens`` then holds only each prompt's suffix) and write_tables (B, P)
-    (the scatter tables with shared entries NULLed). Returns the logits at
-    each row's last real token, (B, 1, V), and the cache."""
+    (the scatter tables with shared entries NULLed); ``enc_x`` or ``img_x``
+    where the arch has cross-attention. Returns the logits at each row's
+    last real token, (B, 1, V), and the cache."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     prefix_lens = batch.get("prefix_lens")
+    cross_x = _cross_source(cfg, params, batch)
     ctx = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths,
                  kv_prefix_lens=prefix_lens,
-                 write_tables=batch.get("write_tables"))
+                 write_tables=batch.get("write_tables"), cross_x=cross_x)
     x = _embed_in(cfg, params, tokens)
-    x, cache = _run_blocks(cfg, params, x, ctx, cache)
+    x, new = _run_blocks(cfg, params, x, ctx, cache)
+    if cache is not None and cfg.is_encdec:
+        new.append(EncOut(cross_x))
+    cache = new
     if lengths is None:
         x = x[:, -1:]
     else:
@@ -213,6 +307,8 @@ def forward_decode(cfg: ModelConfig, params, token: torch.Tensor, pos,
     """token: (B, 1) int; pos: (B,) or scalar current cache length."""
     ctx = FwdCtx(cfg=cfg, mode="decode", q_offset=pos)
     x = _embed_in(cfg, params, token)
-    x, cache = _run_blocks(cfg, params, x, ctx, cache)
+    x, new = _run_blocks(cfg, params, x, ctx, cache)
+    if cfg.is_encdec:
+        new.append(cache[-1])          # the encoder output, unchanged
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    return logits_fn(params["embed"], x, cfg.logit_softcap), cache
+    return logits_fn(params["embed"], x, cfg.logit_softcap), new

@@ -6,15 +6,17 @@ A spec walk over the same tree the JAX package builds
 initializers (``normal * fan_in**-0.5`` with ``fan_in = shape[-2]``,
 ``uniform_pm``: uniform in +-scale, ``ones``, ``zeros``), the 0.02
 embedding scale and the 1/sqrt(2L) residual damping of the reference's
-``_residual_init_damping`` (every ``wo``, ``w_down`` and ``out_proj``:
-attention's, rwkv time-mix's, an MoE layer's experts' and shared
-expert's, mamba's). Every leaf takes ``cfg.param_dtype`` but where its
+``_residual_init_damping`` (every ``wo``, ``w_down``, ``w2`` and
+``out_proj``: attention's and cross-attention's, rwkv time-mix's, an MoE
+layer's experts' and shared expert's, the 2-layer MLP's, mamba's; the
+encoder's at the decoder's depth too). Every leaf takes ``cfg.param_dtype`` but where its
 spec names a dtype: an MoE router, rwkv's decay (``w0``, ``w_lora_b``),
 bonus (``u``) and group-norm weight, and mamba's ``A_log``, ``dt_bias``
 and ``D`` are float32 whatever the parameters' dtype, as the reference's.
 The port keeps its blocks as a list of per-block dicts instead of one
-stacked tree (and ``first_k_dense`` dense layers under ``"first"``, as the
-reference); ``from_jax_params`` converts a JAX parameter tree (as numpy
+stacked tree (and ``first_k_dense`` dense layers under ``"first"``, and an
+encoder-decoder's encoder under ``"encoder"``, as the reference);
+``from_jax_params`` converts a JAX parameter tree (as numpy
 leaves) into that form.
 """
 from __future__ import annotations
@@ -33,9 +35,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # leaves as attn_mlp; attn_moe has the same attention and an MoE FFN
 # (models/moe.py); rwkv a time mix and a channel mix (models/rwkv6.py);
 # mamba and mamba_moe mamba's selective SSM (models/mamba.py) before a GLU
-# MLP or an MoE FFN.
+# MLP or an MoE FFN; xattn_mlp a gated cross-attention over image
+# embeddings in place of self-attention, cross_mlp self-attention then
+# cross-attention over the encoder's output.
 SERVED_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe", "attn", "rwkv",
-                "mamba", "mamba_moe")
+                "mamba", "mamba_moe", "xattn_mlp", "cross_mlp")
 MAMBA_KINDS = ("mamba", "mamba_moe")
 # layers that keep a per-slot state (scanned left to right) instead of KV
 RECURRENT_KINDS = MAMBA_KINDS + ("rwkv",)
@@ -84,11 +88,28 @@ def glu_specs(d: int, ff: int, damp: float) -> Dict[str, ParamSpec]:
             "w_down": residual((ff, d), damp)}
 
 
+def _attention_specs(cfg: ModelConfig, damp: float,
+                     cross: bool = False) -> Dict[str, ParamSpec]:
+    """Self-attention's projections (QKV biases where ``cfg.qkv_bias``), or
+    cross-attention's: no biases, and a scalar tanh ``gate`` from zero
+    (llama-vision's gated cross-attention; seamless's carries it too)."""
+    d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    out = {"wq": ParamSpec((d, hq, dh)), "wk": ParamSpec((d, hkv, dh)),
+           "wv": ParamSpec((d, hkv, dh)), "wo": residual((hq, dh, d), damp)}
+    if cfg.qkv_bias and not cross:
+        out["bq"] = ParamSpec((hq, dh), "zeros")
+        out["bk"] = ParamSpec((hkv, dh), "zeros")
+        out["bv"] = ParamSpec((hkv, dh), "zeros")
+    if cross:
+        out["gate"] = ParamSpec((), "zeros")
+    return out
+
+
 def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
     if kind not in SERVED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   f"(the port serves {SERVED_KINDS})")
-    d, dh, hq, hkv = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    d = cfg.d_model
     out: Dict[str, Any] = {"ln1": ParamSpec((d,), "ones")}
     if kind == "rwkv":                 # no MLP: the channel mix is its FFN
         from repro_torch.models.rwkv6 import (rwkv_channel_mix_specs,
@@ -100,21 +121,20 @@ def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
     if kind in MAMBA_KINDS:
         from repro_torch.models.mamba import mamba_specs
         out["mamba"] = mamba_specs(cfg, damp)
+    elif kind == "xattn_mlp":
+        out["xattn"] = _attention_specs(cfg, damp, cross=True)
     else:
-        attn = {"wq": ParamSpec((d, hq, dh)), "wk": ParamSpec((d, hkv, dh)),
-                "wv": ParamSpec((d, hkv, dh)),
-                "wo": residual((hq, dh, d), damp)}
-        if cfg.qkv_bias:
-            attn["bq"] = ParamSpec((hq, dh), "zeros")
-            attn["bk"] = ParamSpec((hkv, dh), "zeros")
-            attn["bv"] = ParamSpec((hkv, dh), "zeros")
-        out["attn"] = attn
+        out["attn"] = _attention_specs(cfg, damp)
+    if kind == "cross_mlp":
+        out["lnx"] = ParamSpec((d,), "ones")
+        out["xattn"] = _attention_specs(cfg, damp, cross=True)
     out["ln2"] = ParamSpec((d,), "ones")
     if kind in ("attn_moe", "mamba_moe"):
         from repro_torch.models.moe import moe_specs
         out["moe"] = moe_specs(cfg, damp)
-    elif cfg.act == "relu":
-        raise NotImplementedError("the 2-layer relu MLP is not ported")
+    elif cfg.act == "relu":            # seamless's 2-layer MLP
+        out["mlp"] = {"w1": ParamSpec((d, cfg.d_ff)),
+                      "w2": residual((cfg.d_ff, d), damp)}
     else:
         out["mlp"] = glu_specs(d, cfg.d_ff, damp)
     return out
@@ -122,11 +142,10 @@ def _layer_specs(cfg: ModelConfig, kind: str, damp: float) -> Dict[str, Any]:
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """{"embed": {"table"[, "head"]}, "final_ln", ["first": {"0": dense
-    layer, ...},] "blocks": [per-block {"0": layer, ...}]} of ParamSpecs."""
-    if cfg.is_encdec or cfg.n_image_tokens:
-        raise NotImplementedError(f"{cfg.name}: only decoders of "
-                                  f"{SERVED_KINDS} layers are ported "
-                                  "(no encoder, cross-attention or images)")
+    layer, ...},] "blocks": [per-block {"0": layer, ...}][, "encoder":
+    {"blocks": [per-block {"0": layer, ...}], "final_ln"}]} of ParamSpecs.
+    The encoder's residual projections are damped at the decoder's depth,
+    as the reference damps the whole tree."""
     damp = 1.0 / math.sqrt(2.0 * max(cfg.n_layers, 1))
     embed = {"table": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 0.02)}
     if not cfg.tie_embeddings:
@@ -139,6 +158,13 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.first_k_dense:
         out["first"] = {str(i): _layer_specs(cfg, "attn_mlp", damp)
                         for i in range(cfg.first_k_dense)}
+    if cfg.is_encdec:
+        n_enc = cfg.n_enc_layers // len(cfg.enc_block_pattern)
+        out["encoder"] = {
+            "blocks": [{str(i): _layer_specs(cfg, kind, damp)
+                        for i, kind in enumerate(cfg.enc_block_pattern)}
+                       for _ in range(n_enc)],
+            "final_ln": ParamSpec((cfg.d_model,), "ones")}
     return out
 
 
@@ -184,10 +210,10 @@ def materialize(specs, cfg: ModelConfig, generator: torch.Generator,
 def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """Turn the numpy leaves of a JAX ``init_params`` tree into the port's
-    parameters: stacked ``blocks`` leaves (leading ``(n_blocks,)`` axis)
-    become one dict per block; ``first`` is taken as it is. Shapes are
-    checked against the port's specs, and each leaf takes its spec's
-    dtype."""
+    parameters: stacked ``blocks`` leaves (leading ``(n_blocks,)`` axis),
+    the decoder's and the encoder's, become one dict per block; ``first``
+    is taken as it is. Shapes are checked against the port's specs, and
+    each leaf takes its spec's dtype."""
     dev = resolve_device(device)
     specs = model_specs(cfg)
 
@@ -207,13 +233,20 @@ def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
             return {k: walk(spec[k], arr[k]) for k in spec}
         return leaf(spec, arr)
 
-    blocks = [walk(spec, _map(lambda a, b=b: a[b], np_tree["blocks"]))
-              for b, spec in enumerate(specs["blocks"])]
+    def unstack(spec_blocks, stacked):
+        return [walk(spec, _map(lambda a, b=b: a[b], stacked))
+                for b, spec in enumerate(spec_blocks)]
+
     out = {"embed": walk(specs["embed"], np_tree["embed"]),
            "final_ln": leaf(specs["final_ln"], np_tree["final_ln"]),
-           "blocks": blocks}
+           "blocks": unstack(specs["blocks"], np_tree["blocks"])}
     if "first" in specs:
         out["first"] = walk(specs["first"], np_tree["first"])
+    if "encoder" in specs:
+        enc, np_enc = specs["encoder"], np_tree["encoder"]
+        out["encoder"] = {
+            "blocks": unstack(enc["blocks"], np_enc["blocks"]),
+            "final_ln": leaf(enc["final_ln"], np_enc["final_ln"])}
     return out
 
 

@@ -25,7 +25,8 @@ COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "configs/qwen2_7b.py",
           "core/serving/scheduler.py", "configs/deployment.py",
           "core/serving/disagg/workers.py", "core/serving/disagg/__init__.py",
           "configs/olmoe_1b_7b.py", "configs/kimi_k2_1t_a32b.py",
-          "configs/rwkv6_3b.py", "configs/jamba_1_5_large_398b.py")
+          "configs/rwkv6_3b.py", "configs/jamba_1_5_large_398b.py",
+          "configs/seamless_m4t_medium.py", "configs/llama3_2_vision_90b.py")
 
 
 def test_import_all_submodules_without_jax():
@@ -69,10 +70,13 @@ def test_copied_module_matches_original(rel):
 
 
 def test_registry_serves_only_ported_archs():
+    """Every arch of the reference, in its order, and nothing else."""
     from repro_torch.configs import ARCH_IDS, get_config
     assert ARCH_IDS == ("llama3.2-1b", "gemma2-2b", "llama3.2-3b", "qwen2-7b",
-                        "olmoe-1b-7b", "kimi-k2-1t-a32b", "rwkv6-3b",
-                        "jamba-1.5-large-398b")
+                        "olmoe-1b-7b", "kimi-k2-1t-a32b",
+                        "llama-3.2-vision-90b", "rwkv6-3b",
+                        "seamless-m4t-medium", "jamba-1.5-large-398b")
+    assert len(ARCH_IDS) == 10
     assert [get_config(a).name for a in ARCH_IDS] == list(ARCH_IDS)
     with pytest.raises(KeyError):
-        get_config("seamless-m4t-medium")
+        get_config("paper-soc")

@@ -46,7 +46,9 @@ from repro_torch.models.params import model_specs  # noqa: E402
 
 ARCHS = ("llama3.2-1b", "qwen2-7b", "llama3.2-3b", "gemma2-2b")
 RWKV, JAMBA = "rwkv6-3b", "jamba-1.5-large-398b"
-SPEC_ARCHS = ARCHS + ("olmoe-1b-7b", "kimi-k2-1t-a32b", RWKV, JAMBA)
+VISION, SEAMLESS = "llama-3.2-vision-90b", "seamless-m4t-medium"
+SPEC_ARCHS = ARCHS + ("olmoe-1b-7b", "kimi-k2-1t-a32b", RWKV, JAMBA, VISION,
+                      SEAMLESS)
 JAMBA_CUT = 5           # chip_smoke.py phase 3g's cut of jamba's period
 CHAOTIC = 0.5           # chip_smoke.py's threshold of the same name
 QK_SCALE = 0.1
@@ -54,8 +56,9 @@ STABLE = 0.05
 
 
 def _j_leaves(tree, path=()):
-    """(path, spec) of the reference's specs, the stacked blocks split into
-    the port's per-block dicts."""
+    """(path, spec) of the reference's specs, the stacked blocks (the
+    decoder's, and an encoder's under ``("encoder",)``) split into the
+    port's per-block dicts."""
     if is_spec(tree):
         yield path, tree
         return
@@ -63,7 +66,7 @@ def _j_leaves(tree, path=()):
         if k == "blocks":
             for name, layer in v.items():
                 for p, s in _j_leaves(layer):
-                    yield ("blocks", name) + p, s
+                    yield path + ("blocks", name) + p, s
         else:
             yield from _j_leaves(v, path + (k,))
 
@@ -84,9 +87,12 @@ def _flat(tree, cfg, path=()):
 def _ref_flat(cfg):
     """The same of the reference's specs, the blocks unstacked."""
     ref = {}
+    n_enc = cfg.n_enc_layers // len(cfg.enc_block_pattern)
     for path, s in _j_leaves(j_model_specs(cfg)):
-        shape = s.shape[1:] if path[0] == "blocks" else s.shape
-        assert path[0] != "blocks" or s.shape[0] == cfg.n_blocks
+        stacked = "blocks" in path[:2]
+        shape = s.shape[1:] if stacked else s.shape
+        assert not stacked or s.shape[0] == (
+            n_enc if path[0] == "encoder" else cfg.n_blocks)
         std = (s.scale if s.scale is not None else s.fan_in() ** -0.5) \
             if s.init in ("normal", "uniform_pm") else None
         ref[path] = (tuple(shape), s.init, std, jnp.dtype(s.dtype).name)
@@ -114,11 +120,19 @@ def test_init_distribution_equals_reference(arch):
 
 
 def _port_flat(tcfg):
+    """The port's specs flattened, each stack of blocks (the decoder's and
+    an encoder's) as its first block, which every other equals."""
     specs = model_specs(tcfg)
-    blocks = specs.pop("blocks")
-    assert len(blocks) == tcfg.n_blocks
-    assert all(_flat(b, tcfg) == _flat(blocks[0], tcfg) for b in blocks)
-    return {**_flat(specs, tcfg), **_flat(blocks[0], tcfg, ("blocks",))}
+    out = {}
+    for where in (specs, specs.get("encoder", {})):
+        if "blocks" not in where:
+            continue
+        blocks = where.pop("blocks")
+        assert all(_flat(b, tcfg) == _flat(blocks[0], tcfg) for b in blocks)
+        prefix = ("encoder",) if where is not specs else ()
+        out.update(_flat(blocks[0], tcfg, prefix + ("blocks",)))
+    assert len(model_specs(tcfg)["blocks"]) == tcfg.n_blocks
+    return {**_flat(specs, tcfg), **out}
 
 
 @pytest.mark.parametrize("arch,damped,fp32,uniform", [
@@ -151,6 +165,44 @@ def test_recurrent_leaves(arch, damped, fp32, uniform):
             assert std == uniform[layer(p)], p
     assert {layer(p) for p in got if got[p][1] == "uniform_pm"} == \
         set(uniform)
+
+
+@pytest.mark.parametrize("arch,damped,n_enc_blocks", [
+    (VISION, {("attn", "wo"), ("xattn", "wo"), ("mlp", "w_down")}, 0),
+    (SEAMLESS, {("attn", "wo"), ("xattn", "wo"), ("mlp", "w2")}, 12)])
+def test_cross_leaves(arch, damped, n_enc_blocks):
+    """Full size, bf16 parameters: the cross-attention's and the 2-layer
+    MLP's residual projections damped by 1/sqrt(2L) at the decoder's depth
+    (the encoder's too), the cross gate a zero scalar, no cross biases, and
+    the encoder's blocks and final norm."""
+    tcfg = tconfigs.get_config(arch)
+    got = _port_flat(tcfg)
+    damp = (2.0 * tcfg.n_layers) ** -0.5
+    stacks = [("blocks",)] + ([("encoder", "blocks")] if n_enc_blocks else [])
+    seen = set()
+    for p, (shape, init, std, dt) in got.items():
+        stack = next((s for s in stacks if p[:len(s)] == s), None)
+        if stack is None or init != "normal":
+            continue
+        layer = p[len(stack) + 1:]
+        if std != pytest.approx(_undamped(shape)):
+            assert layer in damped, p
+            assert std == pytest.approx(_undamped(shape) * damp), p
+            seen.add(layer)
+    assert seen == damped
+    gates = {p: v for p, v in got.items() if p[-1] == "gate"}
+    assert gates and all(v == ((), "zeros", None, "bfloat16")
+                         for v in gates.values())
+    assert not [p for p in got if "xattn" in p and p[-1].startswith("b")]
+    specs = model_specs(tcfg)
+    if n_enc_blocks:
+        assert len(specs["encoder"]["blocks"]) == n_enc_blocks
+        assert got[("encoder", "final_ln")] == ((tcfg.d_model,), "ones",
+                                                None, "bfloat16")
+        assert {p[3:] for p in got if p[:2] == ("encoder", "blocks")} >= {
+            ("attn", "wo"), ("mlp", "w1"), ("mlp", "w2")}
+    else:
+        assert "encoder" not in specs
 
 
 def _undamped(shape):

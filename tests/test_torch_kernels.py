@@ -860,7 +860,11 @@ def test_decode_bf16_within_1e3_on_card(cuda, per_slot):
 # bf16 cases of the wgmma kernel on the card: ragged Sq/Skv, non-causal,
 # window, softcap, q_offset past Skv - Sq, and rows that see no key (the
 # fifth case's rows 27..69: a window of 8 back from q_pos >= 127 finds no
-# key of 0..119), which must come out 0.
+# key of 0..119), which must come out 0. Then fewer query rows than one
+# consumer warpgroup's 64 (the TMA box of 128 rows reads zeros past Sq):
+# cross-attention's decode (Sq = 1, non-causal, GQA) over sources shorter
+# and longer than a KV tile, a few rows causal with an offset, and a
+# source of 9 keys.
 FLASH_CARD_BF16 = [
     (2, 100, 100, 8, 2, 64, True, None, 50.0, 0),
     (1, 130, 130, 4, 4, 128, False, None, None, 0),
@@ -869,6 +873,12 @@ FLASH_CARD_BF16 = [
     (1, 70, 120, 2, 1, 64, True, 8, None, 100),
     (2, 129, 129, 2, 2, 256, False, 32, None, 0),
     (1, 200, 260, 8, 2, 64, True, 100, None, 60),
+    (3, 1, 200, 8, 2, 64, False, None, None, 0),
+    (2, 1, 77, 8, 1, 128, False, None, None, 0),
+    (2, 1, 16, 4, 4, 64, False, None, None, 0),
+    (2, 5, 100, 4, 2, 256, False, None, None, 0),
+    (1, 33, 70, 4, 2, 64, True, None, None, 37),
+    (1, 17, 9, 4, 4, 128, False, None, None, 0),
 ]
 
 
