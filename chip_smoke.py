@@ -145,6 +145,27 @@ Phases (each prints one line; any failure exits non-zero):
      mergesort (block_sort and the merge kernels) at n = 65536 and 2^26 in
      fp32, bf16 and int32, plus NaN cases: bit for bit against its plain
      version, as values against torch.sort, launch counts, times, bounds.
+  6. training at full width: llama3.2-1b as get_config gives it (16
+     layers, bf16, remat "full"), B 4 x 2048. (a) The flash kernel's
+     output and log-sum-exp at that shape against the plain version (out
+     bit for bit with and without lse), the forward's time with lse and
+     without, and the autograd Function's dq, dk, dv with the kernel's
+     forward against the plain forward's (one backward, plain PyTorch,
+     timed); (b) one loss and backward on the kernel path and with the
+     plain flash forward: the loss within 2e-3 (1e-4 on q/k-scaled
+     weights, where attention is not chaotic), each leaf's gradient within
+     5e-2 of its largest value, two flash launches a layer, beside two
+     readings that place those limits: the plain path at half the KV chunk
+     (sound) and the kernel path with its lse off by 0.1 (a planted fault,
+     which must miss the gradient limit); then the bare step's ms
+     (make_train_step outside the launcher), on one batch, and again with
+     the data pipeline's prefetch thread drawing batches beside it, and the
+     pipeline's time for one batch alone; (c) the train launcher (python
+     -m repro_torch.launch.train) for 6 steps: every loss finite, ms a step
+     (the launcher's own, the step alone) and its wall time a step (the
+     wait for data included), tokens/s, peak GiB, flash launches a step,
+     counted from 0 just before; (d) its restart recipe at smoke size on
+     the card.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -155,6 +176,10 @@ builds the decode kernel and runs phase 2's decode rows alone, then the
 precision row, importing repro_torch from DIR (another tree's src/) if
 given: two trees timed in turns, one process each (the cancellation case
 comes from this script's own tree).
+
+    python3 chip_smoke.py --train-only
+
+builds the flash kernel and runs phase 6 alone.
 """
 from __future__ import annotations
 
@@ -2715,6 +2740,342 @@ def _sort_rows(sort: dict) -> list:
     return out
 
 
+# ------------------------------------------------------------------ phase 6
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_STEPS = 6
+LSE_TOL = 1e-3          # fp32 sums in another order, |lse| <= ~10
+# kernel path against plain-attention path, a limit for each weight set:
+# ~4x the largest sound reading on the chaotic weights as built (the
+# control, 4.6e-4; the kernel path 1.4e-4), ~25x the kernel path's on the
+# scaled ones (4.1e-6; the control 1.6e-7)
+TRAIN_LOSS_REL = {"built": 2e-3, "scaled": 1e-4}
+TRAIN_GRAD_REL = 5e-2   # a leaf's max |d| / max |g|, phase 3e's limit
+TRAIN_DQKV_REL = 2e-2   # the flash backward fed by the kernel or the plain
+                        # forward: the residuals differ by bf16 roundings
+LSE_FAULT = 0.1         # the planted fault: every lse off by 0.1, so the
+                        # backward's P is off by ~10%
+
+
+def _plain_flash():
+    """The port's attention with its flash forward replaced by the plain
+    version (lse included), to hold the kernel path against; a comparison
+    here, never a path the port takes."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as attn
+    return mock.patch.object(attn, "flash_attention_fwd", flash_attention_ref)
+
+
+def _train_flash() -> dict:
+    """(a) The flash kernel at the training shape (llama3.2-1b's attention
+    over B 4 x 2048, bf16, causal): out and lse against the plain version;
+    the forward's time with and without lse, the plain version's and
+    SDPA's (K/V repeated to Hq); dq, dk, dv of the autograd
+    Function with the kernel's forward against the plain forward's (one
+    backward, plain PyTorch); the backward's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as attn
+    cfg = get_config(TRAIN_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    q, k, v = _flash_inputs(g, torch.bfloat16, TRAIN_B, TRAIN_S, TRAIN_S,
+                            cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0)
+    chunks = dict(q_chunk=cfg.flash_q_chunk, kv_chunk=cfg.flash_kv_chunk)
+    check = _flash_check(q, k, v, kw)
+    out, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = flash_attention_ref(q, k, v, **kw, **chunks,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_attention_fwd(q, k, v, **kw)), \
+        "flash: out differs with and without lse"
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert torch.isfinite(lse).all() and lse_err <= LSE_TOL, \
+        f"flash lse: err {lse_err} > {LSE_TOL}"
+    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw))
+    ms_lse = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw,
+                                                 return_lse=True))
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw, **chunks),
+                       warmup=1, iters=3)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    del qt, kt, vt
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+
+    def grads():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = attn.flash_attention(*leaves, **kw, **chunks)
+        return torch.autograd.grad(o, leaves, do)
+
+    ours = grads()
+    with _plain_flash():
+        plain = grads()
+    torch.cuda.synchronize()
+    rel = {n: ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+           for n, a, b in zip(("dq", "dk", "dv"), ours, plain)}
+    assert all(r <= TRAIN_DQKV_REL for r in rel.values()), \
+        f"flash backward, kernel against plain forward: {rel}"
+    bwd_ms = cuda_ms(lambda: attn.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw, **chunks), warmup=1, iters=5)
+    fl = _flash_flops(TRAIN_B, TRAIN_S, TRAIN_S, cfg.n_heads, cfg.d_head,
+                      True, None, 0)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bound, by = _bound(nbytes + lse.numel() * 4, fl, q.dtype)
+    row = dict(shape=[TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.d_head], **check, lse_err=lse_err, lse_tol=LSE_TOL,
+               ms=ms, ms_lse=ms_lse, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound, bound_by=by,
+               grad_rel_kernel_vs_plain_fwd=rel, grad_rel_tol=TRAIN_DQKV_REL,
+               plain_bwd_ms=bwd_ms)
+    emit("phase6 train flash", **row)
+    return row
+
+
+def _train_batch(cfg, g) -> dict:
+    mk = lambda: torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                               generator=g, device="cuda")
+    return {"tokens": mk(), "labels": mk()}
+
+
+@contextlib.contextmanager
+def _lse_fault():
+    """The kernel path with every row's lse off by LSE_FAULT: a planted
+    fault the gradient gate must catch (the forward's output is exact)."""
+    from repro_torch.kernels import flash_attention_fwd
+    from repro_torch.models import attention as attn
+
+    def faulty(*a, return_lse=False, **kw):
+        res = flash_attention_fwd(*a, return_lse=return_lse, **kw)
+        return (res[0], res[1] + LSE_FAULT) if return_lse else res
+
+    with mock.patch.object(attn, "flash_attention_fwd", faulty):
+        yield
+
+
+def _grad_rel(grads, ref) -> list:
+    """Each leaf's max |d| over the reference leaf's max |g|."""
+    from repro_torch.tree import leaves
+    return [((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp(min=1e-30)).item()
+            for a, b in zip(leaves(grads), leaves(ref))]
+
+
+def _train_grads(cfg, params, batch) -> dict:
+    """(b) One full-width bf16 loss and backward on the kernel path and on
+    the plain-attention path, first on the weights as built, then on the
+    same weights with every wq and wk x 0.1 (phase 3e's scaling, under
+    which attention is not chaotic). Two readings on each, against the
+    plain path: the control, the plain path at half the KV chunk (another
+    summation order of the same function: what a sound path reads), and
+    the planted fault, the kernel path with its lse off by LSE_FAULT
+    (what a faulty backward reads). Gates: the loss within TRAIN_LOSS_REL
+    on each; each leaf's gradient within TRAIN_GRAD_REL of its largest
+    value on the scaled weights, and on the weights as built too where
+    the control reads below CHAOTIC (otherwise the init's chaos, a
+    reading); the planted fault past TRAIN_GRAD_REL on the scaled
+    weights; two flash launches a layer on the kernel path."""
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.tree import leaves
+    row = dict(loss_tol=TRAIN_LOSS_REL, grad_tol=TRAIN_GRAD_REL,
+               lse_fault=LSE_FAULT)
+    half = dataclasses.replace(cfg, flash_kv_chunk=cfg.flash_kv_chunk // 2)
+    rel = lambda a, b: abs(a.item() - b.item()) / abs(b.item())
+    for name, p in (("built", params), ("scaled", _qk_scaled(params))):
+        reset_launch_counts()
+        loss, grads = loss_and_grads(cfg, p, batch)
+        torch.cuda.synchronize()
+        launches = flash_attention_fwd.launches
+        assert launches == 2 * cfg.n_layers, launches
+        assert all(torch.isfinite(t).all().item() for t in leaves(grads))
+        with _plain_flash():
+            ploss, pgrads = loss_and_grads(cfg, p, batch)
+            rels = _grad_rel(grads, pgrads)
+            del grads
+            closs, cgrads = loss_and_grads(half, p, batch)
+            control = _grad_rel(cgrads, pgrads)
+            del cgrads
+        with _lse_fault():
+            floss, fgrads = loss_and_grads(cfg, p, batch)
+            fault = _grad_rel(fgrads, pgrads)
+            del fgrads
+        del pgrads
+        row[name] = dict(loss=loss.item(), plain_loss=ploss.item(),
+                         loss_rel=rel(loss, ploss),
+                         grad_rel_max=max(rels),
+                         grad_rel_median=statistics.median(rels),
+                         control_loss_rel=rel(closs, ploss),
+                         control_rel_max=max(control),
+                         control_rel_median=statistics.median(control),
+                         fault_loss_rel=rel(floss, ploss),
+                         fault_rel_max=max(fault),
+                         fault_rel_median=statistics.median(fault),
+                         leaves=len(rels), flash_launches=launches)
+    row["chaotic"] = row["built"]["control_rel_max"] >= CHAOTIC
+    emit("phase6 train grads", **row)
+    for name in ("built", "scaled"):
+        assert row[name]["loss_rel"] <= TRAIN_LOSS_REL[name], row
+    assert row["scaled"]["grad_rel_max"] <= TRAIN_GRAD_REL, row
+    assert row["scaled"]["fault_rel_max"] > TRAIN_GRAD_REL, row
+    assert row["chaotic"] or row["built"]["grad_rel_max"] <= TRAIN_GRAD_REL, \
+        row
+    return row
+
+
+def _bare_steps(cfg, params, batch, n: int = 3,
+                data_thread: bool = False) -> dict:
+    """ms of make_train_step's step on one batch, outside the launcher,
+    after one step of warm-up; with ``data_thread``, while the launcher's
+    data pipeline (its prefetch thread) draws batches beside it."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    step = make_train_step(cfg, TrainConfig(total_steps=n + 1,
+                                            warmup_steps=1))
+    opt = init_opt_state(params)
+    data = (make_pipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, SEED)
+            if data_thread else None)
+    times = []
+    try:
+        for _ in range(n + 1):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            loss = m["loss"].item()
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert np.isfinite(loss), loss
+    finally:
+        if data is not None:
+            data.close()
+    return dict(ms=times[1:], ms_median=statistics.median(times[1:]))
+
+
+def _data_batch_ms(cfg, n: int = 2) -> list:
+    """ms for the launcher's synthetic data to draw one (TRAIN_B, TRAIN_S)
+    batch, on this thread with nothing beside it."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    it = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                SEED)).batches()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        next(it)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _run_launcher(argv) -> str:
+    """``repro_torch.launch.train.main(argv)``, its output echoed and
+    returned."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    assert rc == 0, rc
+    return out
+
+
+def _launcher_full_width() -> dict:
+    """(c) ``python -m repro_torch.launch.train`` at full width for
+    TRAIN_STEPS steps (its synthetic data, B 4 x 2048): every loss
+    finite; ms a step (the launcher's own, the step alone: median of the
+    steps after the first), its wall time a step (the launcher's "[train]
+    done" time over the steps: the first step and the waits for data
+    included), tokens/s on each, peak GiB and flash launches a step,
+    counted from 0 just before the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    layers = get_config(TRAIN_ARCH).n_layers
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    out = _run_launcher(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                         "--log-every", "1"])
+    launches = flash_attention_fwd.launches
+    wgmma = flash_attention_fwd.wgmma_launches
+    steps = [ln.split() for ln in out.splitlines() if ln.startswith("step ")]
+    losses = [float(s[3]) for s in steps]
+    ms = [float(s[-1].removesuffix("ms")) for s in steps]
+    done = [ln.split() for ln in out.splitlines()
+            if ln.startswith("[train] done")]
+    assert len(steps) == TRAIN_STEPS and all(np.isfinite(losses)), out
+    assert launches == wgmma == 2 * layers * TRAIN_STEPS, launches
+    med = statistics.median(ms[1:])
+    # "[train] done <n> steps in <s>s; stragglers=<k>"
+    wall = float(done[-1][5].removesuffix("s;")) / TRAIN_STEPS * 1e3
+    row = dict(losses=losses, ms=ms, ms_a_step=med,
+               tokens_per_s=TRAIN_B * TRAIN_S / (med / 1e3),
+               wall_ms_a_step=wall,
+               tokens_per_s_wall=TRAIN_B * TRAIN_S / (wall / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               resident_gib=base / 2 ** 30,
+               flash_launches=launches,
+               flash_launches_a_step=launches / TRAIN_STEPS)
+    emit("phase6 train launcher", **row)
+    return row
+
+
+def _launcher_restart() -> dict:
+    """(d) The restart recipe at smoke size on the card: a failure injected
+    at step 7 restores the checkpoint of step 5 and the run ends."""
+    import tempfile
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix=".train_ck_", dir=HERE) as ck:
+        out = _run_launcher(["--arch", TRAIN_ARCH, "--smoke", "--steps", "12",
+                             "--batch", "2", "--seq", "32", "--ckpt-dir", ck,
+                             "--ckpt-every", "5", "--inject-failure-at", "7",
+                             "--log-every", "100"])
+    lines = ("injected worker failure at step 7", "restored step 5",
+             "[train] done")
+    row = {ln: ln in out for ln in lines}
+    row["flash_launches"] = flash_attention_fwd.launches
+    emit("phase6 train restart", **row)
+    assert all(row[ln] for ln in lines) and row["flash_launches"] > 0, row
+    return row
+
+
+def phase_train() -> dict:
+    """6. Training at full width (llama3.2-1b as get_config gives it: 16
+    layers, bf16, remat "full"): (a) flash's lse and the backward it
+    feeds, (b) one loss and backward, kernel against plain attention, then
+    the bare step's time, (c) the train launcher for TRAIN_STEPS steps,
+    (d) its restart recipe at smoke size. Nothing here runs the garbage
+    collector: memory a step left in a reference cycle would show in
+    ``resident_gib`` and the peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    res = {"flash": _train_flash()}
+    cfg = get_config(TRAIN_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    params = init_params(cfg, g, "cuda")
+    batch = _train_batch(cfg, g)
+    res["grads"] = _train_grads(cfg, params, batch)
+    bare = _bare_steps(cfg, params, batch)
+    threaded = _data_batch_ms(cfg), _bare_steps(cfg, params, batch,
+                                                data_thread=True)
+    del params, batch
+    res["bare"] = dict(bare_ms=bare["ms"], bare_ms_median=bare["ms_median"],
+                       data_batch_ms=threaded[0],
+                       bare_ms_data_thread=threaded[1]["ms"],
+                       bare_ms_data_thread_median=threaded[1]["ms_median"])
+    emit("phase6 train bare step", **res["bare"])
+    res["launcher"] = _launcher_full_width()
+    res["restart"] = _launcher_restart()
+    return res
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -2744,6 +3105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=None,
                     help="import repro_torch from this directory instead "
                          "of the script's own src/ (with --decode-only)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build the flash kernel and run phase 6 only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -2758,6 +3121,11 @@ def main(argv=None) -> int:
         phase_card(["paged_attention"])
         phase_decode()
         _decode_precision()
+        return 0
+    if args.train_only:
+        phase_card(["flash_attention"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phase_train()
         return 0
     phase_card()
     res = phase_kernels()
@@ -2774,6 +3142,7 @@ def main(argv=None) -> int:
         phase_cross_check(arch)
     paper = phase_paper_kernels()
     sort = phase_mergesort()
+    train = phase_train()
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
@@ -2841,6 +3210,11 @@ def main(argv=None) -> int:
                                  if r["dtype"] == str(torch.float32)),
          **{k: fl[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")},
+         "launches_train": train["launcher"]["flash_launches"],
+         "launches_train_a_step": train["launcher"]["flash_launches_a_step"],
+         "train_shape": {k: train["flash"][k] for k in (
+             "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
+             "library_ms", "bound_ms", "bound_by", "plain_bwd_ms")},
          "cases": flash_rows},
     ]
     replaces = {"gemm": "src/repro/kernels/gemm/kernel.py:35",

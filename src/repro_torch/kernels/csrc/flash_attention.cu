@@ -44,6 +44,10 @@
 // In both, GQA is native: q head h reads KV head h / G, with no repeated
 // copy of K/V. As in the reference, the probabilities are rounded to the
 // value type before the P @ V product, and the row sum adds them unrounded.
+// Given an lse buffer, both also write each row's log-sum-exp in their
+// epilogue, the residual the training path's backward recomputes scores
+// from (the reference's ``core_fwd`` saves the same): (B, Sq, Hq) fp32,
+// (m if finite else 0) + ln(max(l, 1e-20)). Serving passes none.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -70,9 +74,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T, int D>
 __global__ void __launch_bounds__(kBQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int s_q, int s_kv,
-                 int hq, int hkv, int causal, int window, int q_offset, float scale,
-                 float softcap) {
+                 const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                 int s_q, int s_kv, int hq, int hkv, int causal, int window, int q_offset,
+                 float scale, float softcap) {
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);   // [kBK][D]
   float* v_s = k_s + kBK * D;                     // [kBK][D]
@@ -171,13 +175,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l, 1e-20f);
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = from_f<T>(acc[d] / den);
+    // The reference's convention: a row with no visible key reads log(1e-20).
+    if (lse != nullptr)
+      lse[((size_t)b * s_q + qi) * hq + h] = (isinf(m) ? 0.f : m) + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s_q,
-           int s_kv, int hq, int hkv, int causal, int window, int q_offset, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           int s_q, int s_kv, int hq, int hkv, int causal, int window, int q_offset,
+           float scale, float softcap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * (size_t)kBK * D;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -186,23 +193,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s_
   dim3 grid((s_q + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<T, D><<<grid, kBQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s_q, s_kv, hq, hkv, causal, window, q_offset, scale,
+      static_cast<T*>(out), lse, s_q, s_kv, hq, hkv, causal, window, q_offset, scale,
       softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int b, int s_q,
-               int s_kv, int hq, int hkv, int d, int causal, int window, int q_offset,
-               float scale, float softcap, cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+               int s_q, int s_kv, int hq, int hkv, int d, int causal, int window,
+               int q_offset, float scale, float softcap, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
-                                  q_offset, scale, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
-                                  q_offset, scale, softcap, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, causal,
+                                  window, q_offset, scale, softcap, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, causal,
+                                  window, q_offset, scale, softcap, stream);
     case 64:   // bf16 at 64 runs the wgmma kernel
       if constexpr (std::is_same_v<T, float>)
-        return launch<T, 64>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal, window,
+        return launch<T, 64>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, causal, window,
                              q_offset, scale, softcap, stream);
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
@@ -212,21 +219,22 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int b, in
 }  // namespace
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D), all
-// contiguous. dtype: 0 = float32 (d 16, 32, 64), 1 = bfloat16 (d 16, 32).
-// window <= 0 and softcap <= 0 mean none. Returns the cudaError_t of the
-// launch (0 = success).
+// contiguous; lse: (B, Sq, Hq) float32, or null for none. dtype: 0 = float32
+// (d 16, 32, 64), 1 = bfloat16 (d 16, 32). window <= 0 and softcap <= 0 mean
+// none. Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                          void* out, int dtype, int b, int s_q, int s_kv,
-                                          int hq, int hkv, int d, int causal, int window,
-                                          int q_offset, float scale, float softcap,
-                                          void* stream) {
+                                          void* out, void* lse, int dtype, int b, int s_q,
+                                          int s_kv, int hq, int hkv, int d, int causal,
+                                          int window, int q_offset, float scale,
+                                          float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (b == 0 || s_q == 0) return 0;
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, b, s_q, s_kv, hq, hkv, d, causal, window,
+    return dispatch_d<float>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, d, causal, window,
                              q_offset, scale, softcap, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, b, s_q, s_kv, hq, hkv, d, causal,
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, d, causal,
                                      window, q_offset, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -281,9 +289,9 @@ __global__ void __launch_bounds__(kThreadsW, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ out, int s_q, int s_kv, int hq,
-                       int hkv, int causal, int window, int q_offset, float scale,
-                       float softcap) {
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                       int s_q, int s_kv, int hq, int hkv, int causal, int window,
+                       int q_offset, float scale, float softcap) {
   using C = WgCfg<D>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -452,7 +460,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(empty_bar + 8 * st);
     }
 
-    // Epilogue: the quad's row sums, then O / max(l, 1e-20) in bf16.
+    // Epilogue: the quad's row sums, then O / max(l, 1e-20) in bf16, and
+    // lse = m + ln(max(l, 1e-20)): m is kept in natural units (only the
+    // exponentials go through exp2f), so l is a sum of exp(s - m).
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
@@ -468,14 +478,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             *reinterpret_cast<__nv_bfloat162*>(orow + 64 * s + 8 * g + c0) =
                 __floats2bfloat162_rn(o[s][4 * g + 2 * x] / den,
                                       o[s][4 * g + 2 * x + 1] / den);
+        if (lse != nullptr && c0 == 0)
+          lse[((size_t)b * s_q + row) * hq + h] = (isinf(m[x]) ? 0.f : m[x]) + logf(den);
       }
     }
   }
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b,
-                 int s_q, int s_kv, int hq, int hkv, int causal, int window,
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                 int b, int s_q, int s_kv, int hq, int hkv, int causal, int window,
                  int q_offset, float scale, float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int e = hopper::encode_bshd_bf16(&tq, q, b, s_q, hq, D, kBQW);
@@ -489,32 +501,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s_q + kBQW - 1) / kBQW, hq, b);
   flash_fwd_wgmma_kernel<D><<<grid, kThreadsW, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s_q, s_kv, hq, hkv, causal, window,
-      q_offset, scale, softcap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, s_q, s_kv, hq, hkv, causal,
+      window, q_offset, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 only. q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D),
-// all contiguous with 16-byte-aligned bases; d is 64, 128 or 256. window
+// all contiguous with 16-byte-aligned bases; lse: (B, Sq, Hq) float32, or
+// null for none; d is 64, 128 or 256. window
 // <= 0 and softcap <= 0 mean none. Returns the cudaError_t of the launch
 // (0 = success), or a negative code when a tensor map cannot be encoded
 // (-1: the CUDA driver has no encoder; -(1000 + CUresult): the map is
 // refused).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                            void* out, int b, int s_q, int s_kv,
-                                            int hq, int hkv, int d, int causal,
+                                            void* out, void* lse, int b, int s_q,
+                                            int s_kv, int hq, int hkv, int d, int causal,
                                             int window, int q_offset, float scale,
                                             float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (b == 0 || s_q == 0) return 0;
   switch (d) {
-    case 64: return launch_wgmma<64>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+    case 64: return launch_wgmma<64>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
                                      window, q_offset, scale, softcap, s);
-    case 128: return launch_wgmma<128>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+    case 128: return launch_wgmma<128>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
                                        window, q_offset, scale, softcap, s);
-    case 256: return launch_wgmma<256>(q, k, v, out, b, s_q, s_kv, hq, hkv, causal,
+    case 256: return launch_wgmma<256>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
                                        window, q_offset, scale, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -3,9 +3,11 @@
 ``flash_attention_fwd`` takes the plain version for tensors on the CPU and
 launches one of the two kernels of ``csrc/flash_attention.cu`` for tensors
 on a CUDA device, chosen by ``kernel_for(dtype, head_dim)`` alone; it never
-falls back from one to another. ``flash_attention_fwd.launches`` counts
-every kernel launch, ``flash_attention_fwd.wgmma_launches`` those of the
-wgmma kernel.
+falls back from one to another. With ``return_lse`` both kernels also
+write each row's log-sum-exp, which the training path's backward
+(``models/attention.py``) recomputes its scores from.
+``flash_attention_fwd.launches`` counts every kernel launch,
+``flash_attention_fwd.wgmma_launches`` those of the wgmma kernel.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ def _launch_fn(kind: str):
         else:
             fn = lib.flash_attention_fwd_launch
             n_int = 10                          # and the dtype code
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launchers[kind] = fn
@@ -78,17 +80,21 @@ def _check(q, k, v):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, q_offset: int = 0,
-                        kv_chunk: int = 1024, q_chunk: int = 512
-                        ) -> torch.Tensor:
+                        kv_chunk: int = 1024, q_chunk: int = 512,
+                        return_lse: bool = False):
     """Attention forward with native GQA. q: (B, Sq, Hq, D); k, v:
     (B, Skv, Hkv, D). Masks: causal ``kv_pos <= q_pos``, ``window``
     ``q_pos - kv_pos < window``, with ``q_pos = row + q_offset``. The chunk
-    sizes shape only the plain version's loop. Returns (B, Sq, Hq, D)."""
+    sizes shape only the plain version's loop. Returns (B, Sq, Hq, D), and
+    with ``return_lse`` also the rows' log-sum-exp (B, Sq, Hq) fp32 in the
+    reference's convention: ``(m if finite else 0) + log(max(l, 1e-20))``,
+    so a row with no visible key reads log(1e-20)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset,
-                                   kv_chunk=kv_chunk, q_chunk=q_chunk)
+                                   kv_chunk=kv_chunk, q_chunk=q_chunk,
+                                   return_lse=return_lse)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     kind = kernel_for(q.dtype, D)
@@ -97,10 +103,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window <= 0:
         raise ValueError(f"window={window} must be positive")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("the wgmma kernel's TMA loads need q, k, v and out "
                          "at 16-byte-aligned addresses")
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None]
     if kind == "simt":
         args.append(_DTYPES[q.dtype])
     args += [B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
@@ -116,7 +125,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention_fwd.launches += 1
     if kind == "wgmma":
         flash_attention_fwd.wgmma_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the flash-attention forward kernel: a port of the
 forward of ``repro/models/attention.py::flash_attention`` (double-chunked
 online softmax, GQA by repeating K/V, causal / window / q_offset masks,
-softcap, probabilities cast to the value dtype before P @ V)."""
+softcap, probabilities cast to the value dtype before P @ V), and of the
+log-sum-exp its ``fwd_blocks`` saves for the backward."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,9 +31,11 @@ def _block_mask(q_pos, kv_pos, causal: bool, window: Optional[int]):
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, q_offset: int = 0,
-                        kv_chunk: int = 1024, q_chunk: int = 512
-                        ) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). Returns (B, Sq, Hq, D)."""
+                        kv_chunk: int = 1024, q_chunk: int = 512,
+                        return_lse: bool = False):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). Returns (B, Sq, Hq, D),
+    and with ``return_lse`` also the rows' log-sum-exp (B, Sq, Hq) fp32:
+    ``(m if finite else 0) + log(max(l, 1e-20))``."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -43,7 +46,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     QC = _chunk_of(Sq, q_chunk)
     scale = D ** -0.5
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for i in range(Sq // QC):
         qi = q[:, i * QC:(i + 1) * QC].float()
         q_pos = i * QC + torch.arange(QC, device=dev) + q_offset
@@ -69,5 +72,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + torch.einsum(
                 "bqhc,bchd->bqhd", p.to(vj.dtype).float(), vj.float())
             m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        l = torch.clamp(l, min=1e-20)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+                    + torch.log(l))
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(lses, dim=1)) if return_lse else out

@@ -1,14 +1,18 @@
-"""Attention on the serving path (port of ``repro/models/attention.py``,
-serving subset): GQA projections (self- and cross-attention, the latter
-gated), flash attention for prefill and for cross-attention, the paged KV
-cache in both layouts (the GLOBAL shared pool of zero-copy serving and the
-PER-SLOT pools of the copy baseline) with its append and decode attention,
-and prefix-context attention.
+"""Attention (port of ``repro/models/attention.py``, without the
+sequence-parallel decode): GQA projections (self- and cross-attention, the
+latter gated), flash attention for training, prefill and cross-attention,
+with its backward, the paged KV cache in both layouts (the GLOBAL shared
+pool of zero-copy serving and the PER-SLOT pools of the copy baseline)
+with its append and decode attention, and prefix-context attention.
 
 ``flash_attention`` and ``paged_decode_attention`` run the hand-written CUDA
 kernels for tensors on a CUDA device and their plain versions on the CPU
-(the dispatch is in the kernel wrappers). ``prefix_context_attention`` is
-plain PyTorch on both, as its JAX original is dense XLA code.
+(the dispatch is in the kernel wrappers). Where autograd records,
+``flash_attention`` is a ``torch.autograd.Function`` whose forward asks the
+kernel for the rows' log-sum-exp too and whose backward,
+``flash_attention_bwd``, is plain PyTorch, as the reference's ``core_bwd``
+is jnp under ``jax.custom_vjp`` (no Pallas kernel). ``prefix_context_attention``
+is plain PyTorch on both, as its JAX original is dense XLA code.
 
 In-place updates: JAX returns new pools from every write (and the engine
 donates the cache). Here ``paged_append`` writes the pools in place and
@@ -21,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ref import _block_mask, _chunk_of
 from repro_torch.kernels.paged_attention.ops import paged_decode
 from repro_torch.kernels.paged_attention.ref import \
     gather_global_pages as _gather
@@ -70,12 +75,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     kv_chunk: int = 1024, q_chunk: int = 512) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D), forward
-    only. Native GQA: K/V are not repeated."""
-    return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window, softcap=softcap,
-                               q_offset=q_offset, kv_chunk=kv_chunk,
-                               q_chunk=q_chunk)
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D). Native
+    GQA: K/V are not repeated. Differentiable where autograd records (a
+    gradient is wanted for q, k or v): the forward then also keeps the
+    rows' log-sum-exp, and the backward is :func:`flash_attention_bwd`.
+    Otherwise (serving) it is the forward alone, with no residuals."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset, kv_chunk=kv_chunk, q_chunk=q_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kw)
+    return flash_attention_fwd(q, k, v, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` core: saves (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw), None)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_offset: int = 0,
+                        kv_chunk: int = 1024, q_chunk: int = 512):
+    """(dq, dk, dv) of flash attention from its residuals (``lse`` (B, Sq,
+    Hq) fp32), as the reference's ``core_bwd``: ``delta = sum(do * out)``,
+    each (q chunk, kv chunk) score block recomputed from ``lse`` in fp32
+    (the softcap's derivative at the score before the cap, the masks as in
+    the forward), fp32 sums, the results cast to the inputs' dtypes. K/V
+    are repeated to the Hq heads for the products, and each group's G
+    heads sum into its KV head, as ``jnp.repeat``'s transpose does. A block
+    every entry of which the causal or window mask hides adds exact zeros
+    in the reference, and is skipped here."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kr = k.repeat_interleave(G, dim=2) if G > 1 else k
+    vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+    C, QC = _chunk_of(Skv, kv_chunk), _chunk_of(Sq, q_chunk)
+    scale = D ** -0.5
+    dev = q.device
+    delta = (do.float() * out.float()).sum(-1)                 # (B, Sq, H)
+    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Skv, Hq, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Skv, Hq, D), dtype=torch.float32, device=dev)
+    for i in range(Sq // QC):
+        qs = slice(i * QC, (i + 1) * QC)
+        lo, hi = i * QC + q_offset, (i + 1) * QC - 1 + q_offset
+        qi, doi = q[:, qs].float(), do[:, qs].float()
+        lsei, di = lse[:, qs, :, None], delta[:, qs, :, None]
+        q_pos = torch.arange(lo, hi + 1, device=dev)
+        for j in range(Skv // C):
+            if (causal and j * C > hi) or (
+                    window is not None and lo - ((j + 1) * C - 1) >= window):
+                continue
+            ks = slice(j * C, (j + 1) * C)
+            kj, vj = kr[:, ks].float(), vr[:, ks].float()
+            mask = _block_mask(q_pos, torch.arange(j * C, (j + 1) * C,
+                                                   device=dev),
+                               causal, window)[None, :, None, :]
+            s_raw = torch.einsum("bqhd,bchd->bqhc", qi, kj) * scale
+            s = _softcap(s_raw, softcap).masked_fill(~mask, float("-inf"))
+            p = torch.exp(s - lsei)                            # (B,QC,H,C)
+            dp = torch.einsum("bqhd,bchd->bqhc", doi, vj)
+            ds = p * (dp - di)
+            if softcap is not None:
+                ds = ds * (1.0 - torch.square(torch.tanh(s_raw / softcap)))
+            ds = ds.masked_fill(~mask, 0.0) * scale
+            dq[:, qs] += torch.einsum("bqhc,bchd->bqhd", ds, kj)
+            dk[:, ks] += torch.einsum("bqhc,bqhd->bchd", ds, qi)
+            dv[:, ks] += torch.einsum("bqhc,bqhd->bchd", p, doi)
+    if G > 1:
+        dk = dk.view(B, Skv, Hkv, G, D).sum(3)
+        dv = dv.view(B, Skv, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ------------------------------------------------------------ cross-attention KV

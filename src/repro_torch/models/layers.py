@@ -1,12 +1,13 @@
-"""Shared layers (port of ``repro/models/layers.py``, dense subset):
-norm, GLU MLP, the 2-layer MLP, rotary embedding, embedding and tied
-head."""
+"""Shared layers (port of ``repro/models/layers.py``): norm, GLU MLP, the
+2-layer MLP, rotary embedding, embedding and tied head, and the chunked
+cross-entropy of training."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -56,3 +57,28 @@ def logits_fn(p: dict, x: torch.Tensor, softcap: Optional[float]) -> torch.Tenso
     if softcap is not None:
         logits = softcap * torch.tanh(logits.float() / softcap)
     return logits
+
+
+def chunked_xent(embed_params: dict, x: torch.Tensor, labels: torch.Tensor,
+                 softcap: Optional[float], n_chunks: int = 8) -> torch.Tensor:
+    """Mean cross-entropy without the full (B, S, V) logits: the sequence
+    in ``n_chunks`` chunks (the largest count <= n_chunks that divides S),
+    each chunk's (B, S/n, V) logits in fp32 recomputed on backward
+    (non-reentrant ``checkpoint``, the reference's ``jax.checkpoint`` of
+    its scan step) and summed in chunk order into one fp32 total."""
+    B, S, _ = x.shape
+    while S % n_chunks:
+        n_chunks -= 1
+    C = S // n_chunks
+
+    def step(xi, li):
+        logits = logits_fn(embed_params, xi, softcap).float()
+        gold = torch.gather(logits, -1, li[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(n_chunks):
+        sl = slice(j * C, (j + 1) * C)
+        total = total + checkpoint(step, x[:, sl], labels[:, sl].long(),
+                                   use_reentrant=False)
+    return total / (B * S)

@@ -1,6 +1,6 @@
-"""Model assembly (port of ``repro/models/model.py``, serving subset):
-(the encoder, for an encoder-decoder) -> embedding -> first dense layers ->
-blocks (a Python loop) -> final norm -> head.
+"""Model assembly (port of ``repro/models/model.py``): (the encoder, for
+an encoder-decoder) -> embedding -> first dense layers -> blocks (a Python
+loop) -> final norm -> head, or in training the chunked cross-entropy.
 
 The cache is a flat list of entries, one per layer in ``cfg.layer_kinds()``
 order (``first_k_dense`` layers first) and two for a ``cross_mlp`` layer:
@@ -19,6 +19,7 @@ a slot, which the walkers below treat alike.
              src_len=ENCDEC_SRC_LEN)
   forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
+  forward_train(cfg, params, batch) -> loss
 
 A prefill's ``batch`` carries ``enc_x`` (B, src_len, d) for an
 encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
@@ -26,16 +27,24 @@ encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+# Imported with the module, not on ``checkpoint``'s first call (its
+# ``torch._disable_dynamo`` wrapper imports it lazily): that import keeps
+# its callers' frames, and with them a first training step's tensors, in
+# a reference cycle until the garbage collector runs.
+import torch._dynamo  # noqa: F401
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.blocks import FwdCtx, apply_layer
-from repro_torch.models.layers import embed, logits_fn, rmsnorm
+from repro_torch.models.layers import chunked_xent, embed, logits_fn, rmsnorm
 from repro_torch.models.params import (MAMBA_KINDS, resolve_device,
                                        torch_dtype)
 
@@ -312,3 +321,59 @@ def forward_decode(cfg: ModelConfig, params, token: torch.Tensor, pos,
         new.append(cache[-1])          # the encoder output, unchanged
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return logits_fn(params["embed"], x, cfg.logit_softcap), new
+
+
+def _save_2d_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of products of 2-D matrices
+    (``aten.mm``: every projection, whatever the leading dims of its
+    input), recompute the rest; the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``, which keeps the dots without
+    batch dimensions (the batched MoE and attention products recompute)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _apply_block(x, p_blk, ctx: FwdCtx):
+    for i, kind in enumerate(ctx.cfg.block_pattern):
+        x, _ = apply_layer(kind, p_blk[str(i)], x, ctx, None)
+    return x
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """A block's forward as ``cfg.remat`` asks (the reference's
+    ``_maybe_remat`` of its scan body): "none" keeps every activation,
+    "full" keeps only the block's input and recomputes the block on
+    backward (non-reentrant ``checkpoint``), "dots" recomputes all but the
+    2-D matrix products' outputs."""
+    if cfg.remat == "none":
+        return fn
+    kw = dict(use_reentrant=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_2d_products)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} is not one of none, dots, "
+                         f"full")
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """The mean next-token loss. ``batch``: tokens (B, S) and labels (B, S),
+    and ``enc_x`` or ``img_x`` where the arch has cross-attention. The
+    reference's train mode is a prefill without a cache (recurrent states
+    start at zero), so every layer runs in mode "prefill"; each block is
+    rematerialised as ``cfg.remat`` says, the first dense layers and the
+    encoder are not (as in the reference)."""
+    ctx = FwdCtx(cfg=cfg, mode="prefill",
+                 cross_x=_cross_source(cfg, params, batch))
+    x = _embed_in(cfg, params, batch["tokens"])
+    for i in range(cfg.first_k_dense):
+        x, _ = apply_layer("attn_mlp", params["first"][str(i)], x, ctx, None)
+    body = _maybe_remat(_apply_block, cfg)
+    for p_blk in params["blocks"]:
+        x = body(x, p_blk, ctx)
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return chunked_xent(params["embed"], x, batch["labels"],
+                        cfg.logit_softcap)

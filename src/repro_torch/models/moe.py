@@ -9,6 +9,9 @@ shared expert.
                          dispatch and combine einsums, line for line
   moe_ffn(p, x, cfg)     the main path: the same function by index
                          dispatch, with no (T, E, C) tensor
+  aux_load_balance_loss(p, x, cfg)
+                         the Switch-style load-balancing loss (nothing in
+                         the reference's forward_train calls it)
 
 The reference's semantics, held exactly with one token group (G = 1, what
 its ``_n_groups`` gives without a mesh):
@@ -167,3 +170,15 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if "shared" in p:
         out = out + glu_mlp(p["shared"], x, cfg.act)
     return (out, keep) if return_keep else out
+
+
+def aux_load_balance_loss(p: dict, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: E * sum over experts of
+    (share of tokens whose top-1 is the expert) * (mean probability), in
+    fp32; the top-1 takes the lower index on a tie, as ``jnp.argmax``."""
+    E = cfg.moe.n_experts
+    probs = torch.softmax((x.float() @ p["router"]).reshape(-1, E), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = F.one_hot(top1, E).float().mean(0)
+    return E * torch.sum(frac * probs.mean(0))

@@ -231,22 +231,42 @@ def from_jax_params(cfg: ModelConfig, np_tree: Dict[str, Any],
             if set(spec) != set(arr):
                 raise ValueError(f"keys {sorted(arr)} != {sorted(spec)}")
             return {k: walk(spec[k], arr[k]) for k in spec}
+        if isinstance(spec, list):
+            if len(spec) != len(arr):
+                raise ValueError(f"{len(arr)} blocks != {len(spec)}")
+            return [walk(s_, a) for s_, a in zip(spec, arr)]
         return leaf(spec, arr)
 
-    def unstack(spec_blocks, stacked):
-        return [walk(spec, _map(lambda a, b=b: a[b], stacked))
-                for b, spec in enumerate(spec_blocks)]
+    return walk(specs, unstack_blocks(np_tree))
 
-    out = {"embed": walk(specs["embed"], np_tree["embed"]),
-           "final_ln": leaf(specs["final_ln"], np_tree["final_ln"]),
-           "blocks": unstack(specs["blocks"], np_tree["blocks"])}
-    if "first" in specs:
-        out["first"] = walk(specs["first"], np_tree["first"])
-    if "encoder" in specs:
-        enc, np_enc = specs["encoder"], np_tree["encoder"]
-        out["encoder"] = {
-            "blocks": unstack(enc["blocks"], np_enc["blocks"]),
-            "final_ln": leaf(enc["final_ln"], np_enc["final_ln"])}
+
+def stack_blocks(params) -> Dict[str, Any]:
+    """The reference's layout of a parameter tree (or of any tree of its
+    structure, an optimizer moment's): the decoder's and the encoder's
+    per-block dicts stacked into one dict whose leaves lead with
+    ``(n_blocks,)``. Copies; ``unstack_blocks`` undoes it."""
+    from repro_torch.tree import tree_map
+    stack = lambda blocks: tree_map(lambda *xs: torch.stack(xs), *blocks)
+    out = {**params, "blocks": stack(params["blocks"])}
+    if "encoder" in params:
+        out["encoder"] = {**params["encoder"],
+                          "blocks": stack(params["encoder"]["blocks"])}
+    return out
+
+
+def unstack_blocks(tree) -> Dict[str, Any]:
+    """The port's layout of a tree in the reference's: one dict per block
+    (views of the stacked leaves)."""
+    from repro_torch.tree import leaves, tree_map
+
+    def unstack(stacked):
+        n = leaves(stacked)[0].shape[0]
+        return [tree_map(lambda a, b=b: a[b], stacked) for b in range(n)]
+
+    out = {**tree, "blocks": unstack(tree["blocks"])}
+    if "encoder" in tree:
+        out["encoder"] = {**tree["encoder"],
+                          "blocks": unstack(tree["encoder"]["blocks"])}
     return out
 
 

@@ -26,7 +26,8 @@ COPIED = ("configs/base.py", "configs/llama3_2_1b.py", "configs/qwen2_7b.py",
           "core/serving/disagg/workers.py", "core/serving/disagg/__init__.py",
           "configs/olmoe_1b_7b.py", "configs/kimi_k2_1t_a32b.py",
           "configs/rwkv6_3b.py", "configs/jamba_1_5_large_398b.py",
-          "configs/seamless_m4t_medium.py", "configs/llama3_2_vision_90b.py")
+          "configs/seamless_m4t_medium.py", "configs/llama3_2_vision_90b.py",
+          "runtime/ft.py", "data/pipeline.py")
 
 
 def test_import_all_submodules_without_jax():

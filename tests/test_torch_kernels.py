@@ -914,3 +914,29 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, case):
     assert (out[:, blind] == 0).all()
     if case == FLASH_CARD_BF16[4]:
         assert 0 < blind.sum().item() < Sq
+
+
+@pytest.mark.parametrize("dtype,case", [("float32", c) for c in FLASH_CASES]
+                         + [("bfloat16", c) for c in FLASH_CARD_BF16])
+def test_flash_kernel_lse_matches_plain_on_card(cuda, dtype, case):
+    """The kernels' log-sum-exp (the training path's residual) against the
+    plain version's within 1e-3 (fp32 sums in another order), rows that see
+    no key at log(1e-20); ``out`` bit for bit with and without it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B_, Sq, Skv, Hq, Hkv, D_, causal, window, cap, qoff = case[:10]
+    dt = getattr(torch, dtype)
+    if dt == torch.float32 and D_ not in (16, 32, 64):
+        pytest.skip(f"kernel head dims are 16/32/64, not {D_}")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(B_, Sq, Hq, D_, generator=g, device=cuda).to(dt)
+    k = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda).to(dt)
+    v = torch.randn(B_, Skv, Hkv, D_, generator=g, device=cuda).to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
+    out, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+    _, ref_lse = flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B_, Sq, Hq) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(out, flash_attention_fwd(q, k, v, **kw))
+    if case == FLASH_CARD_BF16[4]:
+        assert (ref_lse == float(np.float32(np.log(1e-20)))).any()
