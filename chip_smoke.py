@@ -166,6 +166,26 @@ Phases (each prints one line; any failure exits non-zero):
      wait for data included), tokens/s, peak GiB, flash launches a step,
      counted from 0 just before; (d) its restart recipe at smoke size on
      the card.
+  7. serving on a mesh: four ranks over torch.distributed on a (4, 1)
+     ("data", "model") DeviceMesh (NCCL, one rank a card, where there are
+     four cards; else gloo, the four on cuda:0), llama3.2-1b at full width
+     in bf16, one slot at 524288 tokens: the sequence-parallel layout,
+     each rank a quarter of the pages, each decode merging the ranks'
+     partials by their log-sum-exp, which the decode kernel writes. First
+     the per-slot decode kernel's lse against the plain version at the
+     phase's shapes (its fp32 output rounds to the one without it bit for
+     bit), and the one-device engine at 262128 tokens serving three
+     prompts (256-2048 tokens, 32 new each) in copy mode. Then each
+     rank: (a) the same
+     serve on the mesh: tokens bit for bit across ranks, first-token
+     logits within 5e-2 of the one-device serve's, the equal-token count
+     (a reading: the init is chaotic), ms a step, each rank's decode
+     call's device time (one rank at a time), launches from 0; (b) decode
+     on the mesh against prefill a layer at a time (layer_rel < 5e-2);
+     (c) every layer's pools filled with seeded K/V to 524288 - 64 tokens,
+     three forward_decode steps: each layer's output against one decode
+     over the whole unsharded pool, within min(2e-2, 2e-2 x max|plain|),
+     and each rank's pools bit for bit. A rank's failure fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -180,6 +200,10 @@ comes from this script's own tree).
     python3 chip_smoke.py --train-only
 
 builds the flash kernel and runs phase 6 alone.
+
+    python3 chip_smoke.py --mesh-only
+
+builds the decode and flash kernels and runs phase 7 alone.
 """
 from __future__ import annotations
 
@@ -190,6 +214,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -436,13 +461,15 @@ def _call_device(fn, name: str = DECODE_KERNELS, iters: int = 20) -> tuple:
     """(device ms a call of the kernels whose name holds ``name``, device
     launches a call of any kernel, launches recorded) over ``iters`` calls
     of ``fn``, from torch.profiler: the kernels alone, without the
-    wrapper's host work between them. A session that records none of them
-    (it happens now and then in a long process) is tried again, up to three
-    times; then (None, None, 0)."""
+    wrapper's host work between them. A session that records fewer than
+    one of them a call (it loses events now and then in a long process,
+    and the sum over fewer launches than calls is no call's time) is tried
+    again, up to three times; then (None, None, recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    recorded = 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -451,11 +478,11 @@ def _call_device(fn, name: str = DECODE_KERNELS, iters: int = 20) -> tuple:
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         mine = [e for e in evs if name in e.key]
-        if mine:
+        recorded = sum(e.count for e in mine)
+        if recorded >= iters:
             dev = sum(_device_us(e) for e in mine) / iters / 1e3
-            return (dev, sum(e.count for e in evs) / iters,
-                    sum(e.count for e in mine))
-    return None, None, 0
+            return dev, sum(e.count for e in evs) / iters, recorded
+    return None, None, recorded
 
 
 def _decode_times(call, plain, nbytes, flops, dtype, plain_iters=5) -> dict:
@@ -1595,9 +1622,9 @@ def _first_logits():
     from repro_torch.core.serving import engine as eng_mod
     real, rows = eng_mod.forward_prefill, []
 
-    def prefill(cfg, params, batch, cache):
+    def prefill(cfg, params, batch, cache, **mi):
         with _routes() as routes:
-            logits, cache = real(cfg, params, batch, cache)
+            logits, cache = real(cfg, params, batch, cache, **mi)
         toks, lens = batch["tokens"], batch.get("lengths")
         lens = ([toks.shape[1]] * toks.shape[0] if lens is None
                 else lens.tolist())
@@ -1786,8 +1813,8 @@ def _moe_drops():
     from repro_torch.models import blocks
     real, rec = blocks.moe_ffn, {"prefill": [], "decode": []}
 
-    def counted(p, x, cfg):
-        out, keep = real(p, x, cfg, return_keep=True)
+    def counted(p, x, cfg, *mi):
+        out, keep = real(p, x, cfg, *mi, return_keep=True)
         rec["decode" if x.shape[1] == 1 else "prefill"].append(
             (keep.numel(), (~keep).sum()))
         return out
@@ -3076,6 +3103,443 @@ def phase_train() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 7
+
+MESH_ARCH = "llama3.2-1b"
+MESH_WORLD = 4
+MESH_MAX_LEN = 524288    # long_500k's seq_len (repro/configs/__init__.py:37)
+MESH_PAGE = 16
+MESH_NEW = 32
+MESH_PROMPT_LENS = (256, 731, 2048)
+MESH_LAYER_S = 2000      # the layer-by-layer check's prompt
+MESH_FILL_GAP = 64       # the fill's length: MESH_MAX_LEN - 64
+MESH_FILL_STEPS = 3
+DECODE_LSE_TOL = 1e-3    # fp32 sums in another order, |lse| <= ~20
+MESH_RANKS_S = 600       # the ranks' deadline (they take ~40-60 s)
+
+
+def _weights_sum(params) -> float:
+    """A fingerprint of the weights: every leaf's sum in fp64."""
+    return float(sum(torch.sum(t, dtype=torch.float64).item()
+                     for t in _leaves(params)))
+
+
+def _mesh_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED + 7)
+    return [rng.integers(0, cfg.vocab_size, size=n).tolist()
+            for n in MESH_PROMPT_LENS]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_lse_check(device="cuda") -> list:
+    """The per-slot decode kernel with its log-sum-exp against the plain
+    version at the shapes the phase gives it: one rank's shard of
+    llama3.2-1b's pools at 524288 tokens ((1, 8192, 16, 8, 64), q (1, 32,
+    64), bf16), at the local lengths the phase's decodes take (0: a shard
+    past the length; a served prompt's; a shard full and one 64 short).
+    The output with lse (fp32) rounds to the output without it, bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cfg = get_config(MESH_ARCH)
+    lp = MESH_MAX_LEN // MESH_PAGE // MESH_WORLD
+    lt = lp * MESH_PAGE
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    mk = lambda *s: torch.randn(*s, generator=g, device=device).to(
+        torch.bfloat16)
+    q = mk(1, cfg.n_heads, cfg.d_head)
+    kp = mk(1, lp, MESH_PAGE, cfg.n_kv_heads, cfg.d_head)
+    vp = mk(1, lp, MESH_PAGE, cfg.n_kv_heads, cfg.d_head)
+    tbl = torch.arange(lp, dtype=torch.int32, device=device)[None]
+    rows = []
+    for n in (0, 1, max(MESH_PROMPT_LENS) + MESH_NEW, lt - MESH_FILL_GAP, lt):
+        ln = torch.tensor([n], dtype=torch.int32, device=device)
+        call = lambda: paged_attention(q, kp, vp, tbl, ln, return_lse=True)
+        out, lse = call()
+        plain = paged_attention(q, kp, vp, tbl, ln)
+        ref, ref_lse = paged_attention_ref(q, kp, vp, tbl, ln,
+                                           return_lse=True)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if n == 0:
+            assert torch.isneginf(lse).all() and torch.isneginf(ref_lse).all()
+            assert (out == 0).all()
+            lse_err = 0.0
+        else:
+            lse_err = (lse - ref_lse).abs().max().item()
+        row = dict(shape=[list(q.shape), list(kp.shape)], length=n,
+                   max_abs_err=err, tol=TOL[torch.bfloat16], lse_err=lse_err,
+                   lse_tol=DECODE_LSE_TOL,
+                   bit_equal_without_lse=torch.equal(out.to(q.dtype), plain))
+        assert err <= TOL[torch.bfloat16] and lse_err <= DECODE_LSE_TOL, row
+        assert row["bit_equal_without_lse"], row
+        nbytes, flops = _slot_decode_bound(q, kp, tbl, ln)
+        row.update(_decode_times(
+            call, lambda: paged_attention_ref(q, kp, vp, tbl, ln,
+                                              return_lse=True),
+            nbytes + 4 * q.shape[0] * q.shape[1], flops, torch.bfloat16,
+            plain_iters=3))
+        without = lambda: paged_attention(q, kp, vp, tbl, ln)
+        row["ms_without_lse"] = cuda_ms(without)
+        row["device_ms_without_lse"] = _call_device(without)[0]
+        row["library_ms"] = None
+        emit("phase7 mesh lse", **row)
+        rows.append(row)
+    del q, kp, vp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_serve(cfg, params, device, max_len, mi=None) -> dict:
+    """One slot in copy mode serving the phase's prompts: tokens, each
+    request's first-token logits, the launches (from 0 just before), the
+    figures, and the decode call's device time at the last step's shape
+    (this process's pools: a rank's shard under the mesh ``mi``)."""
+    from repro_torch.core.serving.engine import ServingEngine
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.models import NO_MESH
+    mi = mi or NO_MESH
+    prompts = _mesh_prompts(cfg)
+    eng = ServingEngine(cfg, params, 1, max_len, page_size=MESH_PAGE, mi=mi,
+                        offload_mode="copy", device=device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_tokens=MESH_NEW) for p in prompts]
+    with _first_logits() as rows:
+        done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _serve_launches()
+    outs = [done[r].out_tokens for r in rids]
+    s = check_serve(cfg, eng, outs, prompts, MESH_NEW)
+    steps = s["decode_steps"]
+    assert launches["paged_attention"] == cfg.n_layers * steps, launches
+    assert launches["paged_attention_global"] == 0, launches
+    assert launches["flash_attention_fwd"] == cfg.n_layers * len(prompts), \
+        launches
+    # the last decode's call again, at its shape (the last request's KV)
+    kv = eng.cache[0]
+    n_pages = kv.k_pool.shape[1]
+    r = mi.mesh.get_local_rank("data") if mi.active else 0
+    tbl = (kv.block_table[:, r * n_pages:(r + 1) * n_pages].long()
+           % n_pages).to(torch.int32).contiguous()
+    lt = n_pages * MESH_PAGE
+    n = len(prompts[-1]) + MESH_NEW - 1
+    ln = torch.tensor([min(max(n - r * lt, 0), lt)], dtype=torch.int32,
+                      device=device)
+    q = torch.zeros(1, cfg.n_heads, cfg.d_head, dtype=kv.k_pool.dtype,
+                    device=device)
+    return dict(tokens=outs,
+               first_logits=torch.stack([lg.float() for _, _, lg, _ in rows])
+               .cpu(),
+               launches=launches, decode_steps=steps, prefills=s["prefills"],
+               staging_copies=s["staging_copies"],
+               ms_a_step=s["decode_s"] / steps * 1e3,
+               **_serve_figures(s, done, wall),
+               decode_call_shape=[list(q.shape), list(kv.k_pool.shape)],
+               decode_call_length=int(ln),
+               decode_call=lambda: paged_attention(q, kv.k_pool, kv.v_pool,
+                                                   tbl, ln,
+                                                   return_lse=mi.active))
+
+
+def _mesh_layerwise(cfg, params, mi, device) -> float:
+    """Decode on the mesh against prefill, one layer at a time, each layer
+    fed the same hidden states (phase 3e's layer_rel): every layer of a
+    one-device prefill of S + 1 tokens (no cache) against the same layer's
+    prefill of the first S into the sequence-parallel layout on the mesh,
+    then one sequence-parallel decode step of token S."""
+    from repro_torch.models import init_cache
+    from repro_torch.models.blocks import FwdCtx, apply_layer
+    from repro_torch.models.model import _embed_in, layers
+    S = MESH_LAYER_S
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), generator=g,
+                         device=device)
+    cache = init_cache(cfg, 1, MESH_MAX_LEN, MESH_PAGE, device=device, mi=mi)
+    full = FwdCtx(cfg=cfg, mode="prefill")
+    pre = FwdCtx(cfg=cfg, mode="prefill", mi=mi, sp=True)
+    lengths = torch.full((1,), S, dtype=torch.int32, device=device)
+    dec = FwdCtx(cfg=cfg, mode="decode", q_offset=lengths, mi=mi, sp=True)
+    worst = 0.0
+    with torch.no_grad():
+        xs = [_embed_in(cfg, params, toks)]
+        for li, (kind, p) in enumerate(layers(cfg, params)):
+            x = xs[-1]
+            _, cache[li] = apply_layer(kind, p, x[:, :S].contiguous(), pre,
+                                       cache[li])
+            xs.append(apply_layer(kind, p, x, full, None)[0])
+        for li, (kind, p) in enumerate(layers(cfg, params)):
+            x, x_next = xs[li][:, S:], xs[li + 1][:, S:]
+            y, _ = apply_layer(kind, p, x.contiguous(), dec, cache[li])
+            worst = max(worst, _rel(y - x, x_next - x))
+    return worst
+
+
+def _fill_shard(layer: int, which: int, rank: int, shape, device):
+    """Seeded random K (which 0) or V (1) of one rank's shard of a layer."""
+    g = torch.Generator(device=device).manual_seed(
+        SEED + 1000 + 8 * layer + 2 * rank + which)
+    return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+
+def _mesh_fill(cfg, params, mi, rank, device) -> dict:
+    """Every layer's pool filled with seeded random K/V to MESH_MAX_LEN -
+    64 tokens (all four shards hold pages), then MESH_FILL_STEPS
+    forward_decode steps on the mesh. Each rank's pools are held bit for
+    bit against its seeded shard with the new tokens appended where it
+    owns them; on rank 0, each layer's sequence-parallel output at each
+    step against one decode over the whole unsharded pool (the per-slot
+    kernel over 524288 tokens), at min(2e-2, 2e-2 * max|plain|)."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import forward_decode, init_cache
+    from repro_torch.models.model import set_cache_length
+    cache = init_cache(cfg, 1, MESH_MAX_LEN, MESH_PAGE, device=device, mi=mi)
+    shape = tuple(cache[0].k_pool.shape)
+    lp = shape[1]
+    lt = lp * MESH_PAGE
+    L = MESH_MAX_LEN - MESH_FILL_GAP
+    for li, kv in enumerate(cache):
+        kv.k_pool.copy_(_fill_shard(li, 0, rank, shape, device))
+        kv.v_pool.copy_(_fill_shard(li, 1, rank, shape, device))
+    cache = set_cache_length(cache, L)
+    real, calls = attn.sp_paged_decode, []
+
+    def recording(q, k_new, v_new, kv, mesh, **kw):
+        o, kv2 = real(q, k_new, v_new, kv, mesh, **kw)
+        calls.append((q.clone(), k_new.clone(), v_new.clone(), o.clone()))
+        return o, kv2
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_FILL_STEPS, 1, 1),
+                         generator=g, device=device)
+    step_ms = []
+    with mock.patch.object(attn, "sp_paged_decode", recording), \
+            torch.no_grad():
+        for i in range(MESH_FILL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = forward_decode(
+                cfg, params, toks[i],
+                torch.full((1,), L + i, dtype=torch.int32, device=device),
+                cache, mi)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            assert torch.isfinite(logits).all()
+    n_layers = len(cache)
+    assert len(calls) == n_layers * MESH_FILL_STEPS
+    pools_equal = []
+    for li, kv in enumerate(cache):
+        for which, pool in ((0, kv.k_pool), (1, kv.v_pool)):
+            want = _fill_shard(li, which, rank, shape, device)
+            for i in range(MESH_FILL_STEPS):
+                pos = L + i
+                if pos // lt == rank:
+                    new = calls[i * n_layers + li][1 + which]
+                    want[0, (pos % lt) // MESH_PAGE, pos % MESH_PAGE] = \
+                        new[0, 0]
+            pools_equal.append(torch.equal(pool, want))
+    out = dict(step_ms=step_ms, pools_equal=all(pools_equal),
+               owners=sorted({(L + i) // lt for i in range(MESH_FILL_STEPS)}),
+               local_length=min(max(L + 1 - rank * lt, 0), lt))
+    if rank == 0:
+        errs, tols, plain_err = [], [], None
+        n_pages = lp * MESH_WORLD
+        tbl = torch.arange(n_pages, dtype=torch.int32, device=device)[None]
+        for li in range(n_layers):
+            fk, fv = (torch.cat([_fill_shard(li, w, r, shape, device)
+                                 for r in range(MESH_WORLD)], dim=1)
+                      for w in (0, 1))
+            for i in range(MESH_FILL_STEPS):
+                q, kn, vn, o = calls[i * n_layers + li]
+                pos = L + i
+                fk[0, pos // MESH_PAGE, pos % MESH_PAGE] = kn[0, 0]
+                fv[0, pos // MESH_PAGE, pos % MESH_PAGE] = vn[0, 0]
+                ln = torch.tensor([pos + 1], dtype=torch.int32, device=device)
+                one = paged_attention(q[:, 0].contiguous(), fk, fv, tbl, ln)
+                errs.append((o[:, 0].float() - one.float()).abs().max().item())
+                tols.append(min(TOL[torch.bfloat16], FLASH_REL_TOL
+                                * one.float().abs().max().item()))
+                if li == 0 and i == 0:
+                    # the unsharded kernel itself against its plain version
+                    ref = paged_attention_ref(q[:, 0].contiguous(), fk, fv,
+                                              tbl, ln)
+                    plain_err = (one.float() - ref.float()).abs().max().item()
+                    del ref
+            del fk, fv
+        out.update(max_abs_err=max(errs), tol=min(tols),
+                   within=all(e <= t for e, t in zip(errs, tols)),
+                   unsharded_vs_plain_err=plain_err)
+    return out
+
+
+def _mesh_rank(rank: int, port: int, backend: str, tmp: str,
+               device_type: str = "cuda") -> None:
+    """One rank of phase 7: join the group, build the (4, 1) mesh, then
+    (a) the copy-mode serve at 524288 tokens, (b) the layer-by-layer check
+    and (c) the fill; results to ``tmp``/rank<r>.pt. Every rank runs the
+    same engine on the same requests."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import MeshInfo, init_params
+    device = torch.device(device_type, rank if backend == "nccl" else 0)
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    mesh = make_host_mesh(device=device_type)
+    mi = MeshInfo(mesh)
+    x = torch.full((2,), float(rank + 1), device=device)
+    dist.all_reduce(x, group=mesh.get_group("data"))  # CUDA tensors reduce
+    assert x.tolist() == [10.0, 10.0], x
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend(),
+               device_name=torch.cuda.get_device_name(device),
+               mesh_shape=list(mesh.shape),
+               mesh_axes=list(mesh.mesh_dim_names))
+    cfg = get_config(MESH_ARCH)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                         device=device)
+    res["weights_sum"] = _weights_sum(params)
+    sv = _mesh_serve(cfg, params, device, MESH_MAX_LEN, mi=mi)
+    call = sv.pop("decode_call")
+    for r in range(MESH_WORLD):             # one rank at a time on the card
+        dist.barrier()
+        if r == rank:
+            sv["decode_call_device_ms"] = _call_device(call)[0]
+            sv["decode_call_ms"] = cuda_ms(call)
+    dist.barrier()
+    del call
+    torch.cuda.empty_cache()
+    res["serve"] = sv
+    res["peak_gib_serve"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["layer_rel"] = _mesh_layerwise(cfg, params, mi, device)
+    torch.cuda.empty_cache()
+    res["fill"] = _mesh_fill(cfg, params, mi, rank, device)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(device_type: str = "cuda") -> dict:
+    """7. Serving on a mesh: four ranks over torch.distributed, a (4, 1)
+    ("data", "model") DeviceMesh (NCCL, one rank a card, with four cards;
+    else gloo, all four on cuda:0: NCCL refuses two ranks on one device),
+    llama3.2-1b at full width in bf16, one slot at 524288 tokens (the
+    sequence-parallel layout: each rank holds a quarter of the pages, and
+    each decode merges the ranks' partials, the decode kernel's own lse,
+    by all-reduce). Here: the kernel's lse against the plain version at the
+    phase's shapes, and the one-device engine at 262128 tokens (just under
+    the layout's threshold) serving the same requests; then, in the ranks:
+    (a) the serve in copy mode (bit-equal tokens across ranks, first-token
+    logits and the equal-token count against the one-device serve, ms a
+    step, each rank's decode call's device time), (b) decode on the mesh
+    against prefill a layer at a time, (c) the fill over all four shards
+    (outputs against the unsharded decode, pools bit for bit)."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import SP_MIN_LEN
+    cfg = get_config(MESH_ARCH)
+    lse_rows = _mesh_lse_check(device_type)
+    params = init_params(cfg, torch.Generator(device=device_type)
+                         .manual_seed(SEED), device=device_type)
+    weights_sum = _weights_sum(params)
+    one = _mesh_serve(cfg, params, device_type, SP_MIN_LEN - MESH_PAGE)
+    one["decode_call_device_ms"] = _call_device(one.pop("decode_call"))[0]
+    del params
+    torch.cuda.empty_cache()
+    emit("phase7 mesh one-device serve", arch=cfg.name, max_len=SP_MIN_LEN
+         - MESH_PAGE, prompt_lens=list(MESH_PROMPT_LENS), new_tokens=MESH_NEW,
+         **{k: v for k, v in one.items()
+            if k not in ("tokens", "first_logits")})
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(_mesh_rank, args=(_free_port(), backend, tmp,
+                                         device_type),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MESH_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the mesh's ranks ran past "
+                                   f"{MESH_RANKS_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+    ranks_s = time.perf_counter() - t0
+    emit("phase7 mesh ranks", world_size=MESH_WORLD, backend=backend,
+         cards=n_cards, devices=[r["device"] for r in ranks],
+         device_names=[r["device_name"] for r in ranks],
+         backends=[r["backend"] for r in ranks],
+         mesh_shape=ranks[0]["mesh_shape"], mesh_axes=ranks[0]["mesh_axes"],
+         ranks_s=ranks_s)
+    r0 = ranks[0]
+    assert all(r["weights_sum"] == weights_sum for r in ranks), \
+        [r["weights_sum"] for r in ranks]
+    sv = r0["serve"]
+    equal_ranks = all(r["serve"]["tokens"] == sv["tokens"] for r in ranks)
+    equal_logits = all(torch.equal(r["serve"]["first_logits"],
+                                   sv["first_logits"]) for r in ranks)
+    first_rel = [_rel(a, b) for a, b in zip(sv["first_logits"],
+                                            one["first_logits"])]
+    equal_tokens = sum(a == b for x, y in zip(sv["tokens"], one["tokens"])
+                       for a, b in zip(x, y))
+    row = dict(arch=cfg.name, max_len=MESH_MAX_LEN, page=MESH_PAGE,
+               prompt_lens=list(MESH_PROMPT_LENS), new_tokens=MESH_NEW,
+               tokens_equal_across_ranks=equal_ranks,
+               first_logits_equal_across_ranks=equal_logits,
+               first_token_rel=first_rel,
+               equal_tokens_vs_one_device=equal_tokens,
+               tokens=sum(len(t) for t in sv["tokens"]),
+               ms_a_step=sv["ms_a_step"],
+               ms_a_step_ranks=[r["serve"]["ms_a_step"] for r in ranks],
+               one_device_ms_a_step=one["ms_a_step"],
+               decode_call_device_ms_ranks=[
+                   r["serve"]["decode_call_device_ms"] for r in ranks],
+               decode_call_ms_ranks=[r["serve"]["decode_call_ms"]
+                                     for r in ranks],
+               decode_call_length_ranks=[r["serve"]["decode_call_length"]
+                                         for r in ranks],
+               decode_call_shape=sv["decode_call_shape"],
+               one_device_decode_call_device_ms=one["decode_call_device_ms"],
+               one_device_decode_call_shape=one["decode_call_shape"],
+               launches=sv["launches"], decode_steps=sv["decode_steps"],
+               prefills=sv["prefills"], staging_copies=sv["staging_copies"],
+               ttft_ms_median=sv["ttft_ms_median"],
+               peak_gib_ranks=[r["peak_gib_serve"] for r in ranks])
+    emit("phase7 mesh serve", **row)
+    assert equal_ranks and equal_logits, "the ranks served different tokens"
+    assert max(first_rel) < LOGIT_REL, first_rel
+    layer_rel = [r["layer_rel"] for r in ranks]
+    emit("phase7 mesh decode-vs-prefill", S=MESH_LAYER_S, layer_rel=layer_rel)
+    assert max(layer_rel) < LOGIT_REL, layer_rel
+    fill = dict(r0["fill"], pools_equal_ranks=[r["fill"]["pools_equal"]
+                                               for r in ranks],
+                local_lengths=[r["fill"]["local_length"] for r in ranks],
+                step_ms_ranks=[r["fill"]["step_ms"] for r in ranks],
+                length=MESH_MAX_LEN - MESH_FILL_GAP, steps=MESH_FILL_STEPS,
+                peak_gib_ranks=[r["peak_gib"] for r in ranks])
+    del fill["pools_equal"], fill["local_length"], fill["step_ms"]
+    emit("phase7 mesh fill", **fill)
+    assert all(fill["pools_equal_ranks"]), fill
+    assert fill["within"] and fill["unsharded_vs_plain_err"] <= \
+        TOL[torch.bfloat16], fill
+    assert all(n > 0 for n in fill["local_lengths"]), fill
+    return dict(lse=lse_rows, launches=sv["launches"], serve=row,
+                one_device=one["launches"])
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -3107,6 +3571,9 @@ def main(argv=None) -> int:
                          "of the script's own src/ (with --decode-only)")
     ap.add_argument("--train-only", action="store_true",
                     help="build the flash kernel and run phase 6 only")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the decode and flash kernels and run phase "
+                         "7 (serving on a mesh of four ranks) only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -3127,6 +3594,10 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_train()
         return 0
+    if args.mesh_only:
+        phase_card(["paged_attention", "flash_attention"])
+        phase_mesh()
+        return 0
     phase_card()
     res = phase_kernels()
     launches, served, zc_outs, zc_figures = phase_serve()
@@ -3143,6 +3614,7 @@ def main(argv=None) -> int:
     paper = phase_paper_kernels()
     sort = phase_mergesort()
     train = phase_train()
+    mesh = phase_mesh()
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
@@ -3190,7 +3662,10 @@ def main(argv=None) -> int:
          "long_context": [r for r in res["decode_long"]
                           if r["layout"] == "slot"],
          "arch_shapes": [r for r in res["decode_archs"]
-                         if r["layout"] == "slot"]},
+                         if r["layout"] == "slot"],
+         "launches_mesh_a_rank": mesh["launches"]["paged_attention"],
+         "launches_mesh_one_device": mesh["one_device"]["paged_attention"],
+         "lse_shapes": mesh["lse"]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
@@ -3211,6 +3686,7 @@ def main(argv=None) -> int:
          **{k: fl[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")},
          "launches_train": train["launcher"]["flash_launches"],
+         "launches_mesh_a_rank": mesh["launches"]["flash_attention_fwd"],
          "launches_train_a_step": train["launcher"]["flash_launches_a_step"],
          "train_shape": {k: train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",

@@ -1,5 +1,6 @@
 """Disaggregated serving front-end: one engine, two workers, one pool
-(port of ``repro/core/serving/disagg/engine.py``; no mesh argument).
+(port of ``repro/core/serving/disagg/engine.py``; ``mi`` is passed on to
+every forward, as the reference's).
 
 ``DisaggEngine`` splits the continuous engine's slot range into a prefill
 worker (slots ``[0, n_prefill)``, driven by a :class:`PrefillScheduler`)
@@ -39,6 +40,7 @@ from repro_torch.core.serving.disagg.workers import (DecodeWorker,
 from repro_torch.core.serving.engine import Request, ServingEngine
 from repro_torch.core.serving.scheduler import SchedulerOutput, WaitingSeq
 from repro_torch.core.sva.iommu import IOMMU
+from repro_torch.models.dist import NO_MESH, MeshInfo
 
 
 class DisaggEngine(ServingEngine):
@@ -46,7 +48,7 @@ class DisaggEngine(ServingEngine):
 
     def __init__(self, cfg: ModelConfig, params, n_prefill_slots: int,
                  n_decode_slots: int, max_len: int, page_size: int = 8,
-                 disagg_mode: str = "share",
+                 mi: MeshInfo = NO_MESH, disagg_mode: str = "share",
                  xfer_iommu: Optional[IOMMU] = None, **kw):
         if disagg_mode not in ("share", "copy"):
             raise ValueError(f"disagg_mode={disagg_mode!r} "
@@ -61,7 +63,7 @@ class DisaggEngine(ServingEngine):
         self.xfer_engine: Optional[KVTransferEngine] = None
         super().__init__(cfg, params,
                          n_slots=n_prefill_slots + n_decode_slots,
-                         max_len=max_len, page_size=page_size,
+                         max_len=max_len, page_size=page_size, mi=mi,
                          scheduler="continuous", **kw)
         self.n_prefill_slots = n_prefill_slots
         self.n_decode_slots = n_decode_slots

@@ -64,6 +64,16 @@ the continuous scheduler, as the reference. The image K/V a prefill
 writes has ``n_image_tokens`` rows, which the reference's cross cache
 (``src_len`` rows) takes only when the two are equal: the port refuses
 any other ``src_len`` at construction.
+
+A mesh (``mi``, the reference's ``MeshInfo``) is passed to every forward.
+Every rank runs this same engine, with the same host-side manager, IOMMU
+and scheduler, on the same requests, so their tokens, statistics and
+traces are equal. One slot at ``max_len`` >= 262144 takes the
+sequence-parallel layout (pages sharded over ``data``, decode merged
+across ranks): it serves in copy mode only, as the reference (zero-copy
+raises ``NotImplementedError``), and only on a mesh, which the reference's
+decode also needs (it fails at its first decode without one; the port
+refuses at construction).
 """
 from __future__ import annotations
 
@@ -81,6 +91,8 @@ from repro_torch.core.serving.sequence_buffer import SequenceBuffer
 from repro_torch.core.sva.iommu import (AutoTuneConfig, PrefetchConfig,
                                         TLBConfig, default_autotune_candidates)
 from repro_torch.core.sva.kv_manager import PagedKVManager
+from repro_torch.models.blocks import _sp_mode
+from repro_torch.models.dist import NO_MESH, MeshInfo
 from repro_torch.models.model import (Cache, forward_decode,
                                       forward_prefill, fresh_rows,
                                       init_cache, install, install_tables,
@@ -160,7 +172,8 @@ def _install_tables(cache: Cache, tables: torch.Tensor,
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_len: int,
-                 page_size: int = 8, offload_mode: str = "zero_copy",
+                 page_size: int = 8, mi: MeshInfo = NO_MESH,
+                 offload_mode: str = "zero_copy",
                  src_len: int = 16, eos_token: Optional[int] = None,
                  prefix_sharing: bool = True,
                  record_translation_trace: bool = False,
@@ -178,6 +191,15 @@ class ServingEngine:
         if scheduler == "continuous" and offload_mode != "zero_copy":
             raise NotImplementedError(
                 "continuous scheduling requires offload_mode='zero_copy'")
+        if _sp_mode(cfg, n_slots, max_len):
+            if offload_mode == "zero_copy":
+                raise NotImplementedError(
+                    "zero_copy serving does not support the SP cache layout")
+            if not mi.active:
+                raise ValueError(
+                    f"n_slots={n_slots} at max_len={max_len} takes the "
+                    "sequence-parallel cache layout, which shards the pages "
+                    "over a mesh's 'data' axis: pass mi=MeshInfo(mesh)")
         kinds = cfg.layer_kinds()
         if any(k not in SERVED_KINDS for k in kinds):
             raise NotImplementedError(
@@ -209,7 +231,9 @@ class ServingEngine:
                 "sliding-window leaves (fewer pages than the slot table); "
                 "serve this config with offload_mode='zero_copy'")
         self.device = resolve_device(device)
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.mi = cfg, params, mi
+        # every forward takes the mesh; without one, the forwards' default
+        self._on_mesh = {"mi": mi} if mi.active else {}
         self.n_slots, self.max_len, self.page_size = n_slots, max_len, page_size
         self.offload_mode = offload_mode
         self.src_len = src_len
@@ -285,14 +309,16 @@ class ServingEngine:
             self.null_page = n_slots * self.max_pages
             self.cache = init_cache(cfg, n_slots, max_len, page_size,
                                     global_pages=self.null_page,
-                                    device=self.device, src_len=src_len)
+                                    device=self.device, src_len=src_len,
+                                    mi=mi)
             self._tables_dev = torch.full((n_slots, self.max_pages),
                                           self.null_page, dtype=torch.int32,
                                           device=self.device)
             self._epoch_seen = -1
         else:
             self.cache = init_cache(cfg, n_slots, max_len, page_size,
-                                    device=self.device, src_len=src_len)
+                                    device=self.device, src_len=src_len,
+                                    mi=mi)
         # Continuous batching: dense SequenceBuffer state and a token-budget
         # scheduler composing mixed decode / chunked-prefill steps, with
         # preemption under pool pressure.
@@ -488,7 +514,8 @@ class ServingEngine:
         view = _build_prefill_view(self.cache, self._dev(tables),
                                    batch["lengths"])
         with torch.no_grad():
-            logits, view = forward_prefill(self.cfg, self.params, batch, view)
+            logits, view = forward_prefill(self.cfg, self.params, batch, view,
+                                           **self._on_mesh)
         _merge_prefill_view(self.cache, view, self._dev(np.asarray(
             [st.slot for _, st in group], np.int64)))
         logits = logits[:, -1].float().cpu().numpy()
@@ -508,14 +535,15 @@ class ServingEngine:
         (the staging copy), then copy it into batch slot ``slot``."""
         t0 = time.perf_counter()
         single = init_cache(self.cfg, 1, self.max_len, self.page_size,
-                            device=self.device, src_len=self.src_len)
+                            device=self.device, src_len=self.src_len,
+                            mi=self.mi)
         single = self._map_tables(single, self.mgr.tables[slot:slot + 1],
                                   np.zeros(1, np.int32))
         batch = {"tokens": self._dev(np.asarray(req.prompt, np.int64)[None]),
                  **self._cross_inputs(1)}
         with torch.no_grad():
             logits, single = forward_prefill(self.cfg, self.params, batch,
-                                             single)
+                                             single, **self._on_mesh)
         # The staging copy: a real device duplicate of every leaf.
         single = [type(kv)(*(t.clone() for t in kv)) for kv in single]
         self.metrics["staging_copies"] += 1
@@ -637,7 +665,8 @@ class ServingEngine:
             self.metrics["table_upload_bytes"] += int(tables.nbytes)
         with torch.no_grad():
             logits, self.cache = forward_decode(self.cfg, self.params,
-                                                self._dev(last), pos, cache)
+                                                self._dev(last), pos, cache,
+                                                **self._on_mesh)
         nxt = np.argmax(logits[:, 0].float().cpu().numpy(), axis=-1)
         for rid in list(self.active):
             st = self.mgr.seqs[rid]
@@ -711,7 +740,8 @@ class ServingEngine:
                  "write_tables": self._dev(wtables)}
         view = install_tables(self.cache, self._dev(tables), batch["lengths"])
         with torch.no_grad():
-            logits, _ = forward_prefill(self.cfg, self.params, batch, view)
+            logits, _ = forward_prefill(self.cfg, self.params, batch, view,
+                                        **self._on_mesh)
         finals = [(i, c) for i, c in enumerate(chunks) if c.is_final]
         if finals:      # argmax on the device: (nb,) tokens to the host
             first_tok = logits[:, -1].argmax(dim=-1).cpu().numpy()
@@ -744,7 +774,8 @@ class ServingEngine:
         cache = install_tables(self.cache, tables, kv_len)
         with torch.no_grad():
             logits, self.cache = forward_decode(self.cfg, self.params,
-                                                tokens, kv_len, cache)
+                                                tokens, kv_len, cache,
+                                                **self._on_mesh)
         return logits
 
     def _resident_tokens(self) -> Dict[int, int]:

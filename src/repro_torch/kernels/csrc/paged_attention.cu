@@ -66,6 +66,13 @@
 //    head group) counter after a __threadfence(), merges the row's
 //    partials and resets the counter to 0 for the next call. With one
 //    split the CTA writes the output directly.
+//  - Log-sum-exp, when the caller gives a buffer: the CTA that writes a
+//    row's output also writes lse[b, h] = M + log L (natural units) of
+//    each of its query heads, from the (M, L) it merged, and writes the
+//    output in fp32, unrounded: the partial over these pages that a merge
+//    with partials over a sequence's other pages takes (sequence-parallel
+//    decode). A row of length 0 writes -inf. Without a buffer nothing
+//    more is stored and the output is in the working dtype.
 // Scores are masked before the max, so a row of length 0 returns zeros,
 // not NaN, and an inactive all-NULL row of length 1 returns zeros.
 #include <cuda_runtime.h>
@@ -84,6 +91,7 @@ constexpr int kRingBytes = 96 * 1024;    // K + V of the ring, unpadded: two CTA
 constexpr int kHeader = 256;             // barriers and flags ahead of the ring
 constexpr int kMaxSmem = 232448;         // 227 KB, the H100's per-block maximum
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLazy = 8.f;             // rescale when a max grows by 2^8
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -179,6 +187,7 @@ struct Params {
   float* part;          // acc (B, Hq, n_split, D), then (m, l) (B, Hq, n_split, 2)
   int* counters;        // (B, n_z), zero between calls
   void* out;
+  float* lse;           // (B, Hq) fp32, or null: no log-sum-exp asked for
   int hq, hkv, g, d, total, slot_pages, page, n_table, n_split;
   int hg, gq, n_qg;     // KV heads, query heads a head, query groups: of a CTA
   int wph;              // consumer warps a KV head
@@ -439,6 +448,16 @@ struct MmaState {
   }
 };
 
+// The output in the working dtype, or in fp32 when an lse is asked for.
+template <typename T>
+__device__ __forceinline__ void store_out(const Params& p, size_t i, float v) {
+  if (p.lse != nullptr) {
+    static_cast<float*>(p.out)[i] = v;
+  } else {
+    static_cast<T*>(p.out)[i] = from_f<T>(v);
+  }
+}
+
 template <bool kMma, typename A, typename B> struct Pick { using type = A; };
 template <typename A, typename B> struct Pick<false, A, B> { using type = B; };
 
@@ -576,7 +595,9 @@ paged_decode_ring_kernel(const Params p) {
       }
       const size_t qh = (size_t)(h0 + h) * p.g + g0 + gg;
       if (p.n_split == 1) {
-        static_cast<T*>(p.out)[((size_t)b * p.hq + qh) * d + c] = from_f<T>(a / fmaxf(ls, 1e-20f));
+        store_out<T>(p, ((size_t)b * p.hq + qh) * d + c, a / fmaxf(ls, 1e-20f));
+        if (p.lse != nullptr && c == 0)
+          p.lse[(size_t)b * p.hq + qh] = ls > 0.f ? (mx + log2f(ls)) * kLn2 : -INFINITY;
       } else {
         const size_t slot = ((size_t)b * p.hq + qh) * p.n_split + split;
         part_acc[slot * d + c] = a;
@@ -622,12 +643,14 @@ paged_decode_ring_kernel(const Params p) {
     const float ms = mx == -INFINITY ? 0.f : mx;
     float ls = 0.f;
     for (int s = lane; s < n_used; s += 32) ls += l[s] * ex2(w[s] - ms);
-    const float inv = 1.f / fmaxf(warp_sum(ls), 1e-20f);
+    ls = warp_sum(ls);
+    const float inv = 1.f / fmaxf(ls, 1e-20f);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(size_t)b * p.hq + qhead(k)] = ls > 0.f ? (ms + log2f(ls)) * kLn2 : -INFINITY;
     __syncwarp();
     for (int s = lane; s < n_used; s += 32) w[s] = ex2(w[s] - ms) * inv;
   }
   __syncthreads();
-  T* ob = static_cast<T*>(p.out);
   for (int i = tid; i < heads * nv4; i += kThreads) {
     const int k = i / nv4, c = i - k * nv4;
     const size_t qh = qhead(k);
@@ -650,11 +673,11 @@ paged_decode_ring_kernel(const Params p) {
         o.w = fmaf(wx, a[x].w, o.w);
       }
     }
-    T* dst = ob + ((size_t)b * p.hq + qh) * d + 4 * c;
-    dst[0] = from_f<T>(o.x);
-    dst[1] = from_f<T>(o.y);
-    dst[2] = from_f<T>(o.z);
-    dst[3] = from_f<T>(o.w);
+    const size_t dst = ((size_t)b * p.hq + qh) * d + 4 * c;
+    store_out<T>(p, dst, o.x);
+    store_out<T>(p, dst + 1, o.y);
+    store_out<T>(p, dst + 2, o.z);
+    store_out<T>(p, dst + 3, o.w);
   }
   if (tid == 0) *counter = 0;               // ready for the next call
 }
@@ -710,7 +733,7 @@ int launch_cap(const Params& p, int dtype, int b, int n_z, size_t smem, cudaStre
 // the cudaError_t of the launch (0 = success), or cudaErrorInvalidValue
 // for inputs the kernel does not take.
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-             const void* lengths, void* part, void* counters, void* out, int dtype,
+             const void* lengths, void* part, void* counters, void* out, void* lse, int dtype,
              int b, int hkv, int g, int d, int total, int slot_pages, int page,
              int n_table, int hg, int gq, int tpc, int n_split, float scale,
              float softcap, void* stream) {
@@ -731,6 +754,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
   p.part = static_cast<float*>(part);
   p.counters = static_cast<int*>(counters);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.hq = hkv * g;
   p.hkv = hkv;
   p.g = g;
@@ -775,13 +799,15 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 // dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means no softcap. part is
 // fp32 scratch of b * hkv * g * n_split * (d + 2) floats; counters are
 // b * (hkv / hg) * ceil(g / gq) ints, zero before the call and after it.
+// lse is null, or (b, hkv * g) fp32 that receives each row's log-sum-exp;
+// with it, out is fp32 (b, hkv * g, d), else in the dtype of q.
 // Global layout: pools (total, page, hkv, d), table (b, n_table).
 extern "C" int paged_attention_global_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* lengths, void* part, void* counters, void* out, int dtype, int b,
+    const void* lengths, void* part, void* counters, void* out, void* lse, int dtype, int b,
     int hkv, int g, int d, int total, int page, int n_table, int hg, int gq, int tpc,
     int n_split, float scale, float softcap, void* stream) {
-  return dispatch(q, k_pool, v_pool, table, lengths, part, counters, out, dtype, b, hkv,
+  return dispatch(q, k_pool, v_pool, table, lengths, part, counters, out, lse, dtype, b, hkv,
                   g, d, total, 0, page, n_table, hg, gq, tpc, n_split, scale, softcap,
                   stream);
 }
@@ -789,10 +815,10 @@ extern "C" int paged_attention_global_launch(
 // Per-slot layout: pools (b, n_pages, page, hkv, d), table (b, n_pages).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* lengths, void* part, void* counters, void* out, int dtype, int b,
+    const void* lengths, void* part, void* counters, void* out, void* lse, int dtype, int b,
     int hkv, int g, int d, int n_pages, int page, int hg, int gq, int tpc, int n_split,
     float scale, float softcap, void* stream) {
-  return dispatch(q, k_pool, v_pool, table, lengths, part, counters, out, dtype, b, hkv,
+  return dispatch(q, k_pool, v_pool, table, lengths, part, counters, out, lse, dtype, b, hkv,
                   g, d, n_pages, n_pages, page, n_pages, hg, gq, tpc, n_split, scale,
                   softcap, stream);
 }

@@ -10,6 +10,13 @@ base off 16 bytes, or D * itemsize not a multiple of 16. ``paged_decode``
 dispatches on the pool's rank, as ``repro/kernels/paged_attention/ops.py``
 does.
 
+``paged_attention(..., return_lse=True)`` returns a partial for a merge:
+the output in fp32, unrounded, and each row's log-sum-exp ``(B, Hq)``
+fp32, both written by the same launch (``-inf`` for a row of length 0):
+the weight with which a decode over some of a sequence's pages merges
+with decodes over the others (the sequence-parallel decode of
+``models/attention.py``).
+
 ``table_residency="hbm"`` is the LLC-off baseline of the JAX kernels: the
 translations are not read next to the page loads; the pages are first
 gathered through the table into a private per-slot pool with plain torch
@@ -41,7 +48,7 @@ def _launch_fn(symbol: str):
         from repro_torch.kernels.build import load
         fn = getattr(load("paged_attention"), symbol)
         n_ints = 12 if symbol == "paged_attention_global_launch" else 11
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launchers[symbol] = fn
@@ -159,9 +166,12 @@ def _identity_table(B: int, n: int, device) -> torch.Tensor:
         .contiguous()
 
 
-def _launch(symbol, q, k_pool, v_pool, block_table, lengths, sizes, softcap):
+def _launch(symbol, q, k_pool, v_pool, block_table, lengths, sizes, softcap,
+            lse=None):
     """Launch ``symbol`` on q's current stream, one kernel; ``sizes`` are
-    the layout's int arguments between D and hg."""
+    the layout's int arguments between D and hg; ``lse``, a (B, Hq) fp32
+    buffer or None, receives each row's log-sum-exp (the output is then
+    fp32)."""
     _check_bulk(k_pool, v_pool)
     B, Hq, D = q.shape
     page, Hkv = k_pool.shape[-3], k_pool.shape[-2]
@@ -170,13 +180,14 @@ def _launch(symbol, q, k_pool, v_pool, block_table, lengths, sizes, softcap):
                                     _sm_count(q.device))
     part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
                        device=q.device)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=q.dtype if lse is None else torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launch_fn(symbol)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
         _counter_buffer(q.device, stream, B * n_z).data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Hkv, Hq // Hkv, D, *sizes, hg, gq, tpc, splits,
+        lse.data_ptr() if lse is not None else None, _DTYPES[q.dtype], B, Hkv, Hq // Hkv, D, *sizes, hg, gq, tpc, splits,
         D ** -0.5, softcap if softcap is not None else 0.0, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {err}")
@@ -186,11 +197,13 @@ def _launch(symbol, q, k_pool, v_pool, block_table, lengths, sizes, softcap):
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor, *, softcap: Optional[float] = None,
-                    table_residency: str = "smem") -> torch.Tensor:
+                    table_residency: str = "smem", return_lse: bool = False):
     """One-token decode attention over per-slot pools through permutation
     tables. q: (B, Hq, D); pools: (B, n_pages, page, Hkv, D); block_table:
     (B, n_pages) int32 into slot b's own pages (entries >= n_pages read as
-    zero pages); lengths: (B,) int32. Returns (B, Hq, D) in q's dtype."""
+    zero pages); lengths: (B,) int32. Returns (B, Hq, D) in q's dtype; with
+    ``return_lse``, a partial for a merge: (B, Hq, D) in fp32 and each
+    row's log-sum-exp (B, Hq) fp32."""
     _check(q, k_pool, v_pool, block_table, lengths, table_residency,
            per_slot=True)
     B, n_pages = block_table.shape
@@ -200,11 +213,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         block_table = _identity_table(B, n_pages, q.device)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_table, lengths,
-                                   softcap=softcap)
+                                   softcap=softcap, return_lse=return_lse)
+    lse = (torch.empty((B, q.shape[1]), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     out = _launch("paged_attention_launch", q, k_pool, v_pool, block_table,
-                  lengths, (n_pages, k_pool.shape[2]), softcap)
+                  lengths, (n_pages, k_pool.shape[2]), softcap, lse)
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def paged_attention_global(q: torch.Tensor, k_pool: torch.Tensor,

@@ -38,9 +38,12 @@ def gather_slot_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            lengths: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+            lengths: torch.Tensor, softcap: Optional[float],
+            return_lse: bool = False):
     """q: (B, Hq, D); k, v: logical (B, P, page, Hkv, D); the first
-    ``lengths[b]`` tokens of row b are valid. -> (B, Hq, D)."""
+    ``lengths[b]`` tokens of row b are valid. -> (B, Hq, D) in q's dtype;
+    with ``return_lse``, (B, Hq, D) in fp32 and each row's log-sum-exp of
+    its scores (B, Hq) fp32, -inf for a row of length 0."""
     B, Hq, D = q.shape
     _, P, page, Hkv, _ = k.shape
     qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
@@ -57,19 +60,25 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m).masked_fill(invalid, 0.0)
     l = p.sum(dim=(-2, -1), keepdim=True)
     o = torch.einsum("bhgpt,bpthd->bhgd", p, v.float())
-    o = o / torch.clamp(l[..., 0], min=1e-20)
-    return o.reshape(B, Hq, D).to(q.dtype)
+    o = (o / torch.clamp(l[..., 0], min=1e-20)).reshape(B, Hq, D)
+    if not return_lse:
+        return o.to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    return o, lse.reshape(B, Hq)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_table: torch.Tensor,
                         lengths: torch.Tensor, *,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        return_lse: bool = False):
     """q: (B, Hq, D); pools: (B, n_pages, page, Hkv, D) per slot; table:
     (B, n_pages) int32 (entries >= n_pages as zero pages); lengths: (B,).
-    -> (B, Hq, D)."""
+    -> (B, Hq, D), or with ``return_lse`` the output in fp32 and each
+    row's log-sum-exp (B, Hq) fp32."""
     return _attend(q, gather_slot_pages(k_pool, block_table),
-                   gather_slot_pages(v_pool, block_table), lengths, softcap)
+                   gather_slot_pages(v_pool, block_table), lengths, softcap,
+                   return_lse)
 
 
 def paged_attention_global_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -11,8 +11,8 @@ Examples:
   ... --steps 12 --ckpt-every 5 --inject-failure-at 7
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
-output lines as the reference's; ``--mesh`` is refused, since the
-multi-device slice is not ported yet. Checkpoints are written in the
+output lines as the reference's; ``--mesh`` is refused, since training
+on a mesh is not ported yet. Checkpoints are written in the
 reference's layout (blocks stacked, ``models.params.stack_blocks``), so the
 two launchers restore each other's. The recurrent archs take only the
 ``--seq`` lengths their chunked scans reshape (rwkv6: under 64 or a
@@ -97,9 +97,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh is not ported yet: the multi-device slice (ROADMAP "
-                 "queue 1, item 2) brings the mesh, and this launcher runs "
-                 "on one device")
+        ap.error("--mesh is not ported yet: training on a mesh (ROADMAP "
+                 "queue 1, item 2b) brings it, and this launcher runs on "
+                 "one device")
 
     cfg = build(args)
     device = resolve_device(args.device)

@@ -1,9 +1,10 @@
-"""Attention (port of ``repro/models/attention.py``, without the
-sequence-parallel decode): GQA projections (self- and cross-attention, the
+"""Attention (port of ``repro/models/attention.py``): GQA projections (self- and cross-attention, the
 latter gated), flash attention for training, prefill and cross-attention,
 with its backward, the paged KV cache in both layouts (the GLOBAL shared
 pool of zero-copy serving and the PER-SLOT pools of the copy baseline)
-with its append and decode attention, and prefix-context attention.
+with its append and decode attention, prefix-context attention, and the
+sequence-parallel decode of a long sequence whose pages are sharded over
+the ranks of a mesh axis (``sp_paged_decode``).
 
 ``flash_attention`` and ``paged_decode_attention`` run the hand-written CUDA
 kernels for tensors on a CUDA device and their plain versions on the CPU
@@ -26,9 +27,11 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import _block_mask, _chunk_of
-from repro_torch.kernels.paged_attention.ops import paged_decode
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_decode)
 from repro_torch.kernels.paged_attention.ref import \
     gather_global_pages as _gather
+from repro_torch.models.dist import MeshInfo, axis_group, axis_rank
 
 
 # ------------------------------------------------------------ projections
@@ -320,3 +323,80 @@ def scatter_pages(pool: torch.Tensor, table: torch.Tensor,
     tbl = table.reshape(-1).long()
     rows = _live_rows(tbl, pool.shape[0])
     pool[tbl[rows]] = pages[rows].to(pool.dtype)
+
+
+# ------------------------------------------------------------ SP decode
+
+def sp_paged_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                    kv: PagedKV, mesh, *, softcap: Optional[float] = None,
+                    seq_axis: str = "data"):
+    """Sequence-parallel paged decode (long_500k): pages sharded on
+    ``seq_axis``, one rank a shard.
+
+    ``kv`` is this rank's shard of a per-slot cache: pools (B, local_pages,
+    page, Hkv, D), physical pages [r * local_pages, (r + 1) * local_pages)
+    of the sequence's; the whole block table (B, n_pages), which every rank
+    holds; the lengths (B,) of the whole sequence. As in the reference, a
+    shard reads its own columns of the table modulo ``local_pages`` (its
+    local translation): placement is sequence-affine, shard i owns logical
+    pages [i * local_pages, (i + 1) * local_pages), so the block-table walk
+    never crosses a shard.
+
+    The new token's K/V is written on its owner shard only (rolling modulo
+    the whole capacity); each shard then attends over its local pages
+    through the decode kernel, which also writes each row's log-sum-exp
+    (positions up to and including ``length``: a shard past the length
+    has none, and its lse is -inf); the shards' partials are merged by
+    all-reduces over ``seq_axis``: m = max lse_r, w_r = exp(lse_r - m),
+    out = sum w_r o_r / sum w_r (the owner shard always holds the new
+    token, so m is finite). The reference's ``pmax``/``psum`` merge of (m,
+    l, acc) is the same sum; here each partial arrives normalised, in
+    fp32 as the reference's acc, and P keeps the kernel's precision (the
+    reference rounds P to V's dtype before P.V). The collectives run after the kernel on the
+    caller's stream (NCCL and gloo order them after the current stream's
+    work).
+
+    The pools are updated in place. Returns (out (B, 1, Hq, D), the PagedKV
+    with lengths + 1).
+    """
+    if mesh is None:
+        raise ValueError("sequence-parallel decode needs a mesh: the SP "
+                         "cache layout shards a sequence's pages over the "
+                         f"{seq_axis!r} axis")
+    import torch.distributed as dist
+    mi = MeshInfo(mesh)
+    n_shards, shard = mi.size(seq_axis), axis_rank(mi, seq_axis)
+    group = axis_group(mi, seq_axis)
+    B, _, Hq, D = q.shape
+    local_pages, page = kv.k_pool.shape[1], kv.page_size
+    local_tokens = local_pages * page
+    length = torch.broadcast_to(kv.length, (B,)).long()
+    # ---- append on the owner shard (rolling modulo pool capacity) ----
+    wpos = length % (n_shards * local_tokens)
+    owner = (wpos // local_tokens) == shard
+    local_pos = wpos % local_tokens
+    lpage, slot = local_pos // page, local_pos % page
+    tbl = kv.block_table[:, shard * local_pages:(shard + 1) * local_pages] \
+        .long() % local_pages                        # shard-local translation
+    phys = torch.gather(tbl, 1, lpage[:, None])[:, 0]
+    rows = torch.arange(B, device=q.device)
+    for pool, new in ((kv.k_pool, k_new), (kv.v_pool, v_new)):
+        cur = pool[rows, phys, slot]
+        pool[rows, phys, slot] = torch.where(owner[:, None, None],
+                                             new[:, 0].to(pool.dtype), cur)
+    # ---- local partial attention: positions shard * local_tokens + i,
+    # valid while <= length ----
+    n_local = torch.clamp(length + 1 - shard * local_tokens, 0,
+                          local_tokens).to(torch.int32)
+    o, lse = paged_attention(q[:, 0].contiguous(), kv.k_pool, kv.v_pool,
+                             tbl.to(torch.int32).contiguous(), n_local,
+                             softcap=softcap, return_lse=True)
+    # ---- flash-decoding merge across shards ----
+    m = lse.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - m)[..., None]                  # (B, Hq, 1)
+    acc = torch.cat([w * o, w], dim=-1)
+    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    out = acc[..., :D] / acc[..., D:]
+    return (out.reshape(B, 1, Hq, D).to(q.dtype),
+            kv._replace(length=kv.length + 1))

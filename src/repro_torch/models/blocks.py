@@ -29,6 +29,14 @@ Two execution modes reach a layer here:
            pass over its full source
   decode   one token per sequence: append through the table, then attend
            over the pool through it
+
+On a mesh (``ctx.mi``) every rank runs the same layer on the same, whole
+tensors, except under the sequence-parallel layout (``ctx.sp``: one
+sequence whose pages are sharded over the ``data`` axis, the long_500k
+shape): a rank's per-slot pools hold only its shard of the pages, a
+prefill writes only the positions the rank owns, and a decode appends on
+the owner shard and merges the shards' partial attention
+(``attention.sp_paged_decode``).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
+from repro_torch.models.dist import NO_MESH, MeshInfo, axis_rank
 from repro_torch.models.layers import glu_mlp, mlp2, rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
@@ -61,6 +70,20 @@ class FwdCtx:
     # are NULLed so the prefill write never touches a shared page.
     kv_prefix_lens: Optional[torch.Tensor] = None  # (B,) int32
     write_tables: Optional[torch.Tensor] = None    # (B, max_pages) int32
+    mi: MeshInfo = NO_MESH
+    # sequence-parallel layout (long_500k): the per-slot pools are this
+    # rank's shard of the pages over 'data' (prefill writes its positions,
+    # decode runs attention.sp_paged_decode)
+    sp: bool = False
+
+
+SP_MIN_LEN = 262144
+
+
+def _sp_mode(cfg: ModelConfig, batch: int, max_len: int) -> bool:
+    """Sequence-parallel cache layout when batch can't cover the data axis
+    (the reference's test: one sequence of at least 262144 tokens)."""
+    return batch == 1 and max_len >= SP_MIN_LEN
 
 
 def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
@@ -73,8 +96,13 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
         pos_b = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
         q = rope(q, pos_b, cfg.rope_theta)
         k = rope(k, pos_b, cfg.rope_theta)
-        kv_new = attn.paged_append(kv, k, v)
-        o = attn.paged_decode_attention(q, kv_new, softcap=cfg.attn_softcap)
+        if ctx.sp:
+            o, kv_new = attn.sp_paged_decode(q, k, v, kv, ctx.mi.mesh,
+                                             softcap=cfg.attn_softcap)
+        else:
+            kv_new = attn.paged_append(kv, k, v)
+            o = attn.paged_decode_attention(q, kv_new,
+                                            softcap=cfg.attn_softcap)
         return attn.out_proj(p, o), kv_new
     if ctx.kv_prefix_lens is not None and kv is not None \
             and attn.is_global_layout(kv):
@@ -102,6 +130,8 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
         return y, None
     if attn.is_global_layout(kv):
         return y, _prefill_write_global(kv, k, v, ctx, S)
+    if ctx.sp:
+        return y, _prefill_write_sp(kv, k, v, ctx, S)
     return y, _prefill_write_slots(kv, k, v, ctx, S)
 
 
@@ -146,6 +176,50 @@ def _prefill_write_slots(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
         pages = seg.reshape(B, n_pages, page, *feat)
         pool.copy_(torch.take_along_dim(pages, inv[:, :, None, None, None],
                                         dim=1))
+
+    write(kv.k_pool, k)
+    write(kv.v_pool, v)
+    return kv._replace(length=torch.full_like(kv.length, min(S, eff)))
+
+
+def _prefill_write_sp(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
+                      ) -> attn.PagedKV:
+    """The per-slot prefill write under the sequence-parallel layout, in
+    place. The table is the whole sequence's, (B, n_pages), on every rank;
+    this rank's pools hold physical pages [r * lp, (r + 1) * lp) of it (lp
+    = its local pages), the shard the reference's pool sharding over
+    'data' gives rank r. Each local page receives the logical page the
+    table maps to it, as :func:`_prefill_write_slots` places a ring's
+    tokens (token t at position t % eff, eff the whole capacity; a
+    right-padded row's last real tokens, the rest zero): a prompt longer
+    than one shard's tokens spans ranks."""
+    n_shards, r = ctx.mi.size("data"), axis_rank(ctx.mi, "data")
+    B = k.shape[0]
+    local_pages, page = kv.k_pool.shape[1], kv.k_pool.shape[2]
+    if local_pages * n_shards != kv.block_table.shape[-1]:
+        raise ValueError(f"{kv.block_table.shape[-1]} pages do not shard "
+                         f"as {n_shards} x {local_pages}")
+    eff = kv.block_table.shape[-1] * page
+    dev = k.device
+    lens = (torch.broadcast_to(ctx.seq_lengths, (B,)).long()
+            if ctx.seq_lengths is not None
+            else torch.full((B,), S, dtype=torch.long, device=dev))
+    # Physical page j of row b holds logical page inv[b, j].
+    inv = torch.argsort(kv.block_table.long(), dim=1)
+    mine = inv[:, r * local_pages:(r + 1) * local_pages]        # (B, lp)
+    i = (mine[:, :, None] * page
+         + torch.arange(page, device=dev)).reshape(B, -1)        # positions
+    start = torch.clamp(lens - eff, min=0)[:, None]              # (B, 1)
+    idx = start + torch.remainder(i - start, eff)
+    valid = idx < lens[:, None]
+    idx = torch.clamp(idx, max=max(S - 1, 0))
+
+    def write(pool, kv_seq):
+        feat = kv_seq.shape[2:]
+        seg = torch.gather(kv_seq, 1, idx[:, :, None, None].expand(
+            -1, -1, *feat))
+        seg = torch.where(valid[:, :, None, None], seg, 0)
+        pool.copy_(seg.reshape(B, local_pages, page, *feat))
 
     write(kv.k_pool, k)
     write(kv.v_pool, v)
@@ -237,7 +311,8 @@ def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
     if ctx.mode == "decode":
         y, wkv = rwkv.rwkv_time_mix_step(p["tm"], h, h_prev, cfg, st0.wkv)
     else:
-        y, wkv = rwkv.rwkv_time_mix(p["tm"], h, h_prev, cfg, st0.wkv)
+        y, wkv = rwkv.rwkv_time_mix(p["tm"], h, h_prev, cfg, st0.wkv,
+                                    mi=ctx.mi)
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     h_prev, new_cm = rwkv.token_shift(h, st0.shift_cm)
@@ -262,8 +337,10 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     if kind in MAMBA_KINDS:
         st = cache if cache is not None else \
             mam.zero_state(cfg, x.shape[0], x.dtype, x.device)
-        step = mam.mamba_mix_step if ctx.mode == "decode" else mam.mamba_mix
-        y, st = step(p["mamba"], h, cfg, st)
+        if ctx.mode == "decode":
+            y, st = mam.mamba_mix_step(p["mamba"], h, cfg, st)
+        else:
+            y, st = mam.mamba_mix(p["mamba"], h, cfg, st, mi=ctx.mi)
         cache = st if cache is not None else None
     elif kind == "xattn_mlp":
         y, cache = _cross_attention(p["xattn"], h, ctx, cache)
@@ -280,5 +357,5 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind in ("attn_moe", "mamba_moe"):
-        return x + moe_ffn(p["moe"], h, cfg), cache
+        return x + moe_ffn(p["moe"], h, cfg, ctx.mi), cache
     return x + _apply_mlp(p["mlp"], h, cfg), cache

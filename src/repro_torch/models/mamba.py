@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.dist import NO_MESH, MeshInfo
 from repro_torch.models.params import ParamSpec, residual
 from repro_torch.models.rwkv6 import chunking
 
@@ -113,8 +114,10 @@ def _scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: MambaState,
-              chunk: int = 256):
-    """x: (B, T, d). Returns (out (B, T, d), new MambaState)."""
+              chunk: int = 256, *, mi: MeshInfo = NO_MESH):
+    """x: (B, T, d). Returns (out (B, T, d), new MambaState). ``mi`` is
+    taken as the reference takes it, and not used (every rank holds whole
+    tensors)."""
     B, T, _ = x.shape
     nC, C = chunking(T, chunk)
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)

@@ -16,10 +16,19 @@ Every entry that is not a PagedKV is a NamedTuple of tensors with one row
 a slot, which the walkers below treat alike.
 
   init_cache(cfg, batch, max_len, page_size, global_pages=None, device,
-             src_len=ENCDEC_SRC_LEN)
-  forward_prefill(cfg, params, batch, cache) -> (last_logits, cache)
-  forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
+             src_len=ENCDEC_SRC_LEN, mi=NO_MESH)
+  forward_prefill(cfg, params, batch, cache, mi=NO_MESH)
+      -> (last_logits, cache)
+  forward_decode(cfg, params, token, pos, cache, mi=NO_MESH, sp=None)
+      -> (logits, cache)
   forward_train(cfg, params, batch) -> loss
+
+On a mesh (``mi``) every rank runs the same forward on the same inputs.
+One sequence of at least 262144 tokens (``blocks._sp_mode``) takes the
+sequence-parallel layout: each attention layer's per-slot pools hold only
+this rank's shard of the pages over ``data`` (every rank holds the whole
+block table), a prefill writes the rank's positions, and a decode merges
+the shards' partial attention (``attention.sp_paged_decode``).
 
 A prefill's ``batch`` carries ``enc_x`` (B, src_len, d) for an
 encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
@@ -43,7 +52,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.blocks import FwdCtx, apply_layer
+from repro_torch.models.blocks import FwdCtx, _sp_mode, apply_layer
+from repro_torch.models.dist import NO_MESH, MeshInfo
 from repro_torch.models.layers import chunked_xent, embed, logits_fn, rmsnorm
 from repro_torch.models.params import (MAMBA_KINDS, resolve_device,
                                        torch_dtype)
@@ -78,7 +88,7 @@ def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
                global_pages: Optional[int] = None, device="cuda",
-               src_len: int = ENCDEC_SRC_LEN) -> Cache:
+               src_len: int = ENCDEC_SRC_LEN, mi: MeshInfo = NO_MESH) -> Cache:
     """Zero-filled cache, lengths 0, one layout chosen per layer.
 
     With ``global_pages``, a layer that holds all ``max_len`` tokens gets one
@@ -91,6 +101,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     in the shapes and dtypes of the reference's ``rwkv_state_specs`` and
     ``mamba_state_specs``. A cross-attention gets zero K/V of ``src_len``
     rows a slot, and an encoder-decoder a zero encoder output as long.
+
+    Under the sequence-parallel layout (``batch`` 1 and ``max_len`` >=
+    262144, with or without ``global_pages``, as the reference) each
+    attention layer's pools hold only this rank's shard of the pages over
+    the mesh's ``data`` axis, physical pages [r * lp, (r + 1) * lp) of the
+    identity table, which every rank holds whole; without a mesh the
+    shard is the whole pool (and a decode refuses it).
     """
     dev = resolve_device(device)
     dt = torch_dtype(cfg.activation_dtype)
@@ -98,6 +115,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     max_pages = -(-max_len // page_size)
     cache = []
     cross = (batch, src_len, cfg.n_kv_heads, cfg.d_head)
+    sp = _sp_mode(cfg, batch, max_len)
+    n_shards = mi.size("data") if sp else 1
 
     def zero_cross():
         return attn.CrossKV(torch.zeros(cross, dtype=dt, device=dev),
@@ -114,13 +133,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
             cache.append(mam.zero_state(cfg, batch, dt, dev))
             continue
         cap = layer_capacity(cfg, kind, max_len)
-        if global_pages is not None and cap == max_len:
+        if global_pages is not None and cap == max_len and not sp:
             shape = (global_pages, *tail)
             table = torch.full((batch, max_pages), global_pages,
                                dtype=torch.int32, device=dev)
         else:
             n_pages = -(-cap // page_size)
-            shape = (batch, n_pages, *tail)
+            if n_pages % n_shards:
+                raise ValueError(f"{n_pages} pages do not shard over "
+                                 f"{n_shards} ranks of 'data'")
+            local = n_pages // n_shards
+            shape = (batch, local, *tail)
             table = torch.arange(n_pages, dtype=torch.int32, device=dev) \
                 .expand(batch, n_pages).contiguous()
         cache.append(attn.PagedKV(
@@ -204,6 +227,18 @@ def install_tables(cache: Cache, tables: torch.Tensor,
     return [install(kv, tables, lengths) for kv in cache]
 
 
+def _decode_is_sp(cfg: ModelConfig, cache: Cache) -> bool:
+    """Whether ``cache`` has the sequence-parallel layout, by the
+    reference's test on its first PagedKV: a per-slot cache of one
+    sequence whose table (the whole sequence's, on every rank) spans at
+    least 262144 tokens."""
+    kv = next((e for e in cache if not is_state(e)), None)
+    if kv is None or attn.is_global_layout(kv):
+        return False
+    return _sp_mode(cfg, kv.k_pool.shape[0],
+                    kv.block_table.shape[-1] * kv.page_size)
+
+
 def layers(cfg: ModelConfig, params) -> List[Tuple[str, dict]]:
     """(kind, parameters) of every layer in ``cfg.layer_kinds()`` order:
     the ``first_k_dense`` dense layers, then the blocks'."""
@@ -277,20 +312,23 @@ def _embed_in(cfg: ModelConfig, params, tokens):
 
 
 def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-                    cache: Optional[Cache]):
+                    cache: Optional[Cache], mi: MeshInfo = NO_MESH):
     """``batch``: tokens (B, S) right-padded; lengths (B,) real lengths;
     optionally prefix_lens (B,) (tokens already resident in the shared pool;
     ``tokens`` then holds only each prompt's suffix) and write_tables (B, P)
     (the scatter tables with shared entries NULLed); ``enc_x`` or ``img_x``
     where the arch has cross-attention. Returns the logits at each row's
-    last real token, (B, 1, V), and the cache."""
+    last real token, (B, 1, V), and the cache. Under the
+    sequence-parallel layout each rank computes the whole prefill and
+    writes the pages it holds."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     prefix_lens = batch.get("prefix_lens")
     cross_x = _cross_source(cfg, params, batch)
     ctx = FwdCtx(cfg=cfg, mode="prefill", seq_lengths=lengths,
                  kv_prefix_lens=prefix_lens,
-                 write_tables=batch.get("write_tables"), cross_x=cross_x)
+                 write_tables=batch.get("write_tables"), cross_x=cross_x,
+                 mi=mi, sp=cache is not None and _decode_is_sp(cfg, cache))
     x = _embed_in(cfg, params, tokens)
     x, new = _run_blocks(cfg, params, x, ctx, cache)
     if cache is not None and cfg.is_encdec:
@@ -312,9 +350,14 @@ def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 
 def forward_decode(cfg: ModelConfig, params, token: torch.Tensor, pos,
-                   cache: Cache):
-    """token: (B, 1) int; pos: (B,) or scalar current cache length."""
-    ctx = FwdCtx(cfg=cfg, mode="decode", q_offset=pos)
+                   cache: Cache, mi: MeshInfo = NO_MESH,
+                   sp: Optional[bool] = None):
+    """token: (B, 1) int; pos: (B,) or scalar current cache length. ``sp``
+    (None: from the cache's layout) decodes sequence-parallel over
+    ``mi``'s ``data`` axis."""
+    if sp is None:
+        sp = _decode_is_sp(cfg, cache)
+    ctx = FwdCtx(cfg=cfg, mode="decode", q_offset=pos, mi=mi, sp=sp)
     x = _embed_in(cfg, params, token)
     x, new = _run_blocks(cfg, params, x, ctx, cache)
     if cfg.is_encdec:

@@ -5,18 +5,21 @@ shared expert.
   moe_specs(cfg, damp)   the layer's ParamSpecs (the router float32)
   route(p, x2, cfg)      the routing both versions share: fp32 logits,
                          softmax, top-K, renormalised gates
-  moe_ffn_ref(p, x, cfg) the plain version: the reference's one-hot
+  moe_ffn_ref(p, x, cfg, mi)
+                         the plain version: the reference's one-hot
                          dispatch and combine einsums, line for line
-  moe_ffn(p, x, cfg)     the main path: the same function by index
+  moe_ffn(p, x, cfg, mi) the main path: the same function by index
                          dispatch, with no (T, E, C) tensor
   aux_load_balance_loss(p, x, cfg)
                          the Switch-style load-balancing loss (nothing in
                          the reference's forward_train calls it)
 
-The reference's semantics, held exactly with one token group (G = 1, what
-its ``_n_groups`` gives without a mesh):
+The reference's semantics, held exactly. The T = B*S tokens, in flattened
+(B, S) order, fall into ``G = _n_groups(T, mi)`` consecutive groups of Tg =
+T / G tokens: G = gcd(T, the mesh's size), 1 without a mesh. Each group
+routes on its own:
 
-* ``capacity = max(ceil(T*K/E*capacity_factor), 1)`` with T = B*S. Every
+* ``capacity = max(ceil(Tg*K/E*capacity_factor), 1)``. Every
   position routes and takes capacity: a right-padded prefill's padding,
   the engine's padding rows and its idle decode slots too, so the batch's
   make-up changes which choices a real token keeps, as in the reference.
@@ -25,9 +28,9 @@ its ``_n_groups`` gives without a mesh):
 * The gates are renormalised by ``max(sum, 1e-9)`` BEFORE the capacity
   drop; a dropped choice's gate becomes 0 and the kept gates are not
   renormalised again.
-* A choice's position in its expert's buffer is choice-major: every
-  token's first choice comes before any second choice, tokens in flattened
-  (B, S) order; a choice at position >= capacity is dropped.
+* A choice's position in its expert's buffer (of its group) is
+  choice-major: every token's first choice comes before any second
+  choice, tokens in order; a choice at position >= capacity is dropped.
 * The gate is cast to x's dtype before weighting; the shared expert is a
   GLU MLP over x at width ``d_ff * n_shared_experts``.
 
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.dist import NO_MESH, MeshInfo
 from repro_torch.models.layers import _ACTS, glu_mlp
 from repro_torch.models.params import ParamSpec, glu_specs, residual
 
@@ -70,6 +74,15 @@ def capacity(n_tokens: int, m: MoEConfig) -> int:
                              * m.capacity_factor)), 1)
 
 
+def _n_groups(n_tokens: int, mi: MeshInfo) -> int:
+    """Token groups: the reference's, which shard over the whole mesh (the
+    gcd of the token count and the mesh's size; 1 without a mesh)."""
+    want = 1
+    for a in mi.all_axes:
+        want *= mi.size(a)
+    return max(math.gcd(n_tokens, max(want, 1)), 1)
+
+
 def route(p: dict, x2: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2 (T, d) -> (experts (T, K) int64, gates (T, K) fp32): each token's
@@ -86,81 +99,92 @@ def route(p: dict, x2: torch.Tensor, cfg: ModelConfig
     return experts, gates
 
 
-def positions(experts: torch.Tensor) -> torch.Tensor:
-    """(T, K) each choice's position in its expert's buffer, choice-major,
-    by a stable sort of the choices by expert: a choice's rank among those
-    of its expert, with no (T, K, E) one-hot."""
+def positions(experts: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """(T, K) each choice's position in its expert's buffer of its token
+    group (``groups`` consecutive runs of T / groups tokens), choice-major
+    within the group, by a stable sort of the choices by (group, expert): a
+    choice's rank among those of its group and expert, with no (T, K, E)
+    one-hot."""
     T, K = experts.shape
-    flat = experts.t().reshape(-1)                     # choice-major
+    tg = T // groups
+    gid = torch.arange(groups, device=experts.device)[:, None, None]
+    flat = (experts.reshape(groups, tg, K).transpose(1, 2)
+            + (gid << 32)).reshape(-1)                 # choice-major a group
     order = torch.argsort(flat, stable=True)
     ranked = flat[order]
     first = torch.searchsorted(ranked, ranked)         # where its run starts
     rank = torch.arange(flat.numel(), device=flat.device) - first
     pos = torch.empty_like(flat).scatter_(0, order, rank)
-    return pos.view(K, T).t()
+    return pos.view(groups, K, tg).transpose(1, 2).reshape(T, K)
 
 
 def moe_ffn_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                return_keep: bool = False):
+                mi: MeshInfo = NO_MESH, return_keep: bool = False):
     """The plain version: the reference's ``moe_ffn`` line for line, its
-    (T, E, C) combine and dispatch tensors included. x (B, S, d) ->
+    (G, Tg, E, C) combine and dispatch tensors included. x (B, S, d) ->
     (B, S, d), and the (T, K) keep mask if ``return_keep``."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
+    G = _n_groups(T, mi)
+    Tg = T // G
     E = m.n_experts
-    C = capacity(T, m)
-    xt = x.reshape(T, d)
-    experts, gates = route(p, xt, cfg)
-    onehot = F.one_hot(experts, E).to(torch.int32)              # (T,K,E)
+    C = capacity(Tg, m)
+    xt = x.reshape(G, Tg, d)
+    experts, gates = route(p, x.reshape(T, d), cfg)
     K = experts.shape[1]
-    oh_flat = onehot.transpose(0, 1).reshape(K * T, E)          # choice-major
-    pos_flat = torch.cumsum(oh_flat, dim=0) - 1
-    pos = (pos_flat.reshape(K, T, E).transpose(0, 1) * onehot).sum(-1)
+    experts, gates = experts.reshape(G, Tg, K), gates.reshape(G, Tg, K)
+    onehot = F.one_hot(experts, E).to(torch.int32)              # (G,Tg,K,E)
+    oh_flat = onehot.transpose(1, 2).reshape(G, K * Tg, E)      # choice-major
+    pos_flat = torch.cumsum(oh_flat, dim=1) - 1
+    pos = (pos_flat.reshape(G, K, Tg, E).transpose(1, 2) * onehot).sum(-1)
     keep = pos < C
     gates = gates * keep
     slot_oh = F.one_hot(torch.where(keep, pos, C), C + 1).to(
-        x.dtype)[..., :C]                                       # (T,K,C)
-    combine = torch.einsum("tke,tkc->tec", onehot.to(x.dtype)
+        x.dtype)[..., :C]                                       # (G,Tg,K,C)
+    combine = torch.einsum("gtke,gtkc->gtec", onehot.to(x.dtype)
                            * gates[..., None].to(x.dtype), slot_oh)
     dispatch = (combine > 0).to(x.dtype)
-    de = torch.einsum("tec,td->ecd", dispatch, xt)              # (E,C,d)
-    h = _ACTS[cfg.act](torch.einsum("ecd,edf->ecf", de, p["w_gate"])) \
-        * torch.einsum("ecd,edf->ecf", de, p["w_up"])
-    eo = torch.einsum("ecf,efd->ecd", h, p["w_down"])           # (E,C,d)
-    out = torch.einsum("tec,ecd->td", combine, eo).reshape(B, S, d)
+    de = torch.einsum("gtec,gtd->gecd", dispatch, xt)           # (G,E,C,d)
+    h = _ACTS[cfg.act](torch.einsum("gecd,edf->gecf", de, p["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", de, p["w_up"])
+    eo = torch.einsum("gecf,efd->gecd", h, p["w_down"])         # (G,E,C,d)
+    out = torch.einsum("gtec,gecd->gtd", combine, eo).reshape(B, S, d)
     if "shared" in p:
         out = out + glu_mlp(p["shared"], x, cfg.act)
+    keep = keep.reshape(T, K)
     return (out, keep) if return_keep else out
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            return_keep: bool = False):
+            mi: MeshInfo = NO_MESH, return_keep: bool = False):
     """The main path, the same function as :func:`moe_ffn_ref`: each kept
-    (token, choice) pair fills row ``expert * C + position`` of an
-    (E*C + 1, d) buffer by a gather of x (empty rows read a zero row), the
-    three expert products run as batched matmuls over (E, C, .), and each
-    token sums its K gated rows of the output (a dropped pair reads the
-    last, zero row at gate 0)."""
+    (token, choice) pair of group g fills row ``(expert * G + g) * C +
+    position`` of an (E*G*C + 1, d) buffer by a gather of x (empty rows
+    read a zero row), the three expert products run as batched matmuls
+    over (E, G*C, .), and each token sums its K gated rows of the output
+    (a dropped pair reads the last, zero row at gate 0)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
+    G = _n_groups(T, mi)
     E, K = m.n_experts, m.experts_per_token
-    C = capacity(T, m)
+    C = capacity(T // G, m)
     dev = x.device
     xt = x.reshape(T, d)
     experts, gates = route(p, xt, cfg)
-    pos = positions(experts)
+    pos = positions(experts, G)
     keep = pos < C
-    trash = E * C
-    slot = torch.where(keep, experts * C + pos, trash)
+    trash = E * G * C
+    group = torch.arange(T, device=dev)[:, None] // (T // G)
+    slot = torch.where(keep, (experts * G + group) * C + pos, trash)
     # The token each buffer row holds (T: none). Kept slots are distinct;
     # only the trash row, never read, is written more than once.
     tokens = torch.arange(T, device=dev)[:, None].expand(T, K).reshape(-1)
     src = torch.full((trash + 1,), T, dtype=torch.long, device=dev)
     src.scatter_(0, slot.reshape(-1), tokens)
     xz = torch.cat([xt, xt.new_zeros(1, d)])
-    buf = xz[src[:trash]].view(E, C, d)
+    buf = xz[src[:trash]].view(E, G * C, d)
     h = _ACTS[cfg.act](torch.bmm(buf, p["w_gate"])) \
         * torch.bmm(buf, p["w_up"])
     eo = torch.bmm(h, p["w_down"]).view(trash, d)

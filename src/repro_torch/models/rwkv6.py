@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.dist import NO_MESH, MeshInfo
 from repro_torch.models.params import ParamSpec, residual
 
 LORA_R = 64   # decay low-rank width
@@ -146,9 +147,12 @@ def _chunk_step(S, rf, kf, vf, wj, u):
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
-                  cfg: ModelConfig, state: torch.Tensor, chunk: int = 32):
+                  cfg: ModelConfig, state: torch.Tensor, chunk: int = 32, *,
+                  mi: MeshInfo = NO_MESH):
     """Chunked WKV6. x: (B, T, d); x_prev: x shifted right by one; state:
-    (B, H, N, N). Returns (out (B, T, d), final state (B, H, N, N) fp32)."""
+    (B, H, N, N). Returns (out (B, T, d), final state (B, H, N, N) fp32).
+    ``mi`` is taken as the reference takes it, and not used (every rank
+    holds whole tensors)."""
     B, T, d = x.shape
     H, N = cfg.n_heads, cfg.d_head
     nC, C = chunking(T, chunk)

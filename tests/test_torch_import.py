@@ -49,6 +49,24 @@ def test_import_all_submodules_without_jax():
     assert int(out.stdout.strip()) >= 20
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.dist",
+                                    "repro_torch.launch.mesh"])
+def test_mesh_modules_stand_alone(module):
+    """The multi-device modules import neither ``jax`` nor ``repro``, and
+    importing one joins no process group and touches no device."""
+    code = (f"import sys, torch\nimport {module}\n"
+            "import torch.distributed as dist\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not [m for m in sys.modules if m == 'repro' or "
+            "m.startswith('repro.')], 'repro imported'\n"
+            "assert not (dist.is_available() and dist.is_initialized())\n"
+            "assert not torch.cuda.is_initialized()\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_no_file_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -177,6 +177,58 @@ def test_paged_decode_dispatches_on_pool_rank():
                        paged_attention_global_ref(gq, gkp, gvp, gtbl, glens))
 
 
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_plain_lse_is_the_logsumexp_of_the_scores(softcap):
+    """The per-slot plain version's log-sum-exp (``return_lse``) against an
+    fp32 logsumexp of each row's valid scores; the row of length 0 reads
+    -inf; the output, in fp32, is the one without ``return_lse``."""
+    q, kp, vp, tbl, lens = map(_t, _slot_inputs(11))
+    out, lse = paged_attention(q, kp, vp, tbl, lens, softcap=softcap,
+                               return_lse=True)
+    assert torch.equal(out, paged_attention(q, kp, vp, tbl, lens,
+                                            softcap=softcap))
+    k = gather_slot_pages(kp, tbl).reshape(B, P * PAGE, HKV, D)
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, HKV, HQ // HKV, D),
+                     k) * D ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.reshape(B, HQ, P * PAGE)
+    want = torch.stack([torch.logsumexp(s[b, :, :n], dim=-1) if n else
+                        torch.full((HQ,), float("-inf"))
+                        for b, n in enumerate(lens.tolist())])
+    assert lse.dtype == torch.float32 and lse.shape == (B, HQ)
+    assert lens[2] == 0 and torch.isneginf(lse[2]).all()
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n_pages", [1, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slot_kernel_lse_matches_plain_on_card(cuda, dtype, n_pages):
+    """The kernel's log-sum-exp against the plain version's, written by the
+    CTA that writes the output (one split: a one-page table; else the last
+    CTA's merge of several): rows of length 0 (-inf), 1, 7 and full; the
+    output, then fp32, rounds to the one without it bit for bit."""
+    dt = getattr(torch, dtype)
+    page, hq_, hkv_, d_ = 16, 32, 8, 64
+    lens = [0, 1, 7, n_pages * page]
+    g = torch.Generator(device=cuda).manual_seed(n_pages)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device=cuda).to(dt)
+    q = mk(len(lens), hq_, d_)
+    kp, vp = (mk(len(lens), n_pages, page, hkv_, d_) for _ in range(2))
+    tbl = torch.stack([torch.randperm(n_pages, device=cuda)
+                       for _ in lens]).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = paged_attention.launches
+    out, lse = paged_attention(q, kp, vp, tbl, ln, return_lse=True)
+    plain = paged_attention(q, kp, vp, tbl, ln)
+    _, ref = paged_attention_ref(q, kp, vp, tbl, ln, return_lse=True)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out.to(dt), plain)
+    assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1:]).all()
+    assert (lse[1:] - ref[1:]).abs().max().item() <= 1e-3
+
+
 # ---- the decode kernel's work split, modelled in plain torch
 
 def _split_model(q, k, v, lengths, n_split, tpc, softcap=None):
