@@ -186,6 +186,21 @@ Phases (each prints one line; any failure exits non-zero):
      three forward_decode steps: each layer's output against one decode
      over the whole unsharded pool, within min(2e-2, 2e-2 x max|plain|),
      and each rank's pools bit for bit. A rank's failure fails the phase.
+  8. training on a mesh: four ranks as in 7 on a (2, 2) ("data", "model")
+     mesh, llama3.2-1b at full width in bf16 cut to 2 layers (wq, wk x
+     0.1), B 4 x 2048 (2 x 2048 a data rank), each rank its blocks of
+     every parameter and optimizer buffer (FSDP over data, TP over model).
+     First the flash kernel at a rank's shape, q (2, 2048, 16, 64) over
+     (2, 2048, 4, 64), with lse, against the plain version; the one-device
+     steps on the same weights and batches, and a planted fault (the
+     steps on one data rank's rows, what a missing reduce-scatter gives).
+     Then each rank: the step's collectives timed alone; (a) three steps
+     held against the one-device steps (loss 2e-3, gradient norm 2e-2,
+     params and master 0.1 of the steps' own change), which the fault
+     must miss; ms a step, peak GiB, flash launches; (b) the replicated
+     blocks bit for bit across ranks; (c) a save on (2, 2), the restore on
+     (4, 1) and on one device bit for bit, one more step on (4, 1) held
+     alike. A rank's failure fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -204,6 +219,10 @@ builds the flash kernel and runs phase 6 alone.
     python3 chip_smoke.py --mesh-only
 
 builds the decode and flash kernels and runs phase 7 alone.
+
+    python3 chip_smoke.py --mesh-train-only
+
+builds the flash kernel and runs phase 8 alone.
 """
 from __future__ import annotations
 
@@ -3540,6 +3559,497 @@ def phase_mesh(device_type: str = "cuda") -> dict:
                 one_device=one["launches"])
 
 
+# ------------------------------------------------------------------ phase 8
+
+MT_ARCH = "llama3.2-1b"
+MT_LAYERS = 2           # full width, depth cut: over gloo on one card every
+                        # gathered block and every all-reduce goes through
+                        # the host (3.4-131.8 ms a collective of 1-64 MB on
+                        # NVIDIA H100 80GB HBM3, 700 W; PERF.md §5)
+MT_MESH = (2, 2)
+MT_ELASTIC = (4, 1)
+MT_STEPS = 3
+MT_LR = 3e-4
+# the mesh's step against the one-device step on the same weights and
+# batches (bf16: the row-parallel products sum their bf16 partials over
+# 'model' and each block's gradient sums over 'data', in other orders)
+MT_LOSS_REL = 2e-3      # each step's loss (phase 6's limit as built)
+MT_GNORM_REL = 2e-2     # each step's gradient norm
+MT_STATE_REL = 0.1      # params and master after the steps: sum |mesh - one|
+                        # over sum |one - initial| (the steps' own change)
+MT_RANKS_S = 600
+
+
+def _card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _mt_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MT_ARCH), n_layers=MT_LAYERS)
+
+
+def _mt_tc():
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(lr=MT_LR, warmup_steps=1, total_steps=10)
+
+
+def _mt_batches(cfg, device, B: int = TRAIN_B, S: int = TRAIN_S) -> list:
+    """MT_STEPS + 1 batches of random tokens (B, S), phase 6's shape,
+    drawn on the CPU from one seed, so every process holds the same."""
+    g = torch.Generator().manual_seed(SEED + 31)
+    mk = lambda: torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    return [{"tokens": mk().to(device), "labels": mk().to(device)}
+            for _ in range(MT_STEPS + 1)]
+
+
+def _mt_params(cfg, device, mi=None):
+    """The phase's weights (seeded; wq and wk x 0.1, phase 6's "scaled"
+    set, on which attention is not chaotic); on a mesh the rank's blocks
+    of the same tree."""
+    from repro_torch.models import NO_MESH, init_params
+    g = torch.Generator(device=device).manual_seed(SEED + 30)
+    return _qk_scaled(init_params(cfg, g, device, mi=mi or NO_MESH))
+
+
+def _mt_counted(sh, mi) -> bool:
+    """Whether this rank's block of a leaf placed by ``sh`` is the one that
+    counts: the first of the ranks that hold the same block."""
+    split = set(sh.split)
+    return all(c == 0 for a, c in sh.coords
+               if a not in split and mi.size(a) > 1)
+
+
+def _mt_diff(state, ref, start, shards=None, mi=None) -> dict:
+    """``rel``: sum |state - ref| over sum |ref - start| over every leaf
+    (fp64), the discrepancy against the steps' own change; the largest
+    |state - ref|; the share of entries that differ. On a mesh over every
+    rank's blocks, each block counted once."""
+    from repro_torch.models.dist import all_reduce
+    from repro_torch.tree import leaves
+    flat = leaves(state)
+    shs = leaves(shards) if shards is not None else [None] * len(flat)
+    dev = flat[0].device
+    sums = torch.zeros(4, dtype=torch.float64, device=dev)
+    big = torch.zeros((), dtype=torch.float64, device=dev)
+    for a, b, p, sh in zip(flat, leaves(ref), leaves(start), shs):
+        d = (a.double() - b.double()).abs()
+        big = torch.maximum(big, d.max())
+        if sh is not None and not _mt_counted(sh, mi):
+            continue
+        sums += torch.stack([d.sum(), (b.double() - p.double()).abs().sum(),
+                             (d != 0).sum().double(),
+                             torch.full((), d.numel(), dtype=torch.float64,
+                                        device=dev)])
+    if mi is not None:
+        sums = all_reduce(sums, mi, mi.axis_names)
+        big = all_reduce(big, mi, mi.axis_names, op="max")
+    return dict(rel=(sums[0] / sums[1]).item(), max_abs=big.item(),
+                differ_share=(sums[2] / sums[3]).item())
+
+
+def _mt_hold(losses, gnorms, ref_losses, ref_gnorms, params, master) -> dict:
+    """The readings of (a) against the one-device step, and whether they
+    are within the limits."""
+    rel = lambda a, b: abs(a - b) / abs(b)
+    row = dict(loss_rel=[rel(a, b) for a, b in zip(losses, ref_losses)],
+               gnorm_rel=[rel(a, b) for a, b in zip(gnorms, ref_gnorms)],
+               params=params, master=master)
+    row["within"] = (max(row["loss_rel"]) <= MT_LOSS_REL
+                     and max(row["gnorm_rel"]) <= MT_GNORM_REL
+                     and params["rel"] <= MT_STATE_REL
+                     and master["rel"] <= MT_STATE_REL)
+    return row
+
+
+def _mt_ref_state(params, opt) -> dict:
+    from repro_torch.models.params import stack_blocks
+    return {"params": stack_blocks(params), "master": stack_blocks(opt.master)}
+
+
+def _mt_reference(cfg, tc, batches, device, ref_dir, data: int) -> dict:
+    """The one-device steps on the same weights and batches: MT_STEPS + 1
+    steps, the state after MT_STEPS and after the last written to
+    ``ref_dir`` (params and master, in the reference's layout) for the
+    ranks to read their blocks of; ms a step and the peak GiB. Then the
+    planted fault: the same MT_STEPS steps on data rank 0's rows alone
+    (B / ``data``), what a step whose gradients missed the other data
+    ranks' rows would give, held as the mesh is."""
+    from repro_torch.checkpoint.ckpt import save
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import tree_map
+    params = _mt_params(cfg, device)
+    start = tree_map(torch.clone, params)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, tc)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = dict(loss=[], grad_norm=[], ms=[])
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        out["loss"].append(m["loss"].item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norm"].append(m["grad_norm"].item())
+        if i + 1 >= MT_STEPS:
+            save(ref_dir, i + 1, _mt_ref_state(params, opt))
+        if i + 1 == MT_STEPS:
+            held = tree_map(torch.clone, (params, opt.master))
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, opt
+    fparams = _mt_params(cfg, device)
+    fopt = init_opt_state(fparams)
+    rows = batches[0]["tokens"].shape[0] // data
+    fl, fg = [], []
+    for b in batches[:MT_STEPS]:
+        fparams, fopt, m = step(fparams, fopt,
+                                {k: v[:rows] for k, v in b.items()})
+        fl.append(m["loss"].item())
+        fg.append(m["grad_norm"].item())
+    out["fault"] = _mt_hold(fl, fg, out["loss"][:MT_STEPS],
+                            out["grad_norm"][:MT_STEPS],
+                            _mt_diff(fparams, held[0], start),
+                            _mt_diff(fopt.master, held[1], start))
+    return out
+
+
+def _mt_bits(t) -> np.ndarray:
+    """The bits of a tensor's or an array's values (bf16 as int16)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy()
+        return t.numpy().view(np.int32 if t.element_size() == 4 else np.int8)
+    return np.asarray(t).view(np.int16 if t.dtype.itemsize == 2 else
+                              np.int32)
+
+
+def _mt_equal_to_file(ck_dir: str, step: int, state, shards) -> bool:
+    """Whether every leaf of ``state`` (this rank's blocks, or whole where
+    ``shards`` is None) equals its block of the checkpoint's file bit for
+    bit."""
+    from repro_torch.tree import leaves
+    d = os.path.join(ck_dir, f"step_{step}")
+    flat = leaves(state)
+    shs = leaves(shards) if shards is not None else [None] * len(flat)
+    for i, (t, sh) in enumerate(zip(flat, shs)):
+        arr = np.load(os.path.join(d, f"leaf_{i}.npy"), mmap_mode="r")
+        if sh is not None:
+            arr = sh.cut(arr)
+        if not np.array_equal(_mt_bits(t), _mt_bits(np.array(arr))):
+            return False
+    return True
+
+
+def _mt_replicas_equal(tree, shards, mi) -> bool:
+    """Every block held by more than one rank (the axes of size > 1 a leaf
+    is not split on) equal bit for bit on each of them."""
+    from repro_torch.models.dist import all_gather
+    from repro_torch.tree import leaves
+    ok = True
+    for t, sh in zip(leaves(tree), leaves(shards)):
+        for a in mi.axis_names:
+            if a in sh.split or mi.size(a) == 1:
+                continue
+            parts = all_gather(t.reshape(1, -1), 0, mi, a)
+            ok &= all(torch.equal(p, parts[0]) for p in parts)
+    return bool(ok)
+
+
+MT_COLLECTIVE_MB = (1, 16, 64)
+
+
+def _mt_collectives(mi, device) -> dict:
+    """ms of the step's collectives alone (``models.dist``'s all_gather,
+    reduce_scatter and all_reduce over the 'data' axis, 2 ranks) on a
+    bf16 block of each size a rank, the median of 3 after one, each from
+    a barrier to its result on the device."""
+    import torch.distributed as dist
+    from repro_torch.models.dist import all_gather, all_reduce, reduce_scatter
+    ops = {"all_gather": lambda x: all_gather(x, 0, mi, "data"),
+           "reduce_scatter": lambda x: reduce_scatter(x, 0, mi, "data"),
+           "all_reduce": lambda x: all_reduce(x, mi, "data")}
+    out = {}
+    for mb in MT_COLLECTIVE_MB:
+        x = torch.ones(mb * 2 ** 19, dtype=torch.bfloat16, device=device)
+        for name, op in ops.items():
+            times = []
+            for _ in range(4):
+                dist.barrier()
+                t0 = time.perf_counter()
+                op(x)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_{mb}MB"] = statistics.median(times[1:])
+    return out
+
+
+def _mt_steps(step, params, opt, batches) -> tuple:
+    times, losses, gnorms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(m["grad_norm"].item())
+    return params, opt, dict(loss=losses, grad_norm=gnorms, ms=times)
+
+
+def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
+             device_type: str = "cuda", B: int = TRAIN_B,
+             S: int = TRAIN_S, cfg=None) -> None:
+    """One rank of phase 8: (a) MT_STEPS steps on the (2, 2) mesh, held
+    against the one-device steps (``ref``; the state from ``tmp``/ref),
+    every local shape against its resolved spec, flash launches and peak
+    memory; (b) the replicas; (c) a save on (2, 2), the restore on (4,
+    1), bit for bit against the file, and one more step there, held
+    against the one-device step. Results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import (ckpt_shardings, ckpt_state,
+                                          from_ckpt_state)
+    from repro_torch.models import MeshInfo
+    from repro_torch.models.params import (model_specs, shardings,
+                                           stack_blocks, stack_specs)
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves, tree_map
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", rank if backend == "nccl" else 0)
+              if cuda else torch.device("cpu"))
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    cfg = cfg or _mt_cfg()
+    tc = _mt_tc()
+    batches = _mt_batches(cfg, device, B, S)
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend())
+
+    def one_mesh(shape):
+        mi = MeshInfo(make_mesh(shape, ("data", "model"), device=device_type))
+        return (mi, shardings(model_specs(cfg), mi),
+                shardings(stack_specs(model_specs(cfg)), mi))
+
+    def held(mi, stacked, params, opt, start, at):
+        now = _mt_ref_state(params, opt)
+        got = restore(os.path.join(tmp, "ref"), at, now,
+                      shardings={"params": stacked, "master": stacked})
+        init = stack_blocks(start)
+        return (_mt_diff(now["params"], got["params"], init, stacked, mi),
+                _mt_diff(now["master"], got["master"], init, stacked, mi))
+
+    # (a) the steps on (2, 2)
+    mi, sh, stacked = one_mesh(MT_MESH)
+    res["collectives_ms"] = _mt_collectives(mi, device)
+    params = _mt_params(cfg, device, mi)
+    start = tree_map(torch.clone, params)
+    opt = init_opt_state(params)
+    res["local_shapes_ok"] = all(
+        tuple(t.shape) == s_.local_shape(spec.shape)
+        for t, s_, spec in zip(leaves(params), leaves(sh),
+                               leaves(model_specs(cfg))))
+    res["local_params"] = sum(t.numel() for t in leaves(params))
+    step = make_train_step(cfg, tc, mi)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    params, opt, res["steps"] = _mt_steps(step, params, opt,
+                                          batches[:MT_STEPS])
+    res["flash_launches"] = flash_attention_fwd.launches
+    res["flash_wgmma_launches"] = flash_attention_fwd.wgmma_launches
+    if cuda:
+        res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    p_diff, m_diff = held(mi, stacked, params, opt, start, MT_STEPS)
+    res["a"] = _mt_hold(res["steps"]["loss"], res["steps"]["grad_norm"],
+                        ref["loss"][:MT_STEPS], ref["grad_norm"][:MT_STEPS],
+                        p_diff, m_diff)
+    # (b) the replicas
+    res["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
+                                (params, opt.master, opt.mu, opt.nu))
+    # (c) save on (2, 2), restore on (4, 1), one more step
+    ck = os.path.join(tmp, "ck")
+    state = ckpt_state(params, opt)
+    placed = ckpt_shardings(cfg, mi, False)
+    t0 = time.perf_counter()
+    save(ck, MT_STEPS, state, shardings=placed, mi=mi)
+    res["save_s"] = time.perf_counter() - t0
+    res["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state, placed)
+    del params, opt, state, start
+    mi2, sh2, stacked2 = one_mesh(MT_ELASTIC)
+    start2 = _mt_params(cfg, device, mi2)
+    target = ckpt_state(start2, init_opt_state(start2))
+    placed2 = ckpt_shardings(cfg, mi2, False)
+    t0 = time.perf_counter()
+    state2 = restore(ck, MT_STEPS, target, shardings=placed2)
+    res["restore_s"] = time.perf_counter() - t0
+    res["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, state2, placed2)
+    params2, opt2 = from_ckpt_state(state2)
+    params2, opt2, res["elastic_step"] = _mt_steps(
+        make_train_step(cfg, tc, mi2), params2, opt2, batches[MT_STEPS:])
+    p_diff, m_diff = held(mi2, stacked2, params2, opt2, start2,
+                          MT_STEPS + 1)
+    res["c"] = _mt_hold(res["elastic_step"]["loss"],
+                        res["elastic_step"]["grad_norm"],
+                        ref["loss"][MT_STEPS:], ref["grad_norm"][MT_STEPS:],
+                        p_diff, m_diff)
+    res["replicas_equal_elastic"] = all(
+        _mt_replicas_equal(t, sh2, mi2)
+        for t in (params2, opt2.master, opt2.mu, opt2.nu))
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mt_flash(cfg) -> dict:
+    """(d) The flash kernel at the local shape of a (2, 2) rank: its rows
+    (B / 2) over its heads (32 / 2 q, 8 / 2 KV), bf16, causal, with lse:
+    out and lse against the plain version, times (with and without lse,
+    plain, SDPA with K/V repeated) and the bound."""
+    from repro_torch.kernels import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    d, m = MT_MESH
+    B, hq, hkv = TRAIN_B // d, cfg.n_heads // m, cfg.n_kv_heads // m
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    q, k, v = _flash_inputs(g, torch.bfloat16, B, TRAIN_S, TRAIN_S, hq, hkv,
+                            cfg.d_head)
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0)
+    check = _flash_check(q, k, v, kw)
+    out, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+    _, ref_lse = flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_attention_fwd(q, k, v, **kw)), \
+        "flash: out differs with and without lse"
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert torch.isfinite(lse).all() and lse_err <= LSE_TOL, lse_err
+    G = hq // hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    fl = _flash_flops(B, TRAIN_S, TRAIN_S, hq, cfg.d_head, True, None, 0)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bound, by = _bound(nbytes + lse.numel() * 4, fl, q.dtype)
+    row = dict(shape=[B, TRAIN_S, hq, hkv, cfg.d_head], **check,
+               lse_err=lse_err, lse_tol=LSE_TOL,
+               ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+               ms_lse=cuda_ms(lambda: flash_attention_fwd(
+                   q, k, v, **kw, return_lse=True)),
+               plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                warmup=1, iters=3),
+               library_ms=cuda_ms(lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True)),
+               bound_ms=bound, bound_by=by)
+    emit("phase8 mesh train flash", **row)
+    return row
+
+
+def phase_mesh_train(device_type: str = "cuda") -> dict:
+    """8. Training on a mesh: four ranks over torch.distributed on a (2, 2)
+    ("data", "model") DeviceMesh (NCCL, one rank a card, with four cards;
+    else gloo, all four on cuda:0), llama3.2-1b at full width in bf16 on
+    MT_LAYERS layers, B 4 x 2048 (2 x 2048 a data rank), each rank its
+    blocks of every parameter and optimizer buffer (FSDP over data, TP
+    over model). Here: (d) flash at a rank's shape; the one-device steps
+    on the same weights and batches, and the planted fault (the steps on
+    one data rank's rows). Then the ranks: (a) three steps held against
+    the one-device steps (loss, gradient norm, params and master); (b)
+    the replicas bit for bit; (c) the save on (2, 2), the restore on
+    (4, 1) bit for bit and one more step there, held alike. Last the
+    restore on one device, bit for bit."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint.ckpt import restore
+    from repro_torch.launch.train import ckpt_state
+    from repro_torch.optim import init_opt_state
+    card = _card_line()
+    cfg, tc = _mt_cfg(), _mt_tc()
+    flash = _mt_flash(cfg)
+    tmp = tempfile.mkdtemp(prefix=".mesh_train_", dir=HERE)
+    try:
+        batches = _mt_batches(cfg, device_type)
+        ref = _mt_reference(cfg, tc, batches, device_type,
+                            os.path.join(tmp, "ref"), MT_MESH[0])
+        del batches
+        torch.cuda.empty_cache()
+        fault = ref.pop("fault")
+        n_cards = torch.cuda.device_count()
+        backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_mt_rank, args=(_free_port(), backend, tmp, ref,
+                                       device_type),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MT_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the ranks ran past {MT_RANKS_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+        # the restore on one device
+        whole = _mt_params(cfg, device_type)
+        target = ckpt_state(whole, init_opt_state(whole))
+        state = restore(os.path.join(tmp, "ck"), MT_STEPS, target)
+        one_equal = _mt_equal_to_file(os.path.join(tmp, "ck"), MT_STEPS,
+                                      state, None)
+        del whole, target, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    launches = [r["flash_launches"] for r in ranks]
+    row = dict(card=card, arch=MT_ARCH, layers=MT_LAYERS,
+               mesh=list(MT_MESH), elastic=list(MT_ELASTIC),
+               batch=[TRAIN_B, TRAIN_S], steps=MT_STEPS, backend=backend,
+               cards=n_cards, devices=[r["device"] for r in ranks],
+               ranks_s=ranks_s,
+               limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
+                           state_rel=MT_STATE_REL),
+               one_device=ref, a=r0["a"], fault=fault,
+               a_equal_across_ranks=all(r["a"] == r0["a"] for r in ranks),
+               losses_equal_across_ranks=all(
+                   r["steps"]["loss"] == r0["steps"]["loss"] for r in ranks),
+               ms_ranks=[r["steps"]["ms"] for r in ranks],
+               ms_median=statistics.median(r0["steps"]["ms"]),
+               one_device_ms_median=statistics.median(ref["ms"]),
+               peak_gib_ranks=[r.get("peak_gib") for r in ranks],
+               one_device_peak_gib=ref.get("peak_gib"),
+               local_params_ranks=[r["local_params"] for r in ranks],
+               local_shapes_ok=all(r["local_shapes_ok"] for r in ranks),
+               flash_launches_ranks=launches,
+               flash_launches_a_rank_a_step=launches[0] / MT_STEPS,
+               replicas_equal=all(r["replicas_equal"] for r in ranks),
+               collectives_ms=r0["collectives_ms"])
+    emit("phase8 mesh train", **row)
+    elastic = dict(saved_equal=[r["saved_equal"] for r in ranks],
+                   restored_equal=[r["restored_equal"] for r in ranks],
+                   one_device_equal=one_equal, c=r0["c"],
+                   elastic_ms=[r["elastic_step"]["ms"] for r in ranks],
+                   save_s=[r["save_s"] for r in ranks],
+                   restore_s=[r["restore_s"] for r in ranks],
+                   replicas_equal=all(r["replicas_equal_elastic"]
+                                      for r in ranks))
+    emit("phase8 mesh train elastic", **elastic)
+    assert row["local_shapes_ok"] and row["losses_equal_across_ranks"], row
+    assert row["a"]["within"], row["a"]
+    assert not fault["within"], fault
+    assert all(n == 2 * MT_LAYERS * MT_STEPS for n in launches), launches
+    assert all(r["flash_wgmma_launches"] == n
+               for r, n in zip(ranks, launches)), launches
+    assert row["replicas_equal"] and elastic["replicas_equal"], row
+    assert all(elastic["saved_equal"]) and all(elastic["restored_equal"]) \
+        and one_equal, elastic
+    assert elastic["c"]["within"], elastic["c"]
+    return dict(flash=flash, launches=launches[0], row=row)
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -3574,6 +4084,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the decode and flash kernels and run phase "
                          "7 (serving on a mesh of four ranks) only")
+    ap.add_argument("--mesh-train-only", action="store_true",
+                    help="build the flash kernel and run phase 8 "
+                         "(training on a mesh of four ranks) only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -3598,6 +4111,10 @@ def main(argv=None) -> int:
         phase_card(["paged_attention", "flash_attention"])
         phase_mesh()
         return 0
+    if args.mesh_train_only:
+        phase_card(["flash_attention"])
+        phase_mesh_train()
+        return 0
     phase_card()
     res = phase_kernels()
     launches, served, zc_outs, zc_figures = phase_serve()
@@ -3615,6 +4132,7 @@ def main(argv=None) -> int:
     sort = phase_mergesort()
     train = phase_train()
     mesh = phase_mesh()
+    mesh_train = phase_mesh_train()
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
@@ -3688,6 +4206,10 @@ def main(argv=None) -> int:
          "launches_train": train["launcher"]["flash_launches"],
          "launches_mesh_a_rank": mesh["launches"]["flash_attention_fwd"],
          "launches_train_a_step": train["launcher"]["flash_launches_a_step"],
+         "launches_mesh_train_a_rank": mesh_train["launches"],
+         "mesh_train_shape": {k: mesh_train["flash"][k] for k in (
+             "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")},
          "train_shape": {k: train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
              "library_ms", "bound_ms", "bound_by", "plain_bwd_ms")},

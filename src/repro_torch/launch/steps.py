@@ -1,6 +1,6 @@
 """The train step (port of ``repro/launch/steps.py::make_train_step``):
-the loss, its gradients and the AdamW update. ``make_step``, the dry run's
-entry point, waits for the multi-device slice.
+the loss, its gradients and the AdamW update, on one device or on a mesh.
+``make_step``, the dry run's entry point, is ROADMAP item 2c.
 
 Parameters are plain tensors that each step replaces: the step takes
 gradients with ``torch.autograd.grad`` over detached copies of the leaves
@@ -13,59 +13,88 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models.model import forward_train
+from repro_torch.models.dist import NO_MESH, MeshInfo
+from repro_torch.models.model import (batch_sharding, check_mesh_trainable,
+                                      forward_train)
+from repro_torch.models.params import model_specs, shardings
 from repro_torch.optim import (OptState, adamw_update, clip_by_global_norm)
 from repro_torch.optim.compression import ef_compress
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[torch.Tensor, Any]:
+def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                   mi: MeshInfo = NO_MESH) -> Tuple[torch.Tensor, Any]:
     """(loss, grads): ``forward_train``'s loss and its gradient for every
     leaf of ``params``, in the leaf's dtype (a leaf the loss does not reach
-    gets zeros, as ``jax.grad`` gives it)."""
+    gets zeros, as ``jax.grad`` gives it). On a mesh, the global batch's
+    loss and this rank's blocks of its gradient."""
     flat, treedef = flatten(params)
     live = [p.detach().requires_grad_(True) for p in flat]
-    loss = forward_train(cfg, unflatten(treedef, live), batch)
+    loss = forward_train(cfg, unflatten(treedef, live), batch, mi)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     return loss.detach(), unflatten(treedef, grads)
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def microbatch(batch: Dict[str, torch.Tensor], i: int, mb: int,
+               mi: MeshInfo = NO_MESH) -> Dict[str, torch.Tensor]:
+    """Microbatch ``i`` of ``mb``: without a mesh rows [i B/mb, (i+1)
+    B/mb), the reference's ``reshape(mb, B/mb)``; on a mesh, where the
+    rows split over n ranks, the i-th of ``mb`` equal parts of each
+    rank's rows, so every rank's microbatch is its own rows (the same
+    rows summed in another order than the reference's)."""
+    B = batch["tokens"].shape[0]
+    n = 1
+    if mi.active:
+        sh = batch_sharding((B // mb,), mi)
+        for a in sh.axes(0):
+            n *= mi.size(a)
+    return {k: x.reshape(n, mb, B // (n * mb), *x.shape[1:])[:, i]
+            .reshape(B // mb, *x.shape[1:]) for k, x in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    mi: MeshInfo = NO_MESH):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {"loss", "grad_norm", "lr"}). With ``tc.microbatches`` > 1 the
-    batch's rows are cut into that many equal microbatches in order, whose
-    losses and gradients are summed in fp32 and divided by their count;
-    with ``grad_compression="int8_ef"`` the gradients go through
-    ``ef_compress`` before the clip. The optimizer state is updated in
-    place (see ``optim/adamw.py``)."""
+    batch's rows are cut into that many equal microbatches
+    (:func:`microbatch`), whose losses and gradients are summed in fp32
+    and divided by their count; with ``grad_compression="int8_ef"`` the
+    gradients go through ``ef_compress`` before the clip. The optimizer
+    state is updated in place (see ``optim/adamw.py``).
+
+    On a mesh (the dense decoders only: other kinds raise
+    ``NotImplementedError``) ``params`` and ``opt_state`` are this rank's
+    blocks (``params.shardings``, ``init_opt_state`` of the blocks) and
+    ``batch`` the global batch; the gradients are the rank's blocks of
+    the global batch's, the global norm and ``ef_compress``'s per-leaf
+    scales see every element once, and AdamW updates the blocks."""
+    check_mesh_trainable(cfg, mi)
+    shards = shardings(model_specs(cfg), mi) if mi.active else None
 
     def train_step(params, opt_state: OptState, batch):
         if tc.microbatches > 1:
             mb = tc.microbatches
-            B = batch["tokens"].shape[0]
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                              params)
             for i in range(mb):
-                part = {k: x.reshape(mb, B // mb, *x.shape[1:])[i]
-                        for k, x in batch.items()}
-                l_i, g_i = loss_and_grads(cfg, params, part)
+                l_i, g_i = loss_and_grads(cfg, params,
+                                          microbatch(batch, i, mb, mi), mi)
                 loss = loss + l_i
                 grads = tree_map(torch.add, grads, g_i)
             loss = loss / mb
             grads = tree_map(lambda g: g / mb, grads)
         else:
-            loss, grads = loss_and_grads(cfg, params, batch)
+            loss, grads = loss_and_grads(cfg, params, batch, mi)
 
         if tc.grad_compression == "int8_ef":
-            grads, new_ef = ef_compress(grads, opt_state.ef)
+            grads, new_ef = ef_compress(grads, opt_state.ef, mi, shards)
             opt_state = opt_state._replace(ef=new_ef)
 
-        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, mi, shards)
         params, opt_state, extras = adamw_update(params, grads, opt_state, tc)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, **extras}
 

@@ -30,7 +30,20 @@ Two execution modes reach a layer here:
   decode   one token per sequence: append through the table, then attend
            over the pool through it
 
-On a mesh (``ctx.mi``) every rank runs the same layer on the same, whole
+In training on a mesh (``ctx.tp``, the model axis larger than 1) a dense
+layer runs its tensor-parallel form on this rank's blocks of the weights
+(Megatron's column- and row-parallel layers): the normed input enters
+through ``copy_to`` (its gradient summed over ``model``), ``wq`` (and
+``wk``/``wv`` and the biases, where their heads split) are the rank's
+heads and the flash kernel runs over them alone, ``wo`` is row parallel
+and its output summed over ``model`` (``reduce_from``); the MLP's
+``w_gate``/``w_up`` are column parallel over ``d_ff`` and ``w_down`` row
+parallel, with its sum. K/V projections whose heads do not split (fewer
+KV heads than the axis) are whole on every rank: each takes the KV
+heads its own q heads read, and their gradient is summed over ``model``.
+Norm weights are whole and their gradients are whole on every rank.
+
+Serving on a mesh, every rank runs the same layer on the same, whole
 tensors, except under the sequence-parallel layout (``ctx.sp``: one
 sequence whose pages are sharded over the ``data`` axis, the long_500k
 shape): a rank's per-slot pools hold only its shard of the pages, a
@@ -41,7 +54,7 @@ the owner shard and merges the shards' partial attention
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -49,7 +62,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.dist import NO_MESH, MeshInfo, axis_rank
+from repro_torch.models.dist import (NO_MESH, MeshInfo, axis_rank, copy_to,
+                                     reduce_from)
 from repro_torch.models.layers import glu_mlp, mlp2, rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
@@ -75,6 +89,12 @@ class FwdCtx:
     # rank's shard of the pages over 'data' (prefill writes its positions,
     # decode runs attention.sp_paged_decode)
     sp: bool = False
+    # training on a mesh whose model axis is larger than 1: the dense
+    # layers' tensor-parallel forms over this rank's weight blocks
+    tp: bool = False
+    # training on a mesh: the axes whose ranks hold other rows of the batch
+    # (a parameter's gradient sums over them)
+    grad_axes: Tuple[str, ...] = ()
 
 
 SP_MIN_LEN = 262144
@@ -86,10 +106,40 @@ def _sp_mode(cfg: ModelConfig, batch: int, max_len: int) -> bool:
     return batch == 1 and max_len >= SP_MIN_LEN
 
 
+def _tp_kv_heads(p, ctx: FwdCtx):
+    """The attention's leaves for this rank's q heads under tensor
+    parallelism. Where ``wk``/``wv`` hold all ``n_kv_heads`` (too few to
+    split over ``model``), each takes the KV heads the rank's q heads read
+    (global q head h reads KV head h // G): a slice where those q heads
+    fall in equal runs, so GQA keeps its groups, else one KV head a q
+    head. Every rank uses a part of them, so their gradient is summed
+    over ``model``."""
+    cfg, mi = ctx.cfg, ctx.mi
+    if p["wk"].shape[1] != cfg.n_kv_heads:
+        return p                                  # KV heads split too
+    hq_l = p["wq"].shape[1]
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = axis_rank(mi, "model") * hq_l
+    idx = torch.div(first + torch.arange(hq_l), G, rounding_mode="floor")
+    heads, counts = torch.unique_consecutive(idx, return_counts=True)
+    sel = heads if bool((counts == counts[0]).all()) else idx
+    sel = sel.to(p["wk"].device)
+    out = dict(p)
+    for name in ("wk", "wv"):
+        out[name] = copy_to(p[name], mi, "model").index_select(1, sel)
+    for name in ("bk", "bv"):
+        if name in p:
+            out[name] = copy_to(p[name], mi, "model").index_select(0, sel)
+    return out
+
+
 def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
                     window: Optional[int]):
     cfg = ctx.cfg
     B, S, _ = x.shape
+    if ctx.tp:
+        x = copy_to(x, ctx.mi, "model")
+        p = _tp_kv_heads(p, ctx)
     q, k, v = attn.qkv_proj(p, x)
     if ctx.mode == "decode":
         pos = torch.as_tensor(ctx.q_offset, device=x.device)
@@ -126,6 +176,8 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
                              q_chunk=cfg.flash_q_chunk,
                              kv_chunk=cfg.flash_kv_chunk)
     y = attn.out_proj(p, o)
+    if ctx.tp:
+        y = reduce_from(y, ctx.mi, "model")
     if kv is None:
         return y, None
     if attn.is_global_layout(kv):
@@ -298,8 +350,13 @@ def _cross_attention(p, x, ctx: FwdCtx, xkv: Optional[attn.CrossKV]):
     return attn.out_proj(p, o), xkv
 
 
-def _apply_mlp(p, x, cfg: ModelConfig):
-    return mlp2(p, x, cfg.act) if "w1" in p else glu_mlp(p, x, cfg.act)
+def _apply_mlp(p, x, ctx: FwdCtx):
+    """The layer's MLP; under tensor parallelism over this rank's hidden
+    units, its partial output summed over ``model``."""
+    if ctx.tp:
+        x = copy_to(x, ctx.mi, "model")
+    y = mlp2(p, x, ctx.cfg.act) if "w1" in p else glu_mlp(p, x, ctx.cfg.act)
+    return reduce_from(y, ctx.mi, "model") if ctx.tp else y
 
 
 def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
@@ -358,4 +415,4 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind in ("attn_moe", "mamba_moe"):
         return x + moe_ffn(p["moe"], h, cfg, ctx.mi), cache
-    return x + _apply_mlp(p["mlp"], h, cfg), cache
+    return x + _apply_mlp(p["mlp"], h, ctx), cache

@@ -60,12 +60,15 @@ def logits_fn(p: dict, x: torch.Tensor, softcap: Optional[float]) -> torch.Tenso
 
 
 def chunked_xent(embed_params: dict, x: torch.Tensor, labels: torch.Tensor,
-                 softcap: Optional[float], n_chunks: int = 8) -> torch.Tensor:
+                 softcap: Optional[float], n_chunks: int = 8,
+                 count: Optional[int] = None) -> torch.Tensor:
     """Mean cross-entropy without the full (B, S, V) logits: the sequence
     in ``n_chunks`` chunks (the largest count <= n_chunks that divides S),
     each chunk's (B, S/n, V) logits in fp32 recomputed on backward
     (non-reentrant ``checkpoint``, the reference's ``jax.checkpoint`` of
-    its scan step) and summed in chunk order into one fp32 total."""
+    its scan step) and summed in chunk order into one fp32 total, divided
+    by ``count`` (default B * S; a rank's share of a global batch's mean
+    divides by the global count)."""
     B, S, _ = x.shape
     while S % n_chunks:
         n_chunks -= 1
@@ -81,4 +84,4 @@ def chunked_xent(embed_params: dict, x: torch.Tensor, labels: torch.Tensor,
         sl = slice(j * C, (j + 1) * C)
         total = total + checkpoint(step, x[:, sl], labels[:, sl].long(),
                                    use_reentrant=False)
-    return total / (B * S)
+    return total / (count or B * S)

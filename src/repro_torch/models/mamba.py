@@ -47,15 +47,17 @@ def mamba_specs(cfg: ModelConfig, damp: float) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     d_in, dt_rank, N, K = _dims(cfg)
     return {
-        "in_proj": ParamSpec((d, 2 * d_in)),
-        "conv_w": ParamSpec((K, d_in)),
-        "conv_b": ParamSpec((d_in,), "zeros"),
-        "x_proj": ParamSpec((d_in, dt_rank + 2 * N)),
-        "dt_proj": ParamSpec((dt_rank, d_in)),
-        "dt_bias": ParamSpec((d_in,), "uniform_pm", 4.0, dtype="float32"),
-        "A_log": ParamSpec((d_in, N), "uniform_pm", 1.0, dtype="float32"),
-        "D": ParamSpec((d_in,), "ones", dtype="float32"),
-        "out_proj": residual((d_in, d), damp),
+        "in_proj": ParamSpec((d, 2 * d_in), pspec=("fsdp", "tp")),
+        "conv_w": ParamSpec((K, d_in), pspec=(None, "tp")),
+        "conv_b": ParamSpec((d_in,), "zeros", pspec=("tp",)),
+        "x_proj": ParamSpec((d_in, dt_rank + 2 * N), pspec=("tp", None)),
+        "dt_proj": ParamSpec((dt_rank, d_in), pspec=(None, "tp")),
+        "dt_bias": ParamSpec((d_in,), "uniform_pm", 4.0, dtype="float32",
+                             pspec=("tp",)),
+        "A_log": ParamSpec((d_in, N), "uniform_pm", 1.0, dtype="float32",
+                           pspec=("tp", None)),
+        "D": ParamSpec((d_in,), "ones", dtype="float32", pspec=("tp",)),
+        "out_proj": residual((d_in, d), damp, ("tp", "fsdp")),
     }
 
 

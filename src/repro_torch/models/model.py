@@ -21,9 +21,14 @@ a slot, which the walkers below treat alike.
       -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache, mi=NO_MESH, sp=None)
       -> (logits, cache)
-  forward_train(cfg, params, batch) -> loss
+  forward_train(cfg, params, batch, mi=NO_MESH) -> loss
 
-On a mesh (``mi``) every rank runs the same forward on the same inputs.
+Training on a mesh (``mi``; the dense decoders, ``check_mesh_trainable``)
+each rank holds its blocks of the parameters (FSDP over ``data``, TP over
+``model``, ``params.shardings``) and takes its rows of the global batch;
+see :func:`forward_train`.
+
+Serving on a mesh, every rank runs the same forward on the same inputs.
 One sequence of at least 262144 tokens (``blocks._sp_mode``) takes the
 sequence-parallel layout: each attention layer's per-slot pools hold only
 this rank's shard of the pages over ``data`` (every rank holds the whole
@@ -53,10 +58,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.blocks import FwdCtx, _sp_mode, apply_layer
-from repro_torch.models.dist import NO_MESH, MeshInfo
+from repro_torch.models.dist import (NO_MESH, MeshInfo, gather_param,
+                                     reduce_from)
 from repro_torch.models.layers import chunked_xent, embed, logits_fn, rmsnorm
-from repro_torch.models.params import (MAMBA_KINDS, resolve_device,
-                                       torch_dtype)
+from repro_torch.models.params import (MAMBA_KINDS, Sharding, model_specs,
+                                       resolve_device, sharding_of,
+                                       shardings, split_axes, torch_dtype)
+from repro_torch.tree import tree_map
 
 ENCDEC_SRC_LEN = 3072          # the reference's stubbed audio-frame count
 
@@ -377,7 +385,26 @@ def _save_2d_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _apply_block(x, p_blk, ctx: FwdCtx):
+def _use_params(p, sh, ctx: FwdCtx, gather=None):
+    """On a mesh, the parameter blocks ``p`` (placed by the Shardings
+    ``sh``) as the layers use them: gathered over every axis of
+    ``gather`` (by default every axis but ``model``, whose blocks the
+    tensor-parallel layers use as they are), their gradients summed over
+    the axes whose ranks hold other rows (``ctx.grad_axes``). Without a
+    mesh, ``p``."""
+    if not ctx.mi.active:
+        return p
+    if gather is None:
+        gather = [a for a in ctx.mi.axis_names if a != "model"]
+    return tree_map(lambda t, s_: gather_param(t, s_, ctx.mi, gather,
+                                               ctx.grad_axes), p, sh)
+
+
+def _apply_block(x, p_blk, ctx: FwdCtx, sh_blk=None):
+    """One block; on a mesh its parameter blocks are gathered here, inside
+    the rematerialised function, so the recompute gathers them again and
+    no gathered weight outlives the block."""
+    p_blk = _use_params(p_blk, sh_blk, ctx)
     for i, kind in enumerate(ctx.cfg.block_pattern):
         x, _ = apply_layer(kind, p_blk[str(i)], x, ctx, None)
     return x
@@ -401,22 +428,90 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kw)
 
 
-def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
-                  ) -> torch.Tensor:
+MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local")
+
+
+def mesh_train_refusal(cfg: ModelConfig, model: int) -> Optional[str]:
+    """Why training ``cfg`` on a mesh whose model axis is ``model`` is not
+    ported, or None: any layer kind but the dense decoders'
+    (``MESH_TRAIN_KINDS``), dense first layers, or heads or hidden units
+    that do not split over the model axis (the layers would run whole on
+    every rank)."""
+    other = sorted(set(cfg.layer_kinds()) - set(MESH_TRAIN_KINDS))
+    if other or cfg.first_k_dense:
+        return (f"training {cfg.name} on a mesh is not ported (layer kinds "
+                f"{other}, first_k_dense {cfg.first_k_dense}): the port "
+                f"trains only {MESH_TRAIN_KINDS} layers on a mesh; ROADMAP "
+                f"queue 1, item 2c brings the MoE, recurrent and "
+                f"cross-attention kinds")
+    if cfg.n_heads % model or cfg.d_ff % model:
+        return (f"{cfg.n_heads} heads and d_ff {cfg.d_ff} must split over a "
+                f"model axis of {model}")
+    return None
+
+
+def check_mesh_trainable(cfg: ModelConfig, mi: MeshInfo) -> None:
+    """Raise ``NotImplementedError`` where training ``cfg`` on ``mi``'s
+    mesh is not ported (:func:`mesh_train_refusal`)."""
+    why = mesh_train_refusal(cfg, model_size(mi)) if mi.active else None
+    if why:
+        raise NotImplementedError(why)
+
+
+def model_size(mi: MeshInfo) -> int:
+    """The model axis's size (1 without a mesh or without the axis)."""
+    return mi.size("model") if "model" in mi.axis_names else 1
+
+
+def batch_sharding(shape, mi: MeshInfo) -> Sharding:
+    """The Sharding of a batch leaf of ``shape`` (rows first) by the
+    reference's ``("batch", None)`` input spec: rows over the batch axes
+    where they divide them, else whole."""
+    return sharding_of(("batch",), shape[:1], mi)
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                  mi: MeshInfo = NO_MESH) -> torch.Tensor:
     """The mean next-token loss. ``batch``: tokens (B, S) and labels (B, S),
     and ``enc_x`` or ``img_x`` where the arch has cross-attention. The
     reference's train mode is a prefill without a cache (recurrent states
     start at zero), so every layer runs in mode "prefill"; each block is
     rematerialised as ``cfg.remat`` says, the first dense layers and the
-    encoder are not (as in the reference)."""
+    encoder are not (as in the reference).
+
+    On a mesh ``params`` are this rank's blocks and ``batch`` the global
+    batch, of which the rank takes its rows (``batch_sharding``). Each
+    block's parameters are gathered over ``data`` at use
+    (``_apply_block``); the embedding table (and an untied head) is
+    gathered whole over both axes once, and every rank of a data group
+    computes the same embedding and the same cross-entropy (a
+    vocab-parallel cross-entropy is ROADMAP item 2c). The rank's loss is
+    its rows' share of the global mean, summed over the batch axes
+    (``reduce_from``), so every rank returns the global loss and its
+    backward gives the rank's blocks of the global gradient."""
+    B, S = batch["tokens"].shape
+    if mi.active:
+        check_mesh_trainable(cfg, mi)
+        rows = batch_sharding(batch["tokens"].shape, mi)
+        batch = {k: rows.cut(v) for k, v in batch.items()}
+        grad_axes = tuple(a for a in split_axes(rows.spec[0])
+                          if mi.size(a) > 1)
+        sh = shardings(model_specs(cfg), mi)
+    else:
+        grad_axes, sh = (), None
     ctx = FwdCtx(cfg=cfg, mode="prefill",
-                 cross_x=_cross_source(cfg, params, batch))
-    x = _embed_in(cfg, params, batch["tokens"])
+                 cross_x=_cross_source(cfg, params, batch), mi=mi,
+                 tp=model_size(mi) > 1, grad_axes=grad_axes)
+    emb = _use_params(params["embed"], sh and sh["embed"], ctx,
+                      gather=mi.axis_names)
+    x = _embed_in(cfg, {"embed": emb}, batch["tokens"])
     for i in range(cfg.first_k_dense):
         x, _ = apply_layer("attn_mlp", params["first"][str(i)], x, ctx, None)
     body = _maybe_remat(_apply_block, cfg)
-    for p_blk in params["blocks"]:
-        x = body(x, p_blk, ctx)
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    return chunked_xent(params["embed"], x, batch["labels"],
-                        cfg.logit_softcap)
+    for b, p_blk in enumerate(params["blocks"]):
+        x = body(x, p_blk, ctx, sh and sh["blocks"][b])
+    x = rmsnorm(x, _use_params(params["final_ln"], sh and sh["final_ln"],
+                               ctx), cfg.norm_eps)
+    loss = chunked_xent(emb, x, batch["labels"], cfg.logit_softcap,
+                        count=B * S)
+    return reduce_from(loss, mi, grad_axes) if mi.active else loss

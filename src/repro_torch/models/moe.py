@@ -58,10 +58,11 @@ def moe_specs(cfg: ModelConfig, damp: float) -> Dict[str, object]:
     m = cfg.moe
     d, E = cfg.d_model, m.n_experts
     out: Dict[str, object] = {
-        "router": ParamSpec((d, E), "normal", d ** -0.5, dtype="float32"),
-        "w_gate": ParamSpec((E, d, m.d_ff)),
-        "w_up": ParamSpec((E, d, m.d_ff)),
-        "w_down": residual((E, m.d_ff, d), damp)}
+        "router": ParamSpec((d, E), "normal", d ** -0.5, dtype="float32",
+                            pspec=("fsdp", None)),
+        "w_gate": ParamSpec((E, d, m.d_ff), pspec=("tp", "fsdp", None)),
+        "w_up": ParamSpec((E, d, m.d_ff), pspec=("tp", "fsdp", None)),
+        "w_down": residual((E, m.d_ff, d), damp, ("tp", None, "fsdp"))}
     if m.n_shared_experts:
         out["shared"] = glu_specs(d, m.d_ff * m.n_shared_experts, damp)
     return out

@@ -42,16 +42,19 @@ def rwkv_time_mix_specs(cfg: ModelConfig, damp: float) -> Dict[str, ParamSpec]:
     ``w0`` in +-1 (fp32), ``w_lora_b`` zeros (fp32), ``ln_w`` ones (fp32),
     the projections at fan-in std and ``wo`` damped."""
     d, H, N = cfg.d_model, cfg.n_heads, cfg.d_head
-    mat = lambda: ParamSpec((d, d))
+    mat = lambda: ParamSpec((d, d), pspec=("fsdp", "tp"))
     return {
-        "mu": ParamSpec((5, d), "uniform_pm", 0.5),
-        "w0": ParamSpec((d,), "uniform_pm", 1.0, dtype="float32"),
-        "w_lora_a": ParamSpec((d, LORA_R)),
-        "w_lora_b": ParamSpec((LORA_R, d), "zeros", dtype="float32"),
-        "u": ParamSpec((H, N), "uniform_pm", 0.5, dtype="float32"),
+        "mu": ParamSpec((5, d), "uniform_pm", 0.5, pspec=(None, None)),
+        "w0": ParamSpec((d,), "uniform_pm", 1.0, dtype="float32",
+                        pspec=(None,)),
+        "w_lora_a": ParamSpec((d, LORA_R), pspec=("fsdp", None)),
+        "w_lora_b": ParamSpec((LORA_R, d), "zeros", dtype="float32",
+                              pspec=(None, None)),
+        "u": ParamSpec((H, N), "uniform_pm", 0.5, dtype="float32",
+                       pspec=("tp", None)),
         "wr": mat(), "wk": mat(), "wv": mat(), "wg": mat(),
-        "wo": residual((d, d), damp),
-        "ln_w": ParamSpec((d,), "ones", dtype="float32"),
+        "wo": residual((d, d), damp, ("tp", "fsdp")),
+        "ln_w": ParamSpec((d,), "ones", dtype="float32", pspec=(None,)),
     }
 
 
@@ -60,11 +63,11 @@ def rwkv_channel_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     reference damps only the keys wo, w_down, w2 and out_proj)."""
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamSpec((d,), "uniform_pm", 0.5),
-        "mu_r": ParamSpec((d,), "uniform_pm", 0.5),
-        "wk": ParamSpec((d, ff)),
-        "wv": ParamSpec((ff, d)),
-        "wr": ParamSpec((d, d)),
+        "mu_k": ParamSpec((d,), "uniform_pm", 0.5, pspec=(None,)),
+        "mu_r": ParamSpec((d,), "uniform_pm", 0.5, pspec=(None,)),
+        "wk": ParamSpec((d, ff), pspec=("fsdp", "tp")),
+        "wv": ParamSpec((ff, d), pspec=("tp", "fsdp")),
+        "wr": ParamSpec((d, d), pspec=("fsdp", "tp")),
     }
 
 

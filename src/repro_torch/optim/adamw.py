@@ -4,8 +4,14 @@ State per parameter: master fp32 + mu fp32 + nu fp32, and the parameter in
 its own dtype, taken from the master after every update. The reference's
 step is pure and its launcher donates the state; here ``adamw_update``
 updates master, mu and nu in place (one copy of 12 bytes a parameter
-instead of two) and returns the same tensors. ``opt_state_specs`` (the
-dry run's sharding metadata) waits for the multi-device slice.
+instead of two) and returns the same tensors.
+
+On a mesh the state inherits the parameters' shardings
+(``opt_state_specs``: master, mu, nu and ef take each parameter's spec in
+fp32), so ``init_opt_state`` of a rank's parameter blocks is the rank's
+blocks of the state: ZeRO's memory falls out of the specs, as in the
+reference. ``clip_by_global_norm`` then sums each leaf's squares over the
+ranks it is split across, once.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.dist import NO_MESH, MeshInfo, all_reduce
 from repro_torch.tree import leaves, tree_map
 
 
@@ -28,7 +35,8 @@ class OptState(NamedTuple):
 
 def init_opt_state(params, with_ef: bool = False) -> OptState:
     """fp32 copies of ``params`` (never aliasing an fp32 parameter), zero
-    moments, count 0 (int32, on the parameters' device)."""
+    moments, count 0 (int32, on the parameters' device). Of a rank's
+    parameter blocks, the rank's blocks of the state."""
     master = tree_map(lambda x: x.detach().to(torch.float32, copy=True),
                       params)
     zeros = lambda: tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
@@ -37,6 +45,18 @@ def init_opt_state(params, with_ef: bool = False) -> OptState:
     return OptState(master=master, mu=zeros(), nu=zeros(),
                     count=torch.zeros((), dtype=torch.int32, device=dev),
                     ef=zeros() if with_ef else None)
+
+
+def opt_state_specs(param_specs, with_ef: bool = False) -> OptState:
+    """The state's ParamSpecs, mirroring the parameters' shardings:
+    master, mu, nu (and ef) fp32 zeros at each parameter's shape and
+    spec, the count a whole int32 scalar."""
+    from repro_torch.models.params import ParamSpec, _map
+    f32 = lambda: _map(lambda s: ParamSpec(s.shape, "zeros", dtype="float32",
+                                           pspec=s.pspec), param_specs)
+    return OptState(master=f32(), mu=f32(), nu=f32(),
+                    count=ParamSpec((), "zeros", dtype="int32"),
+                    ef=f32() if with_ef else None)
 
 
 def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
@@ -50,11 +70,22 @@ def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < tc.warmup_steps, warm, cos)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mi: MeshInfo = NO_MESH,
+                        shards=None):
     """(fp32 grads scaled to a global norm of at most ``max_norm``, the
-    norm before): the squares summed a leaf at a time in leaf order."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in leaves(grads)))
+    norm before): the squares summed a leaf at a time in leaf order. On a
+    mesh ``grads`` are this rank's blocks, placed by the Shardings
+    ``shards``: the leaves split over the same axes sum their squares
+    together, and each such sum is summed over those axes alone, so a
+    block held whole by several ranks counts once."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
+    if mi.active:
+        by_axes = {}
+        for s_, sh in zip(sq, leaves(shards)):
+            axes = tuple(a for a in sh.split if mi.size(a) > 1)
+            by_axes[axes] = by_axes[axes] + s_ if axes in by_axes else s_
+        sq = [all_reduce(t, mi, axes) for axes, t in by_axes.items()]
+    gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), gnorm
 

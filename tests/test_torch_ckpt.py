@@ -226,7 +226,47 @@ def test_train_launcher_restart_recipe(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_mesh(capsys):
+    """An arch whose layers do not train on a mesh yet (MoE) is refused
+    with an argparse error naming the ROADMAP item that brings it."""
     with pytest.raises(SystemExit) as e:
-        train.main(["--smoke", "--device", "cpu", "--mesh", "1,1"])
+        train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
+                    "--mesh", "2,2"])
     assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP" in err and "2c" in err, err
+
+
+@pytest.mark.parametrize("how", ["spawn", "torchrun"])
+def test_train_launcher_mesh_restart_recipe(tmp_path, how):
+    """``--mesh 2,2`` on the CPU, the launcher starting four gloo ranks
+    itself or joining the group ``torchrun`` starts: a failure injected at
+    step 5 restarts every rank from the checkpoint of step 3 (each
+    restoring its blocks), and the run ends; rank 0 alone prints, so each
+    line appears once."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    launch = [sys.executable, "-m"]
+    if how == "torchrun":
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        launch += ["torch.distributed.run", "--nnodes", "1",
+                   "--nproc_per_node", "4", "--master_addr", "localhost",
+                   "--master_port", str(port), "-m"]
+    r = subprocess.run(
+        launch + ["repro_torch.launch.train", "--arch",
+                  "llama3.2-1b", "--smoke", "--device", "cpu", "--mesh",
+                  "2,2", "--steps", "8", "--ckpt-every", "3",
+                  "--inject-failure-at", "5", "--ckpt-dir",
+                  str(tmp_path / "ck")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for line in ("injected worker failure at step 5", "restored step 3",
+                 "[train] done"):
+        assert r.stdout.count(line) == 1, r.stdout
+    assert r.stdout.count("step     3 loss") == 2, r.stdout
+    assert latest_step(str(tmp_path / "ck")) == 6

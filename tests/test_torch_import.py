@@ -50,7 +50,15 @@ def test_import_all_submodules_without_jax():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.models.dist",
-                                    "repro_torch.launch.mesh"])
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.models.params",
+                                    "repro_torch.models.model",
+                                    "repro_torch.models.blocks",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.optim.compression",
+                                    "repro_torch.checkpoint.ckpt",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.train"])
 def test_mesh_modules_stand_alone(module):
     """The multi-device modules import neither ``jax`` nor ``repro``, and
     importing one joins no process group and touches no device."""
