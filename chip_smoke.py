@@ -201,6 +201,25 @@ Phases (each prints one line; any failure exits non-zero):
      blocks bit for bit across ranks; (c) a save on (2, 2), the restore on
      (4, 1) and on one device bit for bit, one more step on (4, 1) held
      alike. A rank's failure fails the phase.
+  9. MoE training on a mesh: four ranks as in 7, olmoe-1b-7b at full
+     width in bf16 cut to 2 layers (wq, wk x 0.1), B 4 x 2048, the experts
+     split over model (expert parallelism) and d over data. First flash
+     at a (2, 2) rank's shape, q (2, 2048, 8, 128) over (2, 2048, 8, 128),
+     with lse, against the plain version. Then each rank: three steps on
+     (4, 1), experts whole, the yardstick (every mesh of four routes in
+     the same four token groups; one device routes in one, so its step is
+     not one); three on (2, 2) and on (1, 4), 32 and 16 experts a rank,
+     held against it (loss 2e-3, gradient norm 2e-2, params and master 0.1
+     of the steps' own change, the routers' master 0.5), with the (token,
+     choice) pairs of layer 0 routed otherwise, the dropped share, ms a
+     step, peak GiB and flash launches; a planted fault (the router's
+     gradient not summed over model), which must miss, and a sound
+     variant (the plain MoE FFN in the step), which must pass, on (1, 4);
+     the replicated leaves bit for bit; the (2, 2) save restored on (1, 4)
+     bit for bit; one moe_ffn call's device ms on a (2, 2) rank's experts
+     and on a (4, 1) rank's; kimi-k2 at smoke size (a dense first layer, a
+     shared expert) on (2, 2) against (4, 1). A rank's failure fails the
+     phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -223,6 +242,10 @@ builds the decode and flash kernels and runs phase 7 alone.
     python3 chip_smoke.py --mesh-train-only
 
 builds the flash kernel and runs phase 8 alone.
+
+    python3 chip_smoke.py --mesh-moe-only
+
+builds the flash kernel and runs phase 9 alone.
 """
 from __future__ import annotations
 
@@ -1832,8 +1855,8 @@ def _moe_drops():
     from repro_torch.models import blocks
     real, rec = blocks.moe_ffn, {"prefill": [], "decode": []}
 
-    def counted(p, x, cfg, *mi):
-        out, keep = real(p, x, cfg, *mi, return_keep=True)
+    def counted(p, x, cfg, *mi, **kw):
+        out, keep = real(p, x, cfg, *mi, return_keep=True, **kw)
         rec["decode" if x.shape[1] == 1 else "prefill"].append(
             (keep.numel(), (~keep).sum()))
         return out
@@ -3908,18 +3931,20 @@ def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
     dist.destroy_process_group()
 
 
-def _mt_flash(cfg) -> dict:
-    """(d) The flash kernel at the local shape of a (2, 2) rank: its rows
-    (B / 2) over its heads (32 / 2 q, 8 / 2 KV), bf16, causal, with lse:
-    out and lse against the plain version, times (with and without lse,
-    plain, SDPA with K/V repeated) and the bound."""
+def _mt_flash(cfg, mesh=MT_MESH, phase="phase8 mesh train flash",
+              B: int = TRAIN_B, S: int = TRAIN_S,
+              dtype=torch.bfloat16) -> dict:
+    """(d) The flash kernel at the local shape of a rank of ``mesh`` in a
+    step of batch (B, S): its rows (B / data) over its heads (q and KV
+    heads / model), causal, with lse: out and lse against the plain
+    version, times (with and without lse, plain, SDPA with K/V repeated)
+    and the bound."""
     from repro_torch.kernels import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    d, m = MT_MESH
-    B, hq, hkv = TRAIN_B // d, cfg.n_heads // m, cfg.n_kv_heads // m
+    d, m = mesh
+    B, hq, hkv = B // d, cfg.n_heads // m, cfg.n_kv_heads // m
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
-    q, k, v = _flash_inputs(g, torch.bfloat16, B, TRAIN_S, TRAIN_S, hq, hkv,
-                            cfg.d_head)
+    q, k, v = _flash_inputs(g, dtype, B, S, S, hq, hkv, cfg.d_head)
     kw = dict(causal=True, window=None, softcap=None, q_offset=0)
     check = _flash_check(q, k, v, kw)
     out, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
@@ -3933,10 +3958,11 @@ def _mt_flash(cfg) -> dict:
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
-    fl = _flash_flops(B, TRAIN_S, TRAIN_S, hq, cfg.d_head, True, None, 0)
+    fl = _flash_flops(B, S, S, hq, cfg.d_head, True, None, 0)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bound, by = _bound(nbytes + lse.numel() * 4, fl, q.dtype)
-    row = dict(shape=[B, TRAIN_S, hq, hkv, cfg.d_head], **check,
+    row = dict(arch=cfg.name, mesh=list(mesh), dtype=str(dtype),
+               shape=[B, S, hq, hkv, cfg.d_head], **check,
                lse_err=lse_err, lse_tol=LSE_TOL,
                ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
                ms_lse=cuda_ms(lambda: flash_attention_fwd(
@@ -3947,7 +3973,7 @@ def _mt_flash(cfg) -> dict:
                                   .scaled_dot_product_attention(
                                       qt, kt, vt, is_causal=True)),
                bound_ms=bound, bound_by=by)
-    emit("phase8 mesh train flash", **row)
+    emit(phase, **row)
     return row
 
 
@@ -4050,6 +4076,508 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
     return dict(flash=flash, launches=launches[0], row=row)
 
 
+# ------------------------------------------------------------------ phase 9
+
+MZ_ARCH = "olmoe-1b-7b"
+MZ_LAYERS = 2           # full width, depth cut as phase 8's: gloo on one card
+                        # moves every gather through the host
+MZ_WHOLE = (4, 1)       # experts whole: the yardstick. Every mesh of four
+                        # routes in G = gcd(T, 4) = 4 token groups, no mesh
+                        # in 1, so the one-device step is not one
+MZ_MESHES = ((2, 2), (1, 4))     # 32 and 16 of the 64 experts a rank
+MZ_SAVE, MZ_RESTORE = (2, 2), (1, 4)
+MZ_VARIANT = (1, 4)     # the planted fault and the sound variant
+MZ_SMOKE_ARCH = "kimi-k2-1t-a32b"   # a dense first layer, a shared expert
+MZ_SMOKE_B, MZ_SMOKE_S = 4, 64
+MZ_RANKS_S = 900
+# The routers' master against the (4, 1) steps' (0.02% of the weights: the
+# sum over every leaf cannot see them). A router entry's first AdamW steps
+# follow its gradient's sign, so two runs whose router gradients share no
+# sign information read ~1 (independent steps of lr against a change of
+# lr); half of that is the limit. Rounding moves a few signs: bf16 sums in
+# another order flip ~1% of layer 0's (token, choice) pairs, each moving a
+# token between two experts' capacity buffers.
+MZ_ROUTER_REL = 0.5
+# The witness, (1, 4) with every routing replayed from the (4, 1) steps:
+# no pair routes otherwise, so the state falls from ~0.07 towards a dense
+# MLP's reading (phase 8: 0.0056; the witness read 0.012 on an H100).
+# A fault in the expert-parallel sums would not hide under this limit.
+MZ_REPLAY_REL = 0.03
+
+
+def _mz_cfg(smoke: bool = False):
+    from repro_torch.configs import get_config, reduce_for_smoke
+    if smoke:
+        return reduce_for_smoke(get_config(MZ_SMOKE_ARCH))
+    return dataclasses.replace(get_config(MZ_ARCH), n_layers=MZ_LAYERS)
+
+
+@contextlib.contextmanager
+def _router_fault():
+    """The planted fault: the MoE layer's tensor-parallel form without the
+    router's ``copy_to``, so each model rank keeps its own experts' part of
+    the router's gradient."""
+    from repro_torch.models import blocks
+    from repro_torch.models.dist import copy_to, reduce_from
+    real = blocks._apply_moe
+
+    def no_router_sum(p, x, ctx):
+        if not ctx.tp:
+            return real(p, x, ctx)
+        x = copy_to(x, ctx.mi, "model")
+        y = blocks.moe_ffn(p, x, ctx.cfg, ctx.mi, row_axes=ctx.grad_axes)
+        return reduce_from(y, ctx.mi, "model")
+    with mock.patch.object(blocks, "_apply_moe", no_router_sum):
+        yield
+
+
+@contextlib.contextmanager
+def _plain_moe():
+    """The sound variant: the step with the plain MoE FFN (the reference's
+    one-hot einsums, ``moe_ffn_ref``) on the rank's experts."""
+    from repro_torch.models import blocks
+    from repro_torch.models.moe import moe_ffn_ref
+    with mock.patch.object(blocks, "moe_ffn", moe_ffn_ref):
+        yield
+
+
+@contextlib.contextmanager
+def _route_log():
+    """While a model runs, records every MoE routing's top-K experts in
+    call order, as ``route`` returns them ((T, K), on the card)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, []
+
+    def logged(p, x2, cfg):
+        experts, gates = real(p, x2, cfg)
+        rec.append(experts)
+        return experts, gates
+    with mock.patch.object(moe, "route", logged):
+        yield rec
+
+
+@contextlib.contextmanager
+def _replayed_routes(plan):
+    """The witness: every MoE routing takes its experts from ``plan`` (one
+    (T, K) tensor a call, in call order) and its gates from its own
+    router's probabilities at those experts, renormalised as ``route``
+    does (replaying a run's own routing gives its gates bit for bit).
+    Every call of the plan must be used."""
+    from repro_torch.models import moe
+    calls = iter(plan)
+    used = []
+
+    def replay(p, x2, cfg):
+        experts = next(calls)
+        assert experts.shape[0] == x2.shape[0], (experts.shape, x2.shape)
+        probs = torch.softmax(x2.float() @ p["router"], dim=-1)
+        gates = probs.gather(1, experts)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        used.append(1)
+        return experts, gates
+    with mock.patch.object(moe, "route", replay):
+        yield
+    assert len(used) == len(plan), (len(used), len(plan))
+
+
+def _mz_whole_routes(log, mi) -> list:
+    """The (4, 1) ranks' routings as the whole batch's, call by call: each
+    rank's (T / data, K) experts gathered over data, rows in data order
+    (the rows a (1, 4) rank holds)."""
+    from repro_torch.models.dist import all_gather
+    return list(all_gather(torch.stack(log), 1, mi, "data").unbind(0))
+
+
+def _mz_shards(cfg, mi) -> tuple:
+    from repro_torch.models.params import model_specs, shardings, stack_specs
+    return (shardings(model_specs(cfg), mi),
+            shardings(stack_specs(model_specs(cfg)), mi))
+
+
+def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
+    """MT_STEPS steps on ``mi`` from the phase's weights (the rank's
+    blocks): (params, opt, the initial params, readings: each step's loss,
+    norm and ms, peak GiB, flash launches from 0, layer 0's first routing
+    of the rank's rows, the (token, choice) pairs of every MoE call and
+    those dropped past capacity, whether every leaf has its local
+    shape)."""
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import model_specs
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves, tree_map
+    params = _mt_params(cfg, device, mi)
+    start = tree_map(torch.clone, params)
+    opt = init_opt_state(params)
+    out = dict(local_shapes_ok=all(
+        tuple(t.shape) == s_.local_shape(spec.shape)
+        for t, s_, spec in zip(leaves(params), leaves(sh),
+                               leaves(model_specs(cfg)))))
+    step = make_train_step(cfg, tc, mi)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    with _routes() as routes, _moe_drops() as drops:
+        params, opt, out["steps"] = _mt_steps(step, params, opt, batches)
+    out["flash_launches"] = flash_attention_fwd.launches
+    out["flash_wgmma_launches"] = flash_attention_fwd.wgmma_launches
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    out["routes0"] = routes[0].cpu()
+    calls = drops["prefill"]
+    out["pairs"] = sum(n for n, _ in calls)
+    out["dropped"] = int(sum(d for _, d in calls)) if calls else 0
+    return params, opt, start, out
+
+
+def _mz_held(mi, stacked, params, opt, start, ref_dir) -> dict:
+    """This rank's params and master after MT_STEPS against the (4, 1)
+    steps' (its blocks of ``ref_dir``'s files), as ``_mt_diff``, and the
+    routers' master alone: the routers are 0.02% of the weights, so the
+    sum over every leaf cannot see them."""
+    from repro_torch.checkpoint.ckpt import restore
+    from repro_torch.models.params import stack_blocks
+    now = _mt_ref_state(params, opt)
+    got = restore(ref_dir, MT_STEPS, now,
+                  shardings={"params": stacked, "master": stacked})
+    init = stack_blocks(start)
+    router = lambda t: [t["blocks"]["0"]["moe"]["router"]]
+    return dict(
+        params=_mt_diff(now["params"], got["params"], init, stacked, mi),
+        master=_mt_diff(now["master"], got["master"], init, stacked, mi),
+        router=_mt_diff(router(now["master"]), router(got["master"]),
+                        router(init), router(stacked), mi))
+
+
+def _mz_hold(steps: dict, ref: dict, held: dict) -> dict:
+    """Phase 8's readings and limits against the (4, 1) steps, and the
+    routers' master within MZ_ROUTER_REL."""
+    row = _mt_hold(steps["loss"], steps["grad_norm"], ref["loss"],
+                   ref["grad_norm"], held["params"], held["master"])
+    row["router"] = held["router"]
+    row["within"] = bool(row["within"]
+                         and held["router"]["rel"] <= MZ_ROUTER_REL)
+    return row
+
+
+def _mz_moe_ms(cfg, meshes: dict, device, B: int, S: int) -> dict:
+    """Device ms (CUDA events) of one ``moe_ffn`` call on a rank's experts,
+    on rank 0 alone while the others wait: each mesh's rank-0 rows of the
+    phase's batch (B / data of them) through its experts (E / model),
+    bf16, seeded, in the token groups of the global batch."""
+    import torch.distributed as dist
+    from repro_torch.models.moe import local_groups, moe_ffn
+    out = {}
+    dist.barrier()
+    if dist.get_rank() == 0 and device.type == "cuda":
+        g = torch.Generator(device=device).manual_seed(SEED + 40)
+        d_, E, ff = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=device)
+        for shape, mi in meshes.items():
+            E_l, rows = E // shape[1], B // shape[0]
+            axes = ("data",) if shape[0] > 1 else ()
+            x = rnd(rows, S, d_).to(torch.bfloat16)
+            p = {"router": rnd(d_, E) * d_ ** -0.5,
+                 "w_gate": (rnd(E_l, d_, ff) * d_ ** -0.5).to(torch.bfloat16),
+                 "w_up": (rnd(E_l, d_, ff) * d_ ** -0.5).to(torch.bfloat16),
+                 "w_down": (rnd(E_l, ff, d_) * ff ** -0.5).to(torch.bfloat16)}
+            with torch.no_grad():
+                ms = cuda_ms(lambda: moe_ffn(p, x, cfg, mi, row_axes=axes))
+            out[str(shape)] = dict(experts=E_l, tokens=rows * S,
+                                   groups=local_groups(rows * S, mi, axes),
+                                   ms=ms)
+    dist.barrier()
+    return out
+
+
+def _mz_smoke(tc, mesh, device) -> dict:
+    """kimi-k2 at smoke size (fp32: a dense first layer, a shared expert):
+    MT_STEPS steps on (2, 2) against (4, 1), each state gathered whole;
+    phase 8's readings and limits, and the replicas."""
+    from repro_torch.models.dist import gather_whole
+    from repro_torch.tree import leaves
+    cfg = _mz_cfg(smoke=True)
+    batches = _mt_batches(cfg, device, MZ_SMOKE_B, MZ_SMOKE_S)[:MT_STEPS]
+    runs = {}
+    for shape in (MZ_WHOLE, MZ_SAVE):
+        mi = mesh(shape)
+        sh, _ = _mz_shards(cfg, mi)
+        params, opt, start, run = _mz_run(cfg, tc, batches, mi, sh, device)
+        whole = lambda tree: [gather_whole(t, s_, mi)
+                              for t, s_ in zip(leaves(tree), leaves(sh))]
+        run["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
+                                    (params, opt.master, opt.mu, opt.nu))
+        runs[shape] = (whole(params), whole(opt.master), whole(start), run)
+    p4, m4, s4, r4 = runs[MZ_WHOLE]
+    p2, m2, _, r2 = runs[MZ_SAVE]
+    row = _mt_hold(r2["steps"]["loss"], r2["steps"]["grad_norm"],
+                   r4["steps"]["loss"], r4["steps"]["grad_norm"],
+                   _mt_diff(p2, p4, s4), _mt_diff(m2, m4, s4))
+    row["replicas_equal"] = r2["replicas_equal"] and r4["replicas_equal"]
+    row["flash_launches"] = r2["flash_launches"]
+    return row
+
+
+def _mz_rank(rank: int, port: int, backend: str, tmp: str,
+             device_type: str = "cuda", B: int = TRAIN_B, S: int = TRAIN_S,
+             cfg=None) -> None:
+    """One rank of phase 9. (b) MT_STEPS steps on (4, 1), experts whole,
+    its params and master saved as the yardstick; the same steps on (2, 2)
+    and (1, 4), experts split, held against it, with each rank's routing
+    of layer 0, its dropped pairs, flash launches, peak GiB and the
+    replicas; (d) the (2, 2) state saved and restored on (1, 4), bit for
+    bit against the file; the planted fault, the sound variant and the
+    witness (every routing replayed from the (4, 1) steps) on (1, 4); one
+    ``moe_ffn`` call timed on (2, 2) and (4, 1) experts; kimi-k2 at smoke
+    size on (2, 2) against (4, 1). Results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import MeshInfo
+    from repro_torch.models.dist import axis_rank
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", rank if backend == "nccl" else 0)
+              if cuda else torch.device("cpu"))
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    cfg = cfg or _mz_cfg()
+    tc = _mt_tc()
+    batches = _mt_batches(cfg, device, B, S)[:MT_STEPS]
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend(),
+               runs={}, coords={}, batch=(B, S))
+    meshes = {}
+
+    def mesh(shape):
+        if shape not in meshes:
+            meshes[shape] = MeshInfo(make_mesh(shape, ("data", "model"),
+                                               device=device_type))
+            res["coords"][str(shape)] = [axis_rank(meshes[shape], a)
+                                         for a in ("data", "model")]
+        return meshes[shape]
+
+    def release():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    ref_dir, ck = os.path.join(tmp, "ref"), os.path.join(tmp, "ck")
+    mi = mesh(MZ_WHOLE)
+    sh, stacked = _mz_shards(cfg, mi)
+    with _route_log() as log:
+        params, opt, _, ref = _mz_run(cfg, tc, batches, mi, sh, device)
+    plan = _mz_whole_routes(log, mi)
+    del log
+    save(ref_dir, MT_STEPS, _mt_ref_state(params, opt),
+         shardings={"params": stacked, "master": stacked}, mi=mi)
+    res["runs"][str(MZ_WHOLE)] = ref
+    del params, opt
+    release()
+    both = lambda st: {"params": st, "master": st}
+    for shape in MZ_MESHES:
+        mi = mesh(shape)
+        sh, stacked = _mz_shards(cfg, mi)
+        params, opt, start, run = _mz_run(cfg, tc, batches, mi, sh, device)
+        run["held"] = _mz_hold(run["steps"], ref["steps"], _mz_held(
+            mi, stacked, params, opt, start, ref_dir))
+        run["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
+                                    (params, opt.master, opt.mu, opt.nu))
+        state = _mt_ref_state(params, opt)
+        if shape == MZ_SAVE:
+            t0 = time.perf_counter()
+            save(ck, MT_STEPS, state, shardings=both(stacked), mi=mi)
+            run["save_s"] = time.perf_counter() - t0
+            run["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state,
+                                                   both(stacked))
+        if shape == MZ_RESTORE:
+            t0 = time.perf_counter()
+            got = restore(ck, MT_STEPS, state, shardings=both(stacked))
+            run["restore_s"] = time.perf_counter() - t0
+            run["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, got,
+                                                      both(stacked))
+            del got
+        res["runs"][str(shape)] = run
+        del params, opt, start, state
+        release()
+    mi = mesh(MZ_VARIANT)
+    sh, stacked = _mz_shards(cfg, mi)
+    for name, variant in (("fault", _router_fault), ("sound", _plain_moe),
+                          ("replayed", lambda: _replayed_routes(plan))):
+        with variant():
+            params, opt, start, run = _mz_run(cfg, tc, batches, mi, sh,
+                                              device)
+        run["held"] = _mz_hold(run["steps"], ref["steps"], _mz_held(
+            mi, stacked, params, opt, start, ref_dir))
+        run["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
+                                    (params, opt.master, opt.mu, opt.nu))
+        res[name] = run
+        del params, opt, start
+        release()
+    del plan
+    res["moe_ms"] = _mz_moe_ms(cfg, {s: mesh(s) for s in (MZ_SAVE, MZ_WHOLE)},
+                               device, B, S)
+    res["smoke"] = _mz_smoke(tc, mesh, device)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mz_routes(ranks, shape):
+    """Layer 0's first routing of the whole batch on ``shape`` (T, K), from
+    the model-rank-0 ranks in data order; and whether every model rank of
+    a data rank routed alike."""
+    key = str(shape)
+    by = {}
+    for r in ranks:
+        d, m = r["coords"][key]
+        by.setdefault(d, []).append(r["runs"][key]["routes0"])
+    alike = all(torch.equal(t, ts[0]) for ts in by.values() for t in ts)
+    return torch.cat([by[d][0] for d in sorted(by)]), alike
+
+
+def phase_mesh_moe(device_type: str = "cuda") -> dict:
+    """9. MoE training on a mesh: four ranks as in 8, olmoe-1b-7b at full
+    width in bf16 cut to MZ_LAYERS layers (wq, wk x 0.1), B 4 x 2048, each
+    rank its blocks of every parameter and optimizer buffer: the experts
+    split over model (expert parallelism), d over data (FSDP). Here: (a)
+    flash at a (2, 2) rank's shape, q (2, 2048, 8, 128) over (2, 2048, 8,
+    128), with lse, against the plain version; the same at a (1, 4) and a
+    (4, 1) rank's shape, and at kimi-k2's smoke shapes (fp32, D 16) on
+    (4, 1) and (2, 2): every shape the ranks' steps give it. Then the
+    ranks (_mz_rank): (b) three steps on (2, 2) and (1, 4) against three
+    on (4, 1), all in G = 4 token groups (loss 2e-3, gradient norm 2e-2,
+    params and master 0.1 of the steps' own change, the routers' master
+    0.5), which the planted fault must miss (its routers unequal across
+    ranks too) and the sound variant meet; the (token, choice) pairs of
+    layer 0 routed otherwise than on (4, 1); the witness, (1, 4) with
+    every routing replayed from the (4, 1) steps, held alike and its
+    state and routers within 0.03 (MZ_REPLAY_REL); (c) the
+    replicated leaves bit for bit; (d) the (2, 2) save restored on (1, 4)
+    bit for bit; readings: ms a step, peak GiB, flash launches, one
+    moe_ffn call's device ms, the dropped share; kimi-k2 at smoke size.
+    A rank's failure fails the phase."""
+    import shutil
+    import torch.multiprocessing as mp
+    card = _card_line()
+    cfg = _mz_cfg()
+    flash = _mt_flash(cfg, MZ_SAVE, "phase9 mesh moe flash")
+    shapes = [flash] + [_mt_flash(cfg, s, "phase9 mesh moe flash")
+                        for s in (MZ_RESTORE, MZ_WHOLE)]
+    shapes += [_mt_flash(_mz_cfg(smoke=True), s, "phase9 mesh moe flash",
+                         MZ_SMOKE_B, MZ_SMOKE_S, torch.float32)
+               for s in (MZ_WHOLE, MZ_SAVE)]
+    torch.cuda.empty_cache()        # the ranks share this card with us
+    tmp = tempfile.mkdtemp(prefix=".mesh_moe_", dir=HERE)
+    try:
+        n_cards = torch.cuda.device_count()
+        backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_mz_rank, args=(_free_port(), backend, tmp,
+                                       device_type),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MZ_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the ranks ran past {MZ_RANKS_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _mz_check(ranks, cfg, dict(
+        card=card, backend=backend, cards=n_cards, ranks_s=ranks_s))
+    return dict(flash=flash, shapes=shapes, launches=launches)
+
+
+def _mz_check(ranks, cfg, head: dict) -> int:
+    """Phase 9's rows from the ranks' results, and its gates; returns the
+    flash launches of a (2, 2) rank."""
+    r0 = ranks[0]
+    whole_routes, _ = _mz_routes(ranks, MZ_WHOLE)
+    meshes = {}
+    for shape in (MZ_WHOLE,) + MZ_MESHES:
+        key = str(shape)
+        runs = [r["runs"][key] for r in ranks]
+        routes, alike = _mz_routes(ranks, shape)
+        meshes[key] = dict(
+            experts_a_rank=cfg.moe.n_experts // shape[1],
+            ms_ranks=[x["steps"]["ms"] for x in runs],
+            ms_median=statistics.median(runs[0]["steps"]["ms"]),
+            loss=runs[0]["steps"]["loss"],
+            grad_norm=runs[0]["steps"]["grad_norm"],
+            losses_equal_across_ranks=all(
+                x["steps"]["loss"] == runs[0]["steps"]["loss"] for x in runs),
+            peak_gib_ranks=[x.get("peak_gib") for x in runs],
+            flash_launches_ranks=[x["flash_launches"] for x in runs],
+            flash_wgmma_ranks=[x["flash_wgmma_launches"] for x in runs],
+            local_shapes_ok=all(x["local_shapes_ok"] for x in runs),
+            pairs=runs[0]["pairs"], dropped=runs[0]["dropped"],
+            dropped_share=runs[0]["dropped"] / max(runs[0]["pairs"], 1),
+            routes_alike_across_model=alike,
+            layer0_pairs=routes.numel(),
+            layer0_pairs_routed_otherwise=int((routes != whole_routes).sum()))
+        if shape != MZ_WHOLE:
+            meshes[key].update(
+                held=runs[0]["held"],
+                held_equal_across_ranks=all(x["held"] == runs[0]["held"]
+                                            for x in runs),
+                replicas_equal=all(x["replicas_equal"] for x in runs))
+    variants = {name: dict(held=r0[name]["held"],
+                           replicas_equal=all(r[name]["replicas_equal"]
+                                              for r in ranks),
+                           ms_median=statistics.median(
+                               r0[name]["steps"]["ms"]))
+                for name in ("fault", "sound", "replayed")}
+    save, rest = r0["runs"][str(MZ_SAVE)], r0["runs"][str(MZ_RESTORE)]
+    elastic = dict(saved=list(MZ_SAVE), restored=list(MZ_RESTORE),
+                   saved_equal=[r["runs"][str(MZ_SAVE)]["saved_equal"]
+                                for r in ranks],
+                   restored_equal=[r["runs"][str(MZ_RESTORE)]
+                                   ["restored_equal"] for r in ranks],
+                   save_s=save["save_s"], restore_s=rest["restore_s"])
+    smoke = r0["smoke"]
+    row = dict(**head, arch=cfg.name, layers=cfg.n_layers,
+               batch=list(r0["batch"]), steps=MT_STEPS,
+               devices=[r["device"] for r in ranks],
+               limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
+                           state_rel=MT_STATE_REL, router_rel=MZ_ROUTER_REL,
+                           replayed_rel=MZ_REPLAY_REL),
+               meshes=meshes, variant_mesh=list(MZ_VARIANT), **variants,
+               moe_ms=r0["moe_ms"])
+    emit("phase9 mesh moe", **row)
+    emit("phase9 mesh moe elastic", **elastic)
+    emit("phase9 mesh moe smoke", arch=MZ_SMOKE_ARCH,
+         batch=[MZ_SMOKE_B, MZ_SMOKE_S],
+         smoke_equal_across_ranks=all(r["smoke"] == smoke for r in ranks),
+         **smoke)
+    split = meshes[str(MZ_SAVE)]
+    for key, m in meshes.items():
+        assert m["local_shapes_ok"] and m["losses_equal_across_ranks"], m
+        assert m["routes_alike_across_model"], key
+        if key != str(MZ_WHOLE):
+            assert m["held"]["within"], (key, m["held"])
+            assert m["replicas_equal"], (key, m)
+    assert not variants["fault"]["held"]["within"], variants["fault"]
+    assert not variants["fault"]["replicas_equal"], variants["fault"]
+    for name in ("sound", "replayed"):
+        assert variants[name]["held"]["within"], (name, variants[name])
+        assert variants[name]["replicas_equal"], (name, variants[name])
+    replayed = variants["replayed"]["held"]
+    assert max(replayed[k]["rel"] for k in ("params", "master", "router")) \
+        <= MZ_REPLAY_REL, replayed
+    for key, m in meshes.items():
+        n = m["flash_launches_ranks"]
+        assert all(x == 2 * cfg.n_layers * MT_STEPS for x in n), (key, n)
+        if head["cards"]:
+            assert m["flash_wgmma_ranks"] == n, (key, m)
+    assert smoke["flash_launches"] > 0, smoke
+    launches = split["flash_launches_ranks"]
+    assert all(elastic["saved_equal"]) and all(elastic["restored_equal"]), \
+        elastic
+    assert smoke["within"] and smoke["replicas_equal"], smoke
+    return launches[0]
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -4087,6 +4615,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-train-only", action="store_true",
                     help="build the flash kernel and run phase 8 "
                          "(training on a mesh of four ranks) only")
+    ap.add_argument("--mesh-moe-only", action="store_true",
+                    help="build the flash kernel and run phase 9 (MoE "
+                         "training on a mesh of four ranks) only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -4115,6 +4646,10 @@ def main(argv=None) -> int:
         phase_card(["flash_attention"])
         phase_mesh_train()
         return 0
+    if args.mesh_moe_only:
+        phase_card(["flash_attention"])
+        phase_mesh_moe()
+        return 0
     phase_card()
     res = phase_kernels()
     launches, served, zc_outs, zc_figures = phase_serve()
@@ -4133,6 +4668,7 @@ def main(argv=None) -> int:
     train = phase_train()
     mesh = phase_mesh()
     mesh_train = phase_mesh_train()
+    mesh_moe = phase_mesh_moe()
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
@@ -4210,6 +4746,14 @@ def main(argv=None) -> int:
          "mesh_train_shape": {k: mesh_train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
              "library_ms", "bound_ms", "bound_by")},
+         "launches_mesh_moe_a_rank": mesh_moe["launches"],
+         "mesh_moe_shape": {k: mesh_moe["flash"][k] for k in (
+             "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")},
+         "mesh_moe_shapes": [{k: r[k] for k in (
+             "arch", "mesh", "dtype", "shape", "max_abs_err", "tol",
+             "lse_err", "ms", "ms_lse", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")} for r in mesh_moe["shapes"]],
          "train_shape": {k: train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
              "library_ms", "bound_ms", "bound_by", "plain_bwd_ms")},

@@ -1,6 +1,6 @@
 """The train step (port of ``repro/launch/steps.py::make_train_step``):
 the loss, its gradients and the AdamW update, on one device or on a mesh.
-``make_step``, the dry run's entry point, is ROADMAP item 2c.
+``make_step``, the dry run's entry point, is ROADMAP item 2c(iii).
 
 Parameters are plain tensors that each step replaces: the step takes
 gradients with ``torch.autograd.grad`` over detached copies of the leaves
@@ -64,8 +64,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     gradients go through ``ef_compress`` before the clip. The optimizer
     state is updated in place (see ``optim/adamw.py``).
 
-    On a mesh (the dense decoders only: other kinds raise
-    ``NotImplementedError``) ``params`` and ``opt_state`` are this rank's
+    On a mesh (the dense and MoE decoders: the recurrent and
+    cross-attention kinds raise ``NotImplementedError``) ``params`` and ``opt_state`` are this rank's
     blocks (``params.shardings``, ``init_opt_state`` of the blocks) and
     ``batch`` the global batch; the gradients are the rank's blocks of
     the global batch's, the global norm and ``ef_compress``'s per-leaf

@@ -12,8 +12,9 @@ Examples:
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
 output lines as the reference's. ``--mesh d,m`` trains on a ("data",
-"model") mesh of d x m ranks, one process a rank (the dense decoders
-only; other archs are refused): the launcher starts the ranks itself, or,
+"model") mesh of d x m ranks, one process a rank (the dense and MoE
+decoders; the recurrent and cross-attention archs are refused): the
+launcher starts the ranks itself, or,
 under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set),
 joins the group its environment names. Ranks talk over gloo with
 ``--device cpu``, over NCCL with one rank a card where there are d x m

@@ -43,6 +43,23 @@ KV heads than the axis) are whole on every rank: each takes the KV
 heads its own q heads read, and their gradient is summed over ``model``.
 Norm weights are whole and their gradients are whole on every rank.
 
+An MoE layer's tensor-parallel form (``_apply_moe``) is expert
+parallelism: a rank holds E / model experts (the reference's ``("tp",
+"fsdp", None)`` expert specs) and its block of the shared expert's hidden
+units (a GLU like the dense MLP's, column then row parallel). The input
+enters through ``copy_to``, as the router does (every model rank's
+partial output reaches a part of its gradient); each rank routes every
+token over all E experts, runs its own experts on the pairs routed to
+them, and the routed and shared partial sums meet in one ``reduce_from``.
+The reference needs an all-to-all here, because its token groups shard
+over ``model`` too: it reshards the dispatched (G, E, C, d) buffer from G
+over the whole mesh to E over ``model``. The port's activations are whole
+across ``model`` (``model.batch_sharding`` splits rows over the data axes
+alone), so every model rank already holds every token of its rows, and
+the all-to-all becomes an all-reduce of the (T_local, d) output: fewer
+bytes than the dispatched K * capacity_factor * T * d, and no collective
+that gloo lacks.
+
 Serving on a mesh, every rank runs the same layer on the same, whole
 tensors, except under the sequence-parallel layout (``ctx.sp``: one
 sequence whose pages are sharded over the ``data`` axis, the long_500k
@@ -359,6 +376,20 @@ def _apply_mlp(p, x, ctx: FwdCtx):
     return reduce_from(y, ctx.mi, "model") if ctx.tp else y
 
 
+def _apply_moe(p, x, ctx: FwdCtx):
+    """The layer's MoE FFN; under tensor parallelism over this rank's
+    experts and shared hidden units, with the input and the router through
+    ``copy_to`` and the partial sums through one ``reduce_from`` (the
+    module's docstring). In a train step on a mesh the token groups are
+    the global batch's (``moe.local_groups`` over ``ctx.grad_axes``)."""
+    if not ctx.tp:
+        return moe_ffn(p, x, ctx.cfg, ctx.mi, row_axes=ctx.grad_axes)
+    x = copy_to(x, ctx.mi, "model")
+    p = {**p, "router": copy_to(p["router"], ctx.mi, "model")}
+    y = moe_ffn(p, x, ctx.cfg, ctx.mi, row_axes=ctx.grad_axes)
+    return reduce_from(y, ctx.mi, "model")
+
+
 def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
     cfg = ctx.cfg
     st0 = st if st is not None else \
@@ -414,5 +445,5 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind in ("attn_moe", "mamba_moe"):
-        return x + moe_ffn(p["moe"], h, cfg, ctx.mi), cache
+        return x + _apply_moe(p["moe"], h, ctx), cache
     return x + _apply_mlp(p["mlp"], h, ctx), cache

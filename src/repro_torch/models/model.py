@@ -23,10 +23,10 @@ a slot, which the walkers below treat alike.
       -> (logits, cache)
   forward_train(cfg, params, batch, mi=NO_MESH) -> loss
 
-Training on a mesh (``mi``; the dense decoders, ``check_mesh_trainable``)
-each rank holds its blocks of the parameters (FSDP over ``data``, TP over
-``model``, ``params.shardings``) and takes its rows of the global batch;
-see :func:`forward_train`.
+Training on a mesh (``mi``; the dense and MoE decoders,
+``check_mesh_trainable``) each rank holds its blocks of the parameters
+(FSDP over ``data``, TP over ``model``, ``params.shardings``) and takes
+its rows of the global batch; see :func:`forward_train`.
 
 Serving on a mesh, every rank runs the same forward on the same inputs.
 One sequence of at least 262144 tokens (``blocks._sp_mode``) takes the
@@ -428,25 +428,40 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kw)
 
 
-MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local")
+MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe")
+DENSE_KINDS = ("attn_mlp", "attn_mlp_local")
 
 
 def mesh_train_refusal(cfg: ModelConfig, model: int) -> Optional[str]:
     """Why training ``cfg`` on a mesh whose model axis is ``model`` is not
-    ported, or None: any layer kind but the dense decoders'
-    (``MESH_TRAIN_KINDS``), dense first layers, or heads or hidden units
-    that do not split over the model axis (the layers would run whole on
-    every rank)."""
-    other = sorted(set(cfg.layer_kinds()) - set(MESH_TRAIN_KINDS))
-    if other or cfg.first_k_dense:
-        return (f"training {cfg.name} on a mesh is not ported (layer kinds "
-                f"{other}, first_k_dense {cfg.first_k_dense}): the port "
-                f"trains only {MESH_TRAIN_KINDS} layers on a mesh; ROADMAP "
-                f"queue 1, item 2c brings the MoE, recurrent and "
-                f"cross-attention kinds")
-    if cfg.n_heads % model or cfg.d_ff % model:
-        return (f"{cfg.n_heads} heads and d_ff {cfg.d_ff} must split over a "
-                f"model axis of {model}")
+    ported, or None. A layer kind without a tensor-parallel form (the
+    recurrent and cross-attention kinds) refuses; so does a width that
+    does not split over the model axis, where a layer would run whole on
+    every rank and its sum over ``model`` count it ``model`` times: the
+    heads; ``d_ff`` where a dense MLP exists (a dense layer or
+    ``first_k_dense``); an MoE layer's experts, and its shared expert's
+    width ``moe.d_ff * n_shared_experts``."""
+    kinds = set(cfg.layer_kinds())
+    other = sorted(kinds - set(MESH_TRAIN_KINDS))
+    if other:
+        return (f"training {cfg.name} on a mesh is not ported: its {other} "
+                f"layers have no tensor-parallel form (the port trains "
+                f"{MESH_TRAIN_KINDS} layers and dense first layers on a "
+                f"mesh); ROADMAP queue 1, item 2c(ii) brings the recurrent "
+                f"and cross-attention kinds")
+    need = {"heads": cfg.n_heads}
+    if kinds & set(DENSE_KINDS):
+        need["d_ff"] = cfg.d_ff
+    if "attn_moe" in kinds:
+        m = cfg.moe
+        need["experts"] = m.n_experts
+        if m.n_shared_experts:
+            need["the shared expert's width"] = m.d_ff * m.n_shared_experts
+    bad = {k: v for k, v in need.items() if v % model}
+    if bad:
+        return (f"training {cfg.name} on a mesh: "
+                + ", ".join(f"{k} {v}" for k, v in bad.items())
+                + f" must split over a model axis of {model}")
     return None
 
 
@@ -481,12 +496,13 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
     On a mesh ``params`` are this rank's blocks and ``batch`` the global
     batch, of which the rank takes its rows (``batch_sharding``). Each
-    block's parameters are gathered over ``data`` at use
-    (``_apply_block``); the embedding table (and an untied head) is
-    gathered whole over both axes once, and every rank of a data group
-    computes the same embedding and the same cross-entropy (a
-    vocab-parallel cross-entropy is ROADMAP item 2c). The rank's loss is
-    its rows' share of the global mean, summed over the batch axes
+    block's parameters, and each first dense layer's, are gathered over
+    ``data`` at use (``_apply_block``, ``_use_params``); the embedding
+    table (and an untied head) is gathered whole over both axes once, and
+    every rank of a data group computes the same embedding and the same
+    cross-entropy (a vocab-parallel cross-entropy is ROADMAP item
+    2c(ii)). The rank's loss is its rows' share of the global mean,
+    summed over the batch axes
     (``reduce_from``), so every rank returns the global loss and its
     backward gives the rank's blocks of the global gradient."""
     B, S = batch["tokens"].shape
@@ -506,7 +522,9 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                       gather=mi.axis_names)
     x = _embed_in(cfg, {"embed": emb}, batch["tokens"])
     for i in range(cfg.first_k_dense):
-        x, _ = apply_layer("attn_mlp", params["first"][str(i)], x, ctx, None)
+        p_i = _use_params(params["first"][str(i)],
+                          sh and sh["first"][str(i)], ctx)
+        x, _ = apply_layer("attn_mlp", p_i, x, ctx, None)
     body = _maybe_remat(_apply_block, cfg)
     for b, p_blk in enumerate(params["blocks"]):
         x = body(x, p_blk, ctx, sh and sh["blocks"][b])

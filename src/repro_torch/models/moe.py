@@ -36,6 +36,20 @@ routes on its own:
 
 The main path makes no host sync: every shape follows from x's, and the
 capacity is computed on the host from those shapes.
+
+Expert parallelism (training on a mesh whose ``model`` axis splits the
+experts: the reference's ``("tp", "fsdp", None)`` specs). A rank's expert
+leaves hold ``E_l = E / model`` experts, the block that starts at expert
+``axis_rank(mi, "model") * E_l``; both versions see it from the leaves'
+shape (``w_gate.shape[0] < E``). Routing stays whole on every rank (fp32
+logits over all E, top-K, positions and capacity of the whole group), and
+each returns the partial sum over its own experts (plus its part of the
+shared expert, whose hidden units split as the dense MLP's): the
+caller sums the ranks' partials (``blocks._apply_moe``). Where the rows of
+the token batch split over other ranks (``row_axes``, the data axes of a
+train step), the reference's groups are those of the global batch, and a
+rank's rows hold ``G / n`` of them (``n`` the ranks its rows split over:
+gcd(n * T, n * w) = n * gcd(T, w)).
 """
 from __future__ import annotations
 
@@ -46,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.dist import NO_MESH, MeshInfo
+from repro_torch.models.dist import NO_MESH, MeshInfo, axis_rank
 from repro_torch.models.layers import _ACTS, glu_mlp
 from repro_torch.models.params import ParamSpec, glu_specs, residual
 
@@ -82,6 +96,27 @@ def _n_groups(n_tokens: int, mi: MeshInfo) -> int:
     for a in mi.all_axes:
         want *= mi.size(a)
     return max(math.gcd(n_tokens, max(want, 1)), 1)
+
+
+def local_groups(n_tokens: int, mi: MeshInfo, row_axes=()) -> int:
+    """The groups of a rank's ``n_tokens`` tokens, where the token batch's
+    rows split over the ranks of ``row_axes``: the global batch's
+    :func:`_n_groups` over the number of those ranks."""
+    n = math.prod(mi.size(a) for a in row_axes)
+    return _n_groups(n_tokens * n, mi) // n
+
+
+def _expert_block(p: dict, cfg: ModelConfig, mi: MeshInfo) -> Tuple[int, int]:
+    """(first expert, experts) of the block the expert leaves hold: all E,
+    or under expert parallelism the rank's E / model from
+    ``axis_rank(mi, "model") * E / model``."""
+    E, E_l = cfg.moe.n_experts, p["w_gate"].shape[0]
+    if E_l == E:
+        return 0, E
+    if E_l * mi.size("model") != E:
+        raise ValueError(f"{E_l} experts a rank do not split {E} over a "
+                         f"model axis of {mi.size('model')}")
+    return axis_rank(mi, "model") * E_l, E_l
 
 
 def route(p: dict, x2: torch.Tensor, cfg: ModelConfig
@@ -120,14 +155,16 @@ def positions(experts: torch.Tensor, groups: int = 1) -> torch.Tensor:
 
 
 def moe_ffn_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                mi: MeshInfo = NO_MESH, return_keep: bool = False):
+                mi: MeshInfo = NO_MESH, return_keep: bool = False,
+                row_axes=()):
     """The plain version: the reference's ``moe_ffn`` line for line, its
     (G, Tg, E, C) combine and dispatch tensors included. x (B, S, d) ->
-    (B, S, d), and the (T, K) keep mask if ``return_keep``."""
+    (B, S, d), and the (T, K) keep mask if ``return_keep``. On a block of
+    the experts, ``combine`` and ``dispatch`` are sliced to its E."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    G = _n_groups(T, mi)
+    G = local_groups(T, mi, row_axes)
     Tg = T // G
     E = m.n_experts
     C = capacity(Tg, m)
@@ -145,6 +182,8 @@ def moe_ffn_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
         x.dtype)[..., :C]                                       # (G,Tg,K,C)
     combine = torch.einsum("gtke,gtkc->gtec", onehot.to(x.dtype)
                            * gates[..., None].to(x.dtype), slot_oh)
+    e0, E_l = _expert_block(p, cfg, mi)
+    combine = combine[:, :, e0:e0 + E_l]
     dispatch = (combine > 0).to(x.dtype)
     de = torch.einsum("gtec,gtd->gecd", dispatch, xt)           # (G,E,C,d)
     h = _ACTS[cfg.act](torch.einsum("gecd,edf->gecf", de, p["w_gate"])) \
@@ -158,18 +197,22 @@ def moe_ffn_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            mi: MeshInfo = NO_MESH, return_keep: bool = False):
+            mi: MeshInfo = NO_MESH, return_keep: bool = False,
+            row_axes=()):
     """The main path, the same function as :func:`moe_ffn_ref`: each kept
     (token, choice) pair of group g fills row ``(expert * G + g) * C +
     position`` of an (E*G*C + 1, d) buffer by a gather of x (empty rows
     read a zero row), the three expert products run as batched matmuls
     over (E, G*C, .), and each token sums its K gated rows of the output
-    (a dropped pair reads the last, zero row at gate 0)."""
+    (a dropped pair reads the last, zero row at gate 0). On a block of
+    E_l experts from e0 the buffer holds only their rows, the contiguous
+    range from ``e0 * G * C``; every other pair goes to the trash row."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    G = _n_groups(T, mi)
-    E, K = m.n_experts, m.experts_per_token
+    G = local_groups(T, mi, row_axes)
+    K = m.experts_per_token
+    e0, E = _expert_block(p, cfg, mi)
     C = capacity(T // G, m)
     dev = x.device
     xt = x.reshape(T, d)
@@ -178,7 +221,12 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     keep = pos < C
     trash = E * G * C
     group = torch.arange(T, device=dev)[:, None] // (T // G)
-    slot = torch.where(keep, (experts * G + group) * C + pos, trash)
+    if E == m.n_experts:
+        slot = torch.where(keep, (experts * G + group) * C + pos, trash)
+    else:
+        mine = keep & (experts >= e0) & (experts < e0 + E)
+        slot = torch.where(mine, ((experts - e0) * G + group) * C + pos,
+                           trash)
     # The token each buffer row holds (T: none). Kept slots are distinct;
     # only the trash row, never read, is written more than once.
     tokens = torch.arange(T, device=dev)[:, None].expand(T, K).reshape(-1)

@@ -226,14 +226,40 @@ def test_train_launcher_restart_recipe(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_mesh(capsys):
-    """An arch whose layers do not train on a mesh yet (MoE) is refused
-    with an argparse error naming the ROADMAP item that brings it."""
-    with pytest.raises(SystemExit) as e:
-        train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
-                    "--mesh", "2,2"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "2c" in err, err
+    """An arch whose layers do not train on a mesh yet (mamba, rwkv,
+    cross-attention) is refused with an argparse error naming its layer
+    kinds and the ROADMAP item that brings them."""
+    for arch, kind in (("rwkv6-3b", "rwkv"),
+                       ("jamba-1.5-large-398b", "mamba"),
+                       ("seamless-m4t-medium", "cross_mlp")):
+        with pytest.raises(SystemExit) as e:
+            train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--mesh", "2,2"])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "ROADMAP" in err and "2c" in err and kind in err, err
+
+
+def test_train_launcher_mesh_moe_restart_recipe(tmp_path):
+    """``--mesh 2,2`` with smoke olmoe-1b-7b (2 of its 4 experts a model
+    rank): a failure injected at step 5 restarts every rank from the
+    checkpoint of step 3, and the run ends."""
+    import os
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "olmoe-1b-7b", "--smoke", "--device", "cpu", "--mesh", "2,2",
+         "--steps", "8", "--ckpt-every", "3", "--inject-failure-at", "5",
+         "--ckpt-dir", str(tmp_path / "ck")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for line in ("injected worker failure at step 5", "restored step 3",
+                 "[train] done"):
+        assert r.stdout.count(line) == 1, r.stdout
+    assert latest_step(str(tmp_path / "ck")) == 6
 
 
 @pytest.mark.parametrize("how", ["spawn", "torchrun"])
