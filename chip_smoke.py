@@ -220,6 +220,22 @@ Phases (each prints one line; any failure exits non-zero):
      and on a (4, 1) rank's; kimi-k2 at smoke size (a dense first layer, a
      shared expert) on (2, 2) against (4, 1). A rank's failure fails the
      phase.
+ 10. Recurrent training on a mesh: four ranks as in 7, each its blocks
+     (rwkv6's heads, mamba's d_in and the MLP's d_ff over model, d over
+     data). First flash at every rank shape of jamba's smoke steps (fp32
+     D 16) against the plain version, with lse. Then the one-device steps
+     of rwkv6-3b at full width in bf16 on 2 layers (B 4 x 2048) and of
+     jamba's first layer at full width (mamba, d_in 16384, and its dense
+     MLP; B 4 x 128), and on the ranks three steps of rwkv6 on (2, 2),
+     (1, 4) and (4, 1) and of jamba's layer on (4, 1), (2, 2) and (1,
+     4), each held against them (phase 8's limits; jamba's gradient norm
+     within twice its (4, 1) witness's reading, the mesh without tensor
+     parallelism, where that is larger), with ms a step and peak GiB;
+     a planted fault (in_proj's contiguous block taken as (xi, z)) on
+     jamba's (1, 4), which must miss; the replicated leaves bit for bit;
+     rwkv6's (2, 2) save restored on (1, 4) bit for bit; jamba at smoke
+     size on its five-layer cut on (2, 2) and (1, 4) against (4, 1), each
+     step's loss within 1e-5. A rank's failure fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -246,6 +262,10 @@ builds the flash kernel and runs phase 8 alone.
     python3 chip_smoke.py --mesh-moe-only
 
 builds the flash kernel and runs phase 9 alone.
+
+    python3 chip_smoke.py --mesh-recurrent-only
+
+builds the flash kernel and runs phase 10 alone.
 """
 from __future__ import annotations
 
@@ -3658,15 +3678,19 @@ def _mt_diff(state, ref, start, shards=None, mi=None) -> dict:
     dev = flat[0].device
     sums = torch.zeros(4, dtype=torch.float64, device=dev)
     big = torch.zeros((), dtype=torch.float64, device=dev)
+    n = 2 ** 24             # elements at a time: fp64 copies of a whole
+                            # leaf would not fit beside a rank's state
     for a, b, p, sh in zip(flat, leaves(ref), leaves(start), shs):
-        d = (a.double() - b.double()).abs()
-        big = torch.maximum(big, d.max())
-        if sh is not None and not _mt_counted(sh, mi):
-            continue
-        sums += torch.stack([d.sum(), (b.double() - p.double()).abs().sum(),
-                             (d != 0).sum().double(),
-                             torch.full((), d.numel(), dtype=torch.float64,
-                                        device=dev)])
+        counted = sh is None or _mt_counted(sh, mi)
+        for a_, b_, p_ in zip(*(t.reshape(-1).split(n) for t in (a, b, p))):
+            d = (a_.double() - b_.double()).abs()
+            big = torch.maximum(big, d.max())
+            if counted:
+                sums += torch.stack([
+                    d.sum(), (b_.double() - p_.double()).abs().sum(),
+                    (d != 0).sum().double(),
+                    torch.full((), d.numel(), dtype=torch.float64,
+                               device=dev)])
     if mi is not None:
         sums = all_reduce(sums, mi, mi.axis_names)
         big = all_reduce(big, mi, mi.axis_names, op="max")
@@ -3942,7 +3966,10 @@ def _mt_flash(cfg, mesh=MT_MESH, phase="phase8 mesh train flash",
     from repro_torch.kernels import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     d, m = mesh
-    B, hq, hkv = B // d, cfg.n_heads // m, cfg.n_kv_heads // m
+    B, hq = B // d, cfg.n_heads // m
+    # KV heads too few to split: each q head's own (blocks._tp_kv_heads)
+    hkv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+           else -(-hq // (cfg.n_heads // cfg.n_kv_heads)))
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
     q, k, v = _flash_inputs(g, dtype, B, S, S, hq, hkv, cfg.d_head)
     kw = dict(causal=True, window=None, softcap=None, q_offset=0)
@@ -4194,13 +4221,11 @@ def _mz_shards(cfg, mi) -> tuple:
             shardings(stack_specs(model_specs(cfg)), mi))
 
 
-def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
+def _mesh_run(cfg, tc, batches, mi, sh, device) -> tuple:
     """MT_STEPS steps on ``mi`` from the phase's weights (the rank's
     blocks): (params, opt, the initial params, readings: each step's loss,
-    norm and ms, peak GiB, flash launches from 0, layer 0's first routing
-    of the rank's rows, the (token, choice) pairs of every MoE call and
-    those dropped past capacity, whether every leaf has its local
-    shape)."""
+    norm and ms, peak GiB, flash launches from 0, whether every leaf has
+    its local shape)."""
     from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import model_specs
@@ -4218,12 +4243,21 @@ def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    with _routes() as routes, _moe_drops() as drops:
-        params, opt, out["steps"] = _mt_steps(step, params, opt, batches)
+    params, opt, out["steps"] = _mt_steps(step, params, opt, batches)
     out["flash_launches"] = flash_attention_fwd.launches
     out["flash_wgmma_launches"] = flash_attention_fwd.wgmma_launches
     if cuda:
         out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    return params, opt, start, out
+
+
+def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
+    """``_mesh_run`` with the MoE readings: layer 0's first routing of the
+    rank's rows, the (token, choice) pairs of every MoE call and those
+    dropped past capacity."""
+    with _routes() as routes, _moe_drops() as drops:
+        params, opt, start, out = _mesh_run(cfg, tc, batches, mi, sh,
+                                            device)
     out["routes0"] = routes[0].cpu()
     calls = drops["prefill"]
     out["pairs"] = sum(n for n, _ in calls)
@@ -4231,23 +4265,32 @@ def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
     return params, opt, start, out
 
 
-def _mz_held(mi, stacked, params, opt, start, ref_dir) -> dict:
-    """This rank's params and master after MT_STEPS against the (4, 1)
-    steps' (its blocks of ``ref_dir``'s files), as ``_mt_diff``, and the
-    routers' master alone: the routers are 0.02% of the weights, so the
-    sum over every leaf cannot see them."""
+def _mesh_held(mi, stacked, params, opt, start, ref_dir,
+               parts=None) -> dict:
+    """This rank's params and master after MT_STEPS against the yardstick's
+    (its blocks of ``ref_dir``'s files), as ``_mt_diff``; and each of
+    ``parts`` ({name: a function of a tree to a list of its leaves}) of the
+    master alone."""
     from repro_torch.checkpoint.ckpt import restore
     from repro_torch.models.params import stack_blocks
     now = _mt_ref_state(params, opt)
     got = restore(ref_dir, MT_STEPS, now,
                   shardings={"params": stacked, "master": stacked})
     init = stack_blocks(start)
-    router = lambda t: [t["blocks"]["0"]["moe"]["router"]]
-    return dict(
-        params=_mt_diff(now["params"], got["params"], init, stacked, mi),
-        master=_mt_diff(now["master"], got["master"], init, stacked, mi),
-        router=_mt_diff(router(now["master"]), router(got["master"]),
-                        router(init), router(stacked), mi))
+    out = {k: _mt_diff(now[k], got[k], init, stacked, mi)
+           for k in ("params", "master")}
+    for name, part in (parts or {}).items():
+        out[name] = _mt_diff(part(now["master"]), part(got["master"]),
+                             part(init), part(stacked), mi)
+    return out
+
+
+def _mz_held(mi, stacked, params, opt, start, ref_dir) -> dict:
+    """``_mesh_held`` against the (4, 1) steps, with the routers' master
+    alone: the routers are 0.02% of the weights, so the sum over every
+    leaf cannot see them."""
+    return _mesh_held(mi, stacked, params, opt, start, ref_dir, parts={
+        "router": lambda t: [t["blocks"]["0"]["moe"]["router"]]})
 
 
 def _mz_hold(steps: dict, ref: dict, held: dict) -> dict:
@@ -4291,32 +4334,45 @@ def _mz_moe_ms(cfg, meshes: dict, device, B: int, S: int) -> dict:
     return out
 
 
-def _mz_smoke(tc, mesh, device) -> dict:
-    """kimi-k2 at smoke size (fp32: a dense first layer, a shared expert):
-    MT_STEPS steps on (2, 2) against (4, 1), each state gathered whole;
-    phase 8's readings and limits, and the replicas."""
+def _smoke_held(cfg, tc, mesh, device, B: int, S: int, whole_shape,
+                shapes) -> dict:
+    """A smoke config (fp32) MT_STEPS steps on ``whole_shape`` and on each
+    of ``shapes``, each state gathered whole; each of ``shapes`` against
+    ``whole_shape`` with phase 8's readings and limits, its replicas and
+    flash launches, and the yardstick's replicas, by str(shape)."""
     from repro_torch.models.dist import gather_whole
     from repro_torch.tree import leaves
-    cfg = _mz_cfg(smoke=True)
-    batches = _mt_batches(cfg, device, MZ_SMOKE_B, MZ_SMOKE_S)[:MT_STEPS]
+    batches = _mt_batches(cfg, device, B, S)[:MT_STEPS]
     runs = {}
-    for shape in (MZ_WHOLE, MZ_SAVE):
+    for shape in (whole_shape,) + tuple(shapes):
         mi = mesh(shape)
         sh, _ = _mz_shards(cfg, mi)
-        params, opt, start, run = _mz_run(cfg, tc, batches, mi, sh, device)
+        params, opt, start, run = _mesh_run(cfg, tc, batches, mi, sh,
+                                            device)
         whole = lambda tree: [gather_whole(t, s_, mi)
                               for t, s_ in zip(leaves(tree), leaves(sh))]
         run["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
                                     (params, opt.master, opt.mu, opt.nu))
         runs[shape] = (whole(params), whole(opt.master), whole(start), run)
-    p4, m4, s4, r4 = runs[MZ_WHOLE]
-    p2, m2, _, r2 = runs[MZ_SAVE]
-    row = _mt_hold(r2["steps"]["loss"], r2["steps"]["grad_norm"],
-                   r4["steps"]["loss"], r4["steps"]["grad_norm"],
-                   _mt_diff(p2, p4, s4), _mt_diff(m2, m4, s4))
-    row["replicas_equal"] = r2["replicas_equal"] and r4["replicas_equal"]
-    row["flash_launches"] = r2["flash_launches"]
-    return row
+    p1, m1, s1, r1 = runs[whole_shape]
+    out = {}
+    for shape in shapes:
+        p2, m2, _, r2 = runs[shape]
+        row = _mt_hold(r2["steps"]["loss"], r2["steps"]["grad_norm"],
+                       r1["steps"]["loss"], r1["steps"]["grad_norm"],
+                       _mt_diff(p2, p1, s1), _mt_diff(m2, m1, s1))
+        row["replicas_equal"] = r2["replicas_equal"] and r1["replicas_equal"]
+        row["flash_launches"] = r2["flash_launches"]
+        out[str(shape)] = row
+    return out
+
+
+def _mz_smoke(tc, mesh, device) -> dict:
+    """kimi-k2 at smoke size (fp32: a dense first layer, a shared expert):
+    MT_STEPS steps on (2, 2) against (4, 1), each state gathered whole;
+    phase 8's readings and limits, and the replicas."""
+    return _smoke_held(_mz_cfg(smoke=True), tc, mesh, device, MZ_SMOKE_B,
+                       MZ_SMOKE_S, MZ_WHOLE, (MZ_SAVE,))[str(MZ_SAVE)]
 
 
 def _mz_rank(rank: int, port: int, backend: str, tmp: str,
@@ -4578,6 +4634,373 @@ def _mz_check(ranks, cfg, head: dict) -> int:
     return launches[0]
 
 
+# ------------------------------------------------------------------ phase 10
+
+MR_RWKV = "rwkv6-3b"
+MR_LAYERS = 2           # full width, depth cut as phases 8 and 9
+MR_MESHES = ((2, 2), (1, 4), (4, 1))     # 20, 10 and 40 of 40 heads a rank
+MR_SAVE, MR_RESTORE = (2, 2), (1, 4)
+MR_JAMBA = "jamba-1.5-large-398b"
+# jamba's one-layer cut: its first layer, the mamba mixer (d_in 16384)
+# before the dense GLU MLP (d_ff 24576), with the untied embedding and head:
+# ~2.1 B parameters, ~33 GB of training state. B 4 x 128: the scan's (B, T,
+# d_in, N) fp32 tensors, ~25 of them live in a recomputed block's backward,
+# are 0.54 GB each on one device and 0.13 GB on a rank of four, where each
+# rank also holds the embedding and head gathered whole with their
+# gradients (4.3 GB); four such ranks share the card (PERF.md §6)
+MR_JAMBA_B, MR_JAMBA_S = 4, 128
+# (4, 1) first: jamba's witness, the mesh without tensor parallelism (its
+# steps differ from one device's by FSDP's bf16 gradient sums alone). At
+# step 3 its gradient norm reads 2.15e-2 of the one-device step's on an
+# H100, past phase 8's 2e-2 (PERF.md §6), so the tensor-parallel meshes'
+# norm is held within MR_WITNESS_FACTOR times its reading where larger
+MR_WITNESS = (4, 1)
+MR_JAMBA_MESHES = (MR_WITNESS, (2, 2), (1, 4))
+MR_WITNESS_FACTOR = 2
+MR_FAULT = (1, 4)       # the planted fault's mesh
+MR_SMOKE_B, MR_SMOKE_S = 4, 64
+MR_SMOKE_WHOLE = (4, 1)  # the smoke yardstick: experts and widths whole,
+                         # and every mesh of four routes in 4 token groups
+MR_SMOKE_MESHES = ((2, 2), (1, 4))
+MR_SMOKE_LOSS_REL = 1e-5    # fp32: each step's loss against (4, 1)
+MR_RANKS_S = 900
+# the mixers' leaves, whose master is read alone beside the whole state's
+# (the embedding and head are most of the weights and take most of the
+# steps' change, so the sum over every leaf hardly sees a mixer's fault)
+MR_MIXERS = {"rwkv": ("tm", "cm"), "jamba": ("mamba",)}
+
+
+def _mr_mixer(which: str):
+    """A function of a stacked tree to the leaves of its mixers."""
+    from repro_torch.tree import leaves
+    return lambda t: [x for k in MR_MIXERS[which]
+                      for x in leaves(t["blocks"]["0"][k])]
+
+
+def _mr_hold(steps: dict, ref: dict, held: dict,
+             gnorm_rel: float = MT_GNORM_REL) -> dict:
+    """Phase 8's readings and limits against the one-device steps, the
+    gradient norm's limit ``gnorm_rel`` (None: the witness, whose norm
+    sets the others' limit), and the mixers' master within MT_STATE_REL
+    too."""
+    row = _mt_hold(steps["loss"], steps["grad_norm"], ref["loss"],
+                   ref["grad_norm"], held["params"], held["master"])
+    row["mixer"] = held["mixer"]
+    row["gnorm_limit"] = gnorm_rel
+    row["within"] = bool(max(row["loss_rel"]) <= MT_LOSS_REL
+                         and (gnorm_rel is None
+                              or max(row["gnorm_rel"]) <= gnorm_rel)
+                         and max(held[k]["rel"] for k in
+                                 ("params", "master", "mixer"))
+                         <= MT_STATE_REL)
+    return row
+
+
+def _mr_cfg(which: str):
+    """rwkv6-3b at full width on MR_LAYERS layers; jamba at full width on
+    its first layer; or jamba at smoke size on JAMBA_CUT layers (every
+    kind, fp32)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    if which == "rwkv":
+        return dataclasses.replace(get_config(MR_RWKV), n_layers=MR_LAYERS)
+    cfg = get_config(MR_JAMBA)
+    n = 1
+    if which == "smoke":
+        cfg, n = reduce_for_smoke(cfg), JAMBA_CUT
+    return dataclasses.replace(cfg, n_layers=n,
+                               block_pattern=cfg.block_pattern[:n])
+
+
+MR_BATCH = {"rwkv": (TRAIN_B, TRAIN_S), "jamba": (MR_JAMBA_B, MR_JAMBA_S),
+            "smoke": (MR_SMOKE_B, MR_SMOKE_S)}
+
+
+@contextlib.contextmanager
+def _in_proj_fault():
+    """The planted fault: mamba's in_proj block, the contiguous columns
+    [r 2c, (r+1) 2c) of [xi | z], taken as (xi, z), as the one-device
+    split does with the whole matrix. The shapes line up, so nothing
+    raises."""
+    from repro_torch.models import mamba
+    from repro_torch.models.dist import copy_to
+
+    def contiguous(p, x, mi):
+        return torch.chunk(copy_to(x, mi, "model") @ p["in_proj"], 2, dim=-1)
+    with mock.patch.object(mamba, "_tp_in_proj", contiguous):
+        yield
+
+
+def _mr_one_device(cfg, tc, batches, device, ref_dir) -> dict:
+    """The one-device steps on the phase's weights and batches: each
+    step's loss, norm and ms, the peak GiB; the state after MT_STEPS
+    written to ``ref_dir`` (params and master, the reference's layout) for
+    the ranks to read their blocks of."""
+    from repro_torch.checkpoint.ckpt import save
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    params = _mt_params(cfg, device)
+    opt = init_opt_state(params)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, opt, out = _mt_steps(make_train_step(cfg, tc), params, opt,
+                                 batches)
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    save(ref_dir, MT_STEPS, _mt_ref_state(params, opt))
+    return out
+
+
+def _mr_rank(rank: int, port: int, backend: str, tmp: str,
+             device_type: str = "cuda", cfgs=None, sizes=None) -> None:
+    """One rank of phase 10. rwkv6-3b on MR_MESHES and jamba's full-width
+    cut on MR_JAMBA_MESHES (the (4, 1) witness first), MT_STEPS steps
+    each, their state against the one-device steps' (``tmp``/rwkv,
+    ``tmp``/jamba), the replicas, ms a step, peak GiB; rwkv6's (2, 2) state saved and restored on (1, 4), bit
+    for bit against the file; the planted fault on jamba's (1, 4); jamba
+    at smoke size on MR_SMOKE_MESHES against MR_SMOKE_WHOLE. ``cfgs`` and
+    ``sizes`` replace ``_mr_cfg`` and MR_BATCH (a rehearsal at small
+    size). Results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import MeshInfo
+    from repro_torch.models.dist import axis_rank
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", rank if backend == "nccl" else 0)
+              if cuda else torch.device("cpu"))
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    cfgs = cfgs or {k: _mr_cfg(k) for k in MR_BATCH}
+    sizes = sizes or MR_BATCH
+    tc = _mt_tc()
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend(),
+               coords={}, rwkv={}, jamba={})
+    meshes = {}
+
+    def mesh(shape):
+        if shape not in meshes:
+            meshes[shape] = MeshInfo(make_mesh(shape, ("data", "model"),
+                                               device=device_type))
+            res["coords"][str(shape)] = [axis_rank(meshes[shape], a)
+                                         for a in ("data", "model")]
+        return meshes[shape]
+
+    def run(which, shape, variant=contextlib.nullcontext):
+        cfg, mi = cfgs[which], mesh(shape)
+        sh, stacked = _mz_shards(cfg, mi)
+        batches = _mt_batches(cfg, device, *sizes[which])[:MT_STEPS]
+        with variant():
+            params, opt, start, out = _mesh_run(cfg, tc, batches, mi, sh,
+                                                device)
+        out["held"] = _mesh_held(mi, stacked, params, opt, start,
+                                 os.path.join(tmp, which),
+                                 parts={"mixer": _mr_mixer(which)})
+        out["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
+                                    (params, opt.master, opt.mu, opt.nu))
+        return params, opt, stacked, out
+
+    def release():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "ck")
+    both = lambda st: {"params": st, "master": st}
+    for shape in MR_MESHES:
+        params, opt, stacked, out = run("rwkv", shape)
+        state = _mt_ref_state(params, opt)
+        if shape == MR_SAVE:
+            t0 = time.perf_counter()
+            save(ck, MT_STEPS, state, shardings=both(stacked), mi=mesh(shape))
+            out["save_s"] = time.perf_counter() - t0
+            out["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state,
+                                                   both(stacked))
+        if shape == MR_RESTORE:
+            t0 = time.perf_counter()
+            got = restore(ck, MT_STEPS, state, shardings=both(stacked))
+            out["restore_s"] = time.perf_counter() - t0
+            out["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, got,
+                                                      both(stacked))
+            del got
+        res["rwkv"][str(shape)] = out
+        del params, opt, state
+        release()
+    for shape in MR_JAMBA_MESHES:
+        res["jamba"][str(shape)] = run("jamba", shape)[3]
+        release()
+    res["fault"] = run("jamba", MR_FAULT, _in_proj_fault)[3]
+    release()
+    res["smoke"] = _smoke_held(cfgs["smoke"], tc, mesh, device,
+                               *sizes["smoke"], MR_SMOKE_WHOLE,
+                               MR_SMOKE_MESHES)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_recurrent(device_type: str = "cuda", cfgs=None,
+                         sizes=None) -> dict:
+    """10. Recurrent training on a mesh: four ranks as in 8, each rank its
+    blocks of every parameter and optimizer buffer (rwkv6's heads, mamba's
+    d_in and the MLP's d_ff over model, d over data). Here: flash at every
+    rank shape jamba's smoke steps give it (fp32 D 16) against the plain
+    version with lse; the one-device steps of rwkv6-3b (full width, 2
+    layers, bf16, B 4 x 2048) and of jamba's full-width mamba layer (B 4 x
+    128) on the phase's weights and batches. Then the ranks
+    (``_mr_rank``): three steps of rwkv6-3b on (2, 2), (1, 4) and (4, 1),
+    and of jamba's layer on (4, 1), (2, 2) and (1, 4), each held against
+    the one-device steps (loss 2e-3, gradient norm 2e-2, params and master
+    0.1 of the steps' own change, the mixers' master 0.1 too; jamba's
+    gradient norm within twice the (4, 1) witness's reading where that is
+    larger, MR_WITNESS); jamba's (1, 4) again with in_proj's
+    contiguous block taken as (xi, z), which must miss; the replicated
+    leaves bit for bit; rwkv6's (2, 2) save restored on (1, 4) bit for
+    bit; jamba at smoke size on its five-layer cut on (2, 2) and (1, 4)
+    against (4, 1), each step's loss within 1e-5 and phase 8's limits;
+    readings: ms a step, peak GiB a rank, flash launches. A rank's
+    failure fails the phase."""
+    import shutil
+    import torch.multiprocessing as mp
+    card = _card_line()
+    cfgs = cfgs or {k: _mr_cfg(k) for k in MR_BATCH}
+    sizes = sizes or MR_BATCH
+    cuda = device_type == "cuda"
+    flash = ([_mt_flash(cfgs["smoke"], s, "phase10 mesh recurrent flash",
+                        *sizes["smoke"], torch.float32)
+              for s in (MR_SMOKE_WHOLE,) + MR_SMOKE_MESHES] if cuda else [])
+    tc = _mt_tc()
+    tmp = tempfile.mkdtemp(prefix=".mesh_recurrent_", dir=HERE)
+    try:
+        one = {}
+        for which in ("rwkv", "jamba"):
+            batches = _mt_batches(cfgs[which], device_type,
+                                  *sizes[which])[:MT_STEPS]
+            one[which] = _mr_one_device(cfgs[which], tc, batches,
+                                        device_type,
+                                        os.path.join(tmp, which))
+            del batches
+            if cuda:
+                torch.cuda.empty_cache()   # the ranks share this card
+        n_cards = torch.cuda.device_count() if cuda else 0
+        backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+        parent_gib = (torch.cuda.memory_reserved() / 2 ** 30 if cuda
+                      else None)
+        # the ranks' blocks of jamba's layer come and go in sizes that
+        # fragment a fixed-segment cache; four such ranks fill the card
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_mr_rank, args=(_free_port(), backend, tmp,
+                                       device_type, cfgs, sizes),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MR_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the ranks ran past {MR_RANKS_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _mr_check(ranks, one, cfgs, sizes, dict(
+        card=card, backend=backend, cards=n_cards, ranks_s=ranks_s,
+        parent_reserved_gib=parent_gib))
+    return dict(flash=flash, launches=launches)
+
+
+def _mr_meshes(ranks, key: str, ref: dict, gnorm=None) -> dict:
+    """Each mesh's row of ``key``'s runs (rwkv or jamba) against the
+    one-device steps ``ref``; ``gnorm``: {mesh: its gradient norm's limit}
+    (default phase 8's)."""
+    out = {}
+    for shape, r0 in ranks[0][key].items():
+        runs = [r[key][shape] for r in ranks]
+        out[shape] = dict(
+            held=_mr_hold(r0["steps"], ref, r0["held"],
+                          (gnorm or {}).get(shape, MT_GNORM_REL)),
+            held_equal_across_ranks=all(x["held"] == r0["held"]
+                                        for x in runs),
+            loss=r0["steps"]["loss"], grad_norm=r0["steps"]["grad_norm"],
+            losses_equal_across_ranks=all(
+                x["steps"]["loss"] == r0["steps"]["loss"] for x in runs),
+            ms_ranks=[x["steps"]["ms"] for x in runs],
+            ms_median=statistics.median(r0["steps"]["ms"]),
+            peak_gib_ranks=[x.get("peak_gib") for x in runs],
+            local_shapes_ok=all(x["local_shapes_ok"] for x in runs),
+            replicas_equal=all(x["replicas_equal"] for x in runs),
+            flash_launches_ranks=[x["flash_launches"] for x in runs])
+    return out
+
+
+def _mr_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
+    """Phase 10's rows from the ranks' results, and its gates; returns the
+    flash launches of a (2, 2) rank in jamba's smoke steps."""
+    r0 = ranks[0]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    witness = max(rel(a, b) for a, b in zip(
+        r0["jamba"][str(MR_WITNESS)]["steps"]["grad_norm"],
+        one["jamba"]["grad_norm"]))
+    jamba_gnorm = max(MT_GNORM_REL, MR_WITNESS_FACTOR * witness)
+    gnorm = {"rwkv": None, "jamba": {
+        str(s): jamba_gnorm if s != MR_WITNESS else None
+        for s in MR_JAMBA_MESHES}}
+    rows = {}
+    for key in ("rwkv", "jamba"):
+        cfg = cfgs[key]
+        rows[key] = dict(
+            **head, arch=cfg.name, layers=cfg.n_layers,
+            block_pattern=list(cfg.block_pattern), batch=list(sizes[key]),
+            steps=MT_STEPS, devices=[r["device"] for r in ranks],
+            limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
+                        state_rel=MT_STATE_REL),
+            one_device=dict(one[key],
+                            ms_median=statistics.median(one[key]["ms"])),
+            meshes=_mr_meshes(ranks, key, one[key], gnorm[key]))
+    rows["jamba"]["witness"] = dict(mesh=list(MR_WITNESS),
+                                    gnorm_rel=witness,
+                                    factor=MR_WITNESS_FACTOR,
+                                    gnorm_limit=jamba_gnorm)
+    fault = dict(mesh=list(MR_FAULT), held=_mr_hold(
+        r0["fault"]["steps"], one["jamba"], r0["fault"]["held"],
+        jamba_gnorm), replicas_equal=all(r["fault"]["replicas_equal"]
+                                         for r in ranks))
+    rows["jamba"]["fault"] = fault
+    save, rest = (r0["rwkv"][str(s)] for s in (MR_SAVE, MR_RESTORE))
+    elastic = dict(saved=list(MR_SAVE), restored=list(MR_RESTORE),
+                   saved_equal=[r["rwkv"][str(MR_SAVE)]["saved_equal"]
+                                for r in ranks],
+                   restored_equal=[r["rwkv"][str(MR_RESTORE)]
+                                   ["restored_equal"] for r in ranks],
+                   save_s=save["save_s"], restore_s=rest["restore_s"])
+    smoke = r0["smoke"]
+    for key in ("rwkv", "jamba"):
+        emit(f"phase10 mesh recurrent {key}", **rows[key])
+    emit("phase10 mesh recurrent elastic", **elastic)
+    emit("phase10 mesh recurrent smoke", arch=cfgs["smoke"].name,
+         layers=cfgs["smoke"].n_layers, batch=list(sizes["smoke"]),
+         whole=list(MR_SMOKE_WHOLE), loss_rel_limit=MR_SMOKE_LOSS_REL,
+         smoke_equal_across_ranks=all(r["smoke"] == smoke for r in ranks),
+         meshes=smoke)
+    for key in ("rwkv", "jamba"):
+        for shape, m in rows[key]["meshes"].items():
+            assert m["local_shapes_ok"] and m["losses_equal_across_ranks"], \
+                (key, shape, m)
+            assert m["held"]["within"], (key, shape, m["held"])
+            assert m["replicas_equal"], (key, shape)
+            assert all(n == 0 for n in m["flash_launches_ranks"]), (key, m)
+    assert not fault["held"]["within"], fault
+    assert all(elastic["saved_equal"]) and all(elastic["restored_equal"]), \
+        elastic
+    n_attn = cfgs["smoke"].block_pattern.count("attn")
+    for shape, m in smoke.items():
+        assert m["within"] and m["replicas_equal"], (shape, m)
+        assert max(m["loss_rel"]) <= MR_SMOKE_LOSS_REL, (shape, m)
+        if head["cards"]:       # the wrappers count launches on a card
+            assert m["flash_launches"] == 2 * n_attn * MT_STEPS, (shape, m)
+    return smoke[str((2, 2))]["flash_launches"]
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -4618,6 +5041,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-moe-only", action="store_true",
                     help="build the flash kernel and run phase 9 (MoE "
                          "training on a mesh of four ranks) only")
+    ap.add_argument("--mesh-recurrent-only", action="store_true",
+                    help="build the flash kernel and run phase 10 "
+                         "(recurrent training on a mesh of four ranks) "
+                         "only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -4650,25 +5077,42 @@ def main(argv=None) -> int:
         phase_card(["flash_attention"])
         phase_mesh_moe()
         return 0
-    phase_card()
-    res = phase_kernels()
-    launches, served, zc_outs, zc_figures = phase_serve()
-    copy_launches = phase_copy_serve(*served, zc_outs, zc_figures)
-    scheduled_launches = phase_scheduled_serve(*served, zc_outs)
-    dense_launches = phase_dense_archs(served[1])
-    moe_launches = phase_moe_arch()
-    recurrent_launches = phase_recurrent_archs()
-    cross_launches = phase_cross_archs()
+    if args.mesh_recurrent_only:
+        phase_card(["flash_attention"])
+        phase_mesh_recurrent()
+        return 0
+    phase_s = {}            # each phase's wall seconds, the build's too
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("1", phase_card)
+    res = timed("2", phase_kernels)
+    launches, served, zc_outs, zc_figures = timed("3", phase_serve)
+    copy_launches = timed("3c", phase_copy_serve, *served, zc_outs,
+                          zc_figures)
+    scheduled_launches = timed("3d", phase_scheduled_serve, *served, zc_outs)
+    dense_launches = timed("3e", phase_dense_archs, served[1])
+    moe_launches = timed("3f", phase_moe_arch)
+    recurrent_launches = timed("3g", phase_recurrent_archs)
+    cross_launches = timed("3h", phase_cross_archs)
     if args.profile:
-        phase_profile(*served)
+        timed("profile", phase_profile, *served)
+    del served              # phase 3's weights: the mesh phases' ranks
+                            # share the card with this process
     for arch in CROSS_ARCHS:
-        phase_cross_check(arch)
-    paper = phase_paper_kernels()
-    sort = phase_mergesort()
-    train = phase_train()
-    mesh = phase_mesh()
-    mesh_train = phase_mesh_train()
-    mesh_moe = phase_mesh_moe()
+        timed("4", phase_cross_check, arch)
+    paper = timed("5", phase_paper_kernels)
+    sort = timed("5 sort", phase_mergesort)
+    train = timed("6", phase_train)
+    mesh = timed("7", phase_mesh)
+    mesh_train = timed("8", phase_mesh_train)
+    mesh_moe = timed("9", phase_mesh_moe)
+    mesh_recurrent = timed("10", phase_mesh_recurrent)
+    emit("phase seconds", **phase_s)
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
@@ -4754,6 +5198,11 @@ def main(argv=None) -> int:
              "arch", "mesh", "dtype", "shape", "max_abs_err", "tol",
              "lse_err", "ms", "ms_lse", "plain_ms", "library_ms", "bound_ms",
              "bound_by")} for r in mesh_moe["shapes"]],
+         "launches_mesh_recurrent_a_rank": mesh_recurrent["launches"],
+         "mesh_recurrent_shapes": [{k: r[k] for k in (
+             "arch", "mesh", "dtype", "shape", "max_abs_err", "tol",
+             "lse_err", "ms", "ms_lse", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")} for r in mesh_recurrent["flash"]],
          "train_shape": {k: train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
              "library_ms", "bound_ms", "bound_by", "plain_bwd_ms")},

@@ -43,6 +43,14 @@ KV heads than the axis) are whole on every rank: each takes the KV
 heads its own q heads read, and their gradient is summed over ``model``.
 Norm weights are whole and their gradients are whole on every rank.
 
+The recurrent layers' tensor-parallel forms (``rwkv`` and the mamba
+kinds) live in their mixers, ``rwkv6.rwkv_time_mix``,
+``rwkv6.rwkv_channel_mix`` and ``mamba.mamba_mix`` with ``tp``; their
+modules' docstrings say where each collective happens. Their states
+start at zero over the rank's heads or channels. A mamba layer's MLP is
+the dense one above and a ``mamba_moe`` layer's FFN the MoE form below;
+jamba's ``attn`` layer is the dense layer.
+
 An MoE layer's tensor-parallel form (``_apply_moe``) is expert
 parallelism: a rank holds E / model experts (the reference's ``("tp",
 "fsdp", None)`` expert specs) and its block of the shared expert's hidden
@@ -390,21 +398,27 @@ def _apply_moe(p, x, ctx: FwdCtx):
     return reduce_from(y, ctx.mi, "model")
 
 
+def _split(ctx: FwdCtx) -> int:
+    """The ranks a layer's tensor-parallel widths split over: the model
+    axis's size under ``ctx.tp``, else 1."""
+    return ctx.mi.size("model") if ctx.tp else 1
+
+
 def _rwkv_layer(p, x, ctx: FwdCtx, st: Optional[rwkv.RWKVState]):
     cfg = ctx.cfg
     st0 = st if st is not None else \
-        rwkv.zero_state(cfg, x.shape[0], x.dtype, x.device)
+        rwkv.zero_state(cfg, x.shape[0], x.dtype, x.device, _split(ctx))
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     h_prev, new_tm = rwkv.token_shift(h, st0.shift_tm)
     if ctx.mode == "decode":
         y, wkv = rwkv.rwkv_time_mix_step(p["tm"], h, h_prev, cfg, st0.wkv)
     else:
         y, wkv = rwkv.rwkv_time_mix(p["tm"], h, h_prev, cfg, st0.wkv,
-                                    mi=ctx.mi)
+                                    mi=ctx.mi, tp=ctx.tp)
     x = x + y
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     h_prev, new_cm = rwkv.token_shift(h, st0.shift_cm)
-    x = x + rwkv.rwkv_channel_mix(p["cm"], h, h_prev)
+    x = x + rwkv.rwkv_channel_mix(p["cm"], h, h_prev, mi=ctx.mi, tp=ctx.tp)
     return x, (rwkv.RWKVState(wkv, new_tm, new_cm) if st is not None
                else None)
 
@@ -424,11 +438,12 @@ def apply_layer(kind: str, p, x, ctx: FwdCtx, cache):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in MAMBA_KINDS:
         st = cache if cache is not None else \
-            mam.zero_state(cfg, x.shape[0], x.dtype, x.device)
+            mam.zero_state(cfg, x.shape[0], x.dtype, x.device, _split(ctx))
         if ctx.mode == "decode":
             y, st = mam.mamba_mix_step(p["mamba"], h, cfg, st)
         else:
-            y, st = mam.mamba_mix(p["mamba"], h, cfg, st, mi=ctx.mi)
+            y, st = mam.mamba_mix(p["mamba"], h, cfg, st, mi=ctx.mi,
+                                  tp=ctx.tp)
         cache = st if cache is not None else None
     elif kind == "xattn_mlp":
         y, cache = _cross_attention(p["xattn"], h, ctx, cache)

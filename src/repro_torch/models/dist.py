@@ -26,6 +26,10 @@ a ``torch.autograd.Function`` where a gradient passes through it:
                              (Megatron's g: a row-parallel product's sum)
   copy_to(x, mi, axes)       identity forward, all-reduce backward
                              (Megatron's f: a column-parallel input)
+  gather_from(x, dim, mi, axis)
+                             all-gather forward, reduce-scatter backward
+                             (a column-parallel product every rank reads
+                             whole, each its own columns of it)
   shard_map(f, mi, in_specs, out_specs)
                              the reference's ``shard_map`` in a rank's
                              program: each input cut to the rank's
@@ -246,6 +250,26 @@ def copy_to(x: torch.Tensor, mi: MeshInfo, axes) -> torch.Tensor:
     product)."""
     axes = _axes(mi, axes)
     return _CopyTo.apply(x, mi, axes) if axes else x
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mi, axis):
+        ctx.dim, ctx.mi, ctx.axis = dim, mi, axis
+        return all_gather(x, dim, mi, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.mi, ctx.axis), None, None, None
+
+
+def gather_from(x: torch.Tensor, dim: int, mi: MeshInfo, axis: str
+                ) -> torch.Tensor:
+    """The blocks of ``x`` on ``axis``'s ranks concatenated along ``dim``
+    (``dim`` counted from the front); each rank may read other columns of
+    the result, so the gradient of its block is the sum of every rank's
+    gradient there (a reduce-scatter)."""
+    return _GatherFrom.apply(x, dim, mi, axis) if mi.size(axis) > 1 else x
 
 
 def gather_whole(t: torch.Tensor, sh, mi: MeshInfo) -> torch.Tensor:

@@ -19,16 +19,47 @@ nC``): a length its reshape cannot take (513) raises ValueError.
 at jamba's d_inner 16384 and N 16, 1 MiB a token each. ``softplus`` is
 ``torch.logaddexp(x, 0)``, the reference's ``jax.nn.softplus``
 (``F.softplus`` returns x itself above 20, which differs by ulps).
+
+Tensor parallelism (``tp``, training on a mesh whose ``model`` axis is
+larger than 1; the leaves are this rank's blocks by the reference's
+specs, ``mamba_specs``): d_inner splits over ``model``, c = d_in / model
+channels a rank, and the scan runs over the rank's channels alone.
+
+  in_proj      ``("fsdp", "tp")`` over the concatenated [xi | z] columns,
+               so a rank's block is the contiguous columns [r 2c, (r+1)
+               2c): on a model axis of 2, rank 0 holds xi whole and rank
+               1 z whole. The rank needs xi's columns [r c, (r+1) c) and
+               z's d_in + [r c, (r+1) c). The layer reassembles them
+               without changing the stored layout: x enters through
+               ``copy_to`` (its gradient summed), each rank's product with
+               its block is gathered over ``model`` (``gather_from``:
+               all-gather forward, reduce-scatter backward) and the rank
+               takes its two ranges. That moves the (B, T, 2 d_in)
+               product, B T 4 d_in bytes in bf16 (67 MB for jamba's d_in
+               16384 at 2 x 512 tokens), where gathering the weight would
+               move 4 d d_in (537 MB a layer): the product is the smaller
+               below d tokens a rank.
+  conv_w, conv_b, dt_proj, dt_bias, A_log, D
+               the rank's c channels (``"tp"`` on their d_in dimension).
+  x_proj       ``("tp", None)``, row parallel: the partial (B, T,
+               dt_rank + 2N) product is summed over ``model``
+               (``reduce_from``, forward). dt_lr, B and C are then whole,
+               but each rank uses them for its own channels only, so their
+               gradient is summed over ``model`` (``copy_to`` after the
+               sum, backward).
+  out_proj     ``("tp", "fsdp")``, row parallel: its output summed over
+               ``model`` (``reduce_from``, forward).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.dist import NO_MESH, MeshInfo
+from repro_torch.models.dist import (NO_MESH, MeshInfo, axis_rank, copy_to,
+                                     gather_from, reduce_from)
 from repro_torch.models.params import ParamSpec, residual
 from repro_torch.models.rwkv6 import chunking
 
@@ -67,10 +98,12 @@ class MambaState(NamedTuple):
 
 
 def zero_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-               device) -> MambaState:
+               device, split: int = 1) -> MambaState:
     """The reference's ``mamba_state_specs`` (and ``_zero_mamba``) as
-    zeros."""
+    zeros, over d_in / ``split`` channels (a rank's, under tensor
+    parallelism over a model axis of ``split``)."""
     d_in, _, N, K = _dims(cfg)
+    d_in //= split
     return MambaState(
         conv=torch.zeros((batch, K - 1, d_in), dtype=dtype, device=device),
         ssm=torch.zeros((batch, d_in, N), dtype=torch.float32, device=device))
@@ -90,9 +123,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _ssm_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                mi: Optional[MeshInfo] = None):
+    """(decay, drive, C); with ``mi``, x_proj's product is summed over its
+    model axis and its gradient summed there too (the module's
+    docstring)."""
     _, dt_rank, N, _ = _dims(cfg)
     proj = x @ p["x_proj"]                             # (B, T, dt_rank+2N)
+    if mi is not None:
+        proj = copy_to(reduce_from(proj, mi, "model"), mi, "model")
     dt_lr, Bm, Cm = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = _softplus((dt_lr @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                         # (d_in, N)
@@ -115,17 +154,32 @@ def _scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def _tp_in_proj(p: dict, x: torch.Tensor, mi: MeshInfo):
+    """(xi, z) of this rank's c channels from its contiguous block of
+    in_proj's [xi | z] columns: the products gathered over ``model``, then
+    xi's columns [r c, (r+1) c) and z's d_in + [r c, (r+1) c)."""
+    c = p["conv_w"].shape[1]
+    lo, d_in = axis_rank(mi, "model") * c, c * mi.size("model")
+    xz = gather_from(copy_to(x, mi, "model") @ p["in_proj"], -1, mi,
+                     "model")
+    return xz[..., lo:lo + c], xz[..., d_in + lo:d_in + lo + c]
+
+
 def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: MambaState,
-              chunk: int = 256, *, mi: MeshInfo = NO_MESH):
-    """x: (B, T, d). Returns (out (B, T, d), new MambaState). ``mi`` is
-    taken as the reference takes it, and not used (every rank holds whole
-    tensors)."""
+              chunk: int = 256, *, mi: MeshInfo = NO_MESH, tp: bool = False):
+    """x: (B, T, d). Returns (out (B, T, d), new MambaState). With ``tp``
+    the tensor-parallel form over ``mi``'s model axis (the module's
+    docstring): the state holds the rank's channels and ``out`` is the
+    sum over the ranks."""
     B, T, _ = x.shape
     nC, C = chunking(T, chunk)
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    if tp:
+        xi, z = _tp_in_proj(p, x, mi)
+    else:
+        xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xi, conv_carry = _conv_causal(xi, p["conv_w"], p["conv_b"], state.conv)
     xi = F.silu(xi)
-    decay, drive, Cm = _ssm_inputs(p, xi, cfg)
+    decay, drive, Cm = _ssm_inputs(p, xi, cfg, mi if tp else None)
     h0 = state.ssm.float()
     hs = []
     for j in range(nC):
@@ -138,6 +192,8 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, state: MambaState,
     y = torch.einsum("btdn,btn->btd", h, Cm.float()) \
         + p["D"] * xi.float()
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if tp:
+        out = reduce_from(out, mi, "model")
     return out, MambaState(conv=conv_carry, ssm=h0)
 
 

@@ -23,7 +23,7 @@ a slot, which the walkers below treat alike.
       -> (logits, cache)
   forward_train(cfg, params, batch, mi=NO_MESH) -> loss
 
-Training on a mesh (``mi``; the dense and MoE decoders,
+Training on a mesh (``mi``; the dense, MoE and recurrent decoders,
 ``check_mesh_trainable``) each rank holds its blocks of the parameters
 (FSDP over ``data``, TP over ``model``, ``params.shardings``) and takes
 its rows of the global batch; see :func:`forward_train`.
@@ -428,31 +428,37 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kw)
 
 
-MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe")
+MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe", "attn", "rwkv",
+                    "mamba", "mamba_moe")
 DENSE_KINDS = ("attn_mlp", "attn_mlp_local")
 
 
 def mesh_train_refusal(cfg: ModelConfig, model: int) -> Optional[str]:
     """Why training ``cfg`` on a mesh whose model axis is ``model`` is not
     ported, or None. A layer kind without a tensor-parallel form (the
-    recurrent and cross-attention kinds) refuses; so does a width that
-    does not split over the model axis, where a layer would run whole on
-    every rank and its sum over ``model`` count it ``model`` times: the
-    heads; ``d_ff`` where a dense MLP exists (a dense layer or
-    ``first_k_dense``); an MoE layer's experts, and its shared expert's
-    width ``moe.d_ff * n_shared_experts``."""
+    cross-attention kinds) refuses; so does a width that does not split
+    over the model axis, where a layer would run whole on every rank and
+    its sum over ``model`` count it ``model`` times: the heads (attention
+    and rwkv's time mix); ``d_ff`` where a dense MLP exists (a dense, an
+    ``attn`` or a ``mamba`` layer, ``first_k_dense``) or rwkv's channel
+    mix; mamba's ``d_in = ssm.expand * d_model``; an MoE layer's experts,
+    and its shared expert's width ``moe.d_ff * n_shared_experts``."""
     kinds = set(cfg.layer_kinds())
     other = sorted(kinds - set(MESH_TRAIN_KINDS))
     if other:
         return (f"training {cfg.name} on a mesh is not ported: its {other} "
                 f"layers have no tensor-parallel form (the port trains "
                 f"{MESH_TRAIN_KINDS} layers and dense first layers on a "
-                f"mesh); ROADMAP queue 1, item 2c(ii) brings the recurrent "
-                f"and cross-attention kinds")
-    need = {"heads": cfg.n_heads}
-    if kinds & set(DENSE_KINDS):
+                f"mesh); ROADMAP queue 1, item 2c(ii)(b) brings the "
+                f"cross-attention kinds")
+    need = {}
+    if kinds - set(MAMBA_KINDS):
+        need["heads"] = cfg.n_heads
+    if kinds & set(DENSE_KINDS + ("attn", "mamba", "rwkv")):
         need["d_ff"] = cfg.d_ff
-    if "attn_moe" in kinds:
+    if kinds & set(MAMBA_KINDS):
+        need["d_in"] = cfg.ssm.expand * cfg.d_model
+    if kinds & {"attn_moe", "mamba_moe"}:
         m = cfg.moe
         need["experts"] = m.n_experts
         if m.n_shared_experts:
@@ -501,7 +507,7 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     table (and an untied head) is gathered whole over both axes once, and
     every rank of a data group computes the same embedding and the same
     cross-entropy (a vocab-parallel cross-entropy is ROADMAP item
-    2c(ii)). The rank's loss is its rows' share of the global mean,
+    2c(ii)(c)). The rank's loss is its rows' share of the global mean,
     summed over the batch axes
     (``reduce_from``), so every rank returns the global loss and its
     backward gives the rank's blocks of the global gradient."""

@@ -22,6 +22,39 @@ activation dtype and are then made fp32, the decay is fp32, the group norm
 runs in fp32 (population variance) and is cast back before the gate. The
 state keeps ``wkv`` in fp32 and both token-shift carries at the activation
 dtype.
+
+Tensor parallelism (``tp``, training on a mesh whose ``model`` axis is
+larger than 1; the leaves are this rank's blocks by the reference's specs,
+``rwkv_time_mix_specs``). Each rank runs the reference's function on its
+own heads, and the collectives are Megatron's f and g (``models.dist``):
+
+  time mix     ``wr``/``wk``/``wv``/``wg`` (``("fsdp", "tp")``) are column
+               blocks of H / model heads and ``u`` (``("tp", None)``) the
+               same heads: r, k, v, g and the chunked scan are local to
+               them, the WKV state (B, H / model, N, N) too, and the scan
+               needs no collective. ``wo`` (``("tp", "fsdp")``) is row
+               parallel: its partial output is summed over ``model``
+               (``reduce_from``, forward). ``mu``, ``w0``, ``w_lora_a``,
+               ``w_lora_b`` and ``ln_w`` are whole on every rank; the
+               decay's ``w0``/``w_lora_b`` and the group norm's ``ln_w``
+               are cut to the rank's channels. Each rank's gradient of
+               those five leaves is therefore partial, and is summed over
+               ``model`` once, by ``copy_to`` on the leaf (backward); x
+               and x_prev enter through ``copy_to`` too (their gradient
+               summed, backward). No path sums twice: a leaf's gradient
+               is taken before the input's ``copy_to`` is reached.
+  channel mix  ``wk`` (``("fsdp", "tp")``) is column parallel over d_ff
+               and ``wv`` (``("tp", "fsdp")``) row parallel: the key
+               input enters through ``copy_to`` and the value product, a
+               partial sum of full width d, is summed by ``reduce_from``
+               before the gate. ``wr`` is ``("fsdp", "tp")`` as well, but
+               its d / model receptance channels cannot gate the whole
+               (B, T, d) sum; it is gathered whole over ``model`` at use
+               (``gather_param``, forward, 2 d^2 bytes in bf16: 13.1 MB a
+               layer for rwkv6-3b), so every model rank computes the same
+               receptance, and its gradient, the same on every rank, is
+               sliced back, not summed. The receptance path takes no
+               ``copy_to``: its gradient is whole on every rank already.
 """
 from __future__ import annotations
 
@@ -31,8 +64,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.dist import NO_MESH, MeshInfo
-from repro_torch.models.params import ParamSpec, residual
+from repro_torch.models.dist import (NO_MESH, MeshInfo, axis_rank, copy_to,
+                                     gather_param, reduce_from)
+from repro_torch.models.params import ParamSpec, placed, residual
 
 LORA_R = 64   # decay low-rank width
 
@@ -78,9 +112,11 @@ class RWKVState(NamedTuple):
 
 
 def zero_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-               device) -> RWKVState:
-    """The reference's ``rwkv_state_specs`` (and ``_zero_rwkv``) as zeros."""
-    H, N, d = cfg.n_heads, cfg.d_head, cfg.d_model
+               device, split: int = 1) -> RWKVState:
+    """The reference's ``rwkv_state_specs`` (and ``_zero_rwkv``) as zeros;
+    the WKV state of H / ``split`` heads (a rank's, under tensor
+    parallelism over a model axis of ``split``)."""
+    H, N, d = cfg.n_heads // split, cfg.d_head, cfg.d_model
     return RWKVState(
         wkv=torch.zeros((batch, H, N, N), dtype=torch.float32, device=device),
         shift_tm=torch.zeros((batch, d), dtype=dtype, device=device),
@@ -149,16 +185,33 @@ def _chunk_step(S, rf, kf, vf, wj, u):
     return S_new, y
 
 
+def _tp_time_mix(p: dict, mi: MeshInfo) -> dict:
+    """The time mix's leaves under tensor parallelism: the whole leaves
+    through ``copy_to`` (their gradient summed over ``model``), the
+    per-channel ones cut to this rank's heads' channels after it."""
+    H, N = p["u"].shape
+    lo = axis_rank(mi, "model") * H * N
+    ch = slice(lo, lo + H * N)
+    w = {k: copy_to(p[k], mi, "model")
+         for k in ("mu", "w0", "w_lora_a", "w_lora_b", "ln_w")}
+    return dict(p, mu=w["mu"], w_lora_a=w["w_lora_a"], w0=w["w0"][ch],
+                w_lora_b=w["w_lora_b"][:, ch], ln_w=w["ln_w"][ch])
+
+
 def rwkv_time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
                   cfg: ModelConfig, state: torch.Tensor, chunk: int = 32, *,
-                  mi: MeshInfo = NO_MESH):
+                  mi: MeshInfo = NO_MESH, tp: bool = False):
     """Chunked WKV6. x: (B, T, d); x_prev: x shifted right by one; state:
     (B, H, N, N). Returns (out (B, T, d), final state (B, H, N, N) fp32).
-    ``mi`` is taken as the reference takes it, and not used (every rank
-    holds whole tensors)."""
+    With ``tp`` the tensor-parallel form over ``mi``'s model axis (the
+    module's docstring): H is the rank's heads and ``out`` the sum over
+    the ranks."""
     B, T, d = x.shape
-    H, N = cfg.n_heads, cfg.d_head
+    H, N = p["u"].shape
     nC, C = chunking(T, chunk)
+    if tp:
+        p = _tp_time_mix(p, mi)
+        x, x_prev = copy_to(x, mi, "model"), copy_to(x_prev, mi, "model")
     xr, xk, xv, xw, xg = _mix(p, x, x_prev)
     r = (xr @ p["wr"]).reshape(B, T, H, N).float()
     k = (xk @ p["wk"]).reshape(B, T, H, N).float()
@@ -174,7 +227,8 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=1)
     out = _group_norm(y, p["ln_w"]).to(x.dtype) * g
-    return out @ p["wo"], S
+    out = out @ p["wo"]
+    return (reduce_from(out, mi, "model") if tp else out), S
 
 
 def rwkv_time_mix_step(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
@@ -195,13 +249,25 @@ def rwkv_time_mix_step(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
     return out @ p["wo"], S_new
 
 
-def rwkv_channel_mix(p: dict, x: torch.Tensor,
-                     x_prev: torch.Tensor) -> torch.Tensor:
+def rwkv_channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, *,
+                     mi: MeshInfo = NO_MESH, tp: bool = False
+                     ) -> torch.Tensor:
+    """sigmoid(xr wr) * (relu(xk wk)^2 wv); with ``tp`` the
+    tensor-parallel form over ``mi``'s model axis (the module's
+    docstring)."""
     dx = x_prev - x
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
+    wr = p["wr"]
+    if tp:
+        xk = copy_to(xk, mi, "model")
+        wr = gather_param(wr, placed((None, "model"), mi), mi, ("model",),
+                          ())
     kk = torch.square(F.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (kk @ p["wv"])
+    kv = kk @ p["wv"]
+    if tp:
+        kv = reduce_from(kv, mi, "model")
+    return torch.sigmoid(xr @ wr) * kv
 
 
 def token_shift(x: torch.Tensor, carry: torch.Tensor):

@@ -226,18 +226,35 @@ def test_train_launcher_restart_recipe(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_mesh(capsys):
-    """An arch whose layers do not train on a mesh yet (mamba, rwkv,
-    cross-attention) is refused with an argparse error naming its layer
-    kinds and the ROADMAP item that brings them."""
-    for arch, kind in (("rwkv6-3b", "rwkv"),
-                       ("jamba-1.5-large-398b", "mamba"),
-                       ("seamless-m4t-medium", "cross_mlp")):
+    """An arch whose layers do not train on a mesh yet (cross-attention)
+    is refused with an argparse error naming its layer kinds and the
+    ROADMAP item that brings them."""
+    for arch, kind in (("seamless-m4t-medium", "cross_mlp"),
+                       ("llama-3.2-vision-90b", "xattn_mlp")):
         with pytest.raises(SystemExit) as e:
             train.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--mesh", "2,2"])
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert "ROADMAP" in err and "2c" in err and kind in err, err
+        assert "ROADMAP" in err and "2c(ii)(b)" in err and kind in err, err
+
+
+def test_train_launcher_mesh_recurrent_runs():
+    """``--mesh 2,2`` with smoke rwkv6-3b (2 of its 4 heads a model rank):
+    four gloo ranks take three steps and the run ends."""
+    import os
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "rwkv6-3b", "--smoke", "--device", "cpu", "--mesh", "2,2",
+         "--steps", "3"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("[train] done 3 steps") == 1, r.stdout
+    assert r.stdout.count("step     2 loss") == 1, r.stdout
 
 
 def test_train_launcher_mesh_moe_restart_recipe(tmp_path):

@@ -25,8 +25,9 @@ by side. The cases:
       step each, against two uninterrupted steps; and the JAX launcher's
       checkpoint restored on (2, 2), each rank's blocks against the
       reference's own shards of it on a (2, 2) mesh, bit for bit;
-  (e) the refusals: the recurrent and cross-attention configs on a mesh
-      (the MoE configs train there: ``test_torch_mesh_moe.py``).
+  (e) the refusals: the cross-attention configs on a mesh (the MoE and
+      recurrent configs train there: ``test_torch_mesh_moe.py``,
+      ``test_torch_mesh_recurrent.py``).
 """
 import json
 import os
@@ -64,9 +65,9 @@ SPEC_MESHES = ((("data", "model"), (2, 2)), (("data", "model"), (4, 1)),
                (("data", "model"), (1, 4)), (("data", "model"), (16, 16)),
                (("pod", "data", "model"), (2, 16, 16)),
                (("pod", "data", "model"), (2, 2, 2)))
-# (e): archs whose layers have no tensor-parallel form yet (mamba, rwkv,
-# cross-attention)
-REFUSED = ("jamba-1.5-large-398b", "rwkv6-3b", "seamless-m4t-medium")
+# (e): archs whose layers have no tensor-parallel form yet (cross-attention;
+# the recurrent archs train: test_torch_mesh_recurrent.py)
+REFUSED = ("seamless-m4t-medium", "llama-3.2-vision-90b")
 LAUNCHER_ARGS = ["--arch", "llama3.2-1b", "--smoke", "--steps", "3",
                  "--batch", "4", "--seq", "32", "--ckpt-every", "3",
                  "--log-every", "100"]
@@ -677,4 +678,4 @@ def test_jax_launcher_checkpoint_restores_on_2x2(runs):
 def test_unported_kinds_refuse_on_a_mesh(runs, arch):
     for r in runs["ranks"]:
         msg = r["refusals"][arch]
-        assert "2c" in msg and "ROADMAP" in msg, msg
+        assert "2c(ii)(b)" in msg and "ROADMAP" in msg, msg
