@@ -114,7 +114,12 @@ Phases (each prints one line; any failure exits non-zero):
      and one an encoder, self- and cross-attention layer a prefill call
      (seamless 12 and 36, the vision cut 2 and 10), and each serve's peak
      GiB past what earlier phases keep resident; (c) each request's
-     first-token logits within 5e-2 of a B=1 prefill.
+     first-token logits within 5e-2 of a B=1 prefill; (d) for vision, the
+     served (8, 512) bucket and the B=1 prefills of the two prompts whose
+     (c) reads largest, a layer at a time (the residual stream at the
+     last token), in bf16 as served, in bf16 with flash's plain version,
+     and in fp32: the bucket's logits equal the serve's bit for bit, and
+     the fp32 run's agree within 1e-3.
   4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b, gemma2-2b,
      olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b, jamba, seamless-m4t-medium
      and llama-vision (at src_len 8, its smoke image tokens) (fp32) served
@@ -202,13 +207,13 @@ Phases (each prints one line; any failure exits non-zero):
      (4, 1) and on one device bit for bit, one more step on (4, 1) held
      alike. A rank's failure fails the phase.
   9. MoE training on a mesh: four ranks as in 7, olmoe-1b-7b at full
-     width in bf16 cut to 2 layers (wq, wk x 0.1), B 4 x 2048, the experts
+     width in bf16 cut to 1 layer (wq, wk x 0.1), B 4 x 2048, the experts
      split over model (expert parallelism) and d over data. First flash
      at a (2, 2) rank's shape, q (2, 2048, 8, 128) over (2, 2048, 8, 128),
-     with lse, against the plain version. Then each rank: three steps on
+     with lse, against the plain version. Then each rank: one step on
      (4, 1), experts whole, the yardstick (every mesh of four routes in
      the same four token groups; one device routes in one, so its step is
-     not one); three on (2, 2) and on (1, 4), 32 and 16 experts a rank,
+     not one); one on (2, 2) and on (1, 4), 32 and 16 experts a rank,
      held against it (loss 2e-3, gradient norm 2e-2, params and master 0.1
      of the steps' own change, the routers' master 0.5), with the (token,
      choice) pairs of layer 0 routed otherwise, the dropped share, ms a
@@ -226,7 +231,7 @@ Phases (each prints one line; any failure exits non-zero):
      D 16) against the plain version, with lse. Then the one-device steps
      of rwkv6-3b at full width in bf16 on 2 layers (B 4 x 2048) and of
      jamba's first layer at full width (mamba, d_in 16384, and its dense
-     MLP; B 4 x 128), and on the ranks three steps of rwkv6 on (2, 2),
+     MLP; B 4 x 128), and on the ranks one step of rwkv6 on (2, 2),
      (1, 4) and (4, 1) and of jamba's layer on (4, 1), (2, 2) and (1,
      4), each held against them (phase 8's limits; jamba's gradient norm
      within twice its (4, 1) witness's reading, the mesh without tensor
@@ -236,6 +241,28 @@ Phases (each prints one line; any failure exits non-zero):
      rwkv6's (2, 2) save restored on (1, 4) bit for bit; jamba at smoke
      size on its five-layer cut on (2, 2) and (1, 4) against (4, 1), each
      step's loss within 1e-5. A rank's failure fails the phase.
+ 11. Cross-attention training on a mesh: four ranks as in 7, each its
+     blocks (the self- and cross-attention's heads, the encoder's, the
+     MLPs' d_ff over model, d over data; the gates whole). First flash at
+     every rank shape the phase gives it (seamless's causal self-, non-
+     causal encoder and cross-attention over 3072 frames on each mesh;
+     vision's cross-attention over 4096 image tokens, tensor-parallel and
+     whole; vision's smoke steps, fp32 D 16) against the plain version,
+     with lse. Then the one-device steps of seamless-m4t-medium at full
+     width in bf16 on 2 encoder and 2 decoder layers (B 4 x 512 over 3072
+     random frames, every gate 1.0), and on the ranks three steps on (2,
+     2), (1, 4) and (4, 1), each held against them (phase 8's limits, the
+     encoder's and the cross leaves' master 0.1 too); (1, 4) again with
+     the encoder output entering the cross-attention without copy_to,
+     which must miss on the encoder's leaves; the replicated leaves bit
+     for bit; the (2, 2) save restored on (1, 4) bit for bit;
+     llama-vision's xattn_mlp layer at full width (d 8192, 64/8 heads,
+     d_ff 28672), its tensor-parallel form on (2, 2) and (1, 4) against
+     the whole layer on each rank's rows: the output and the gradients of
+     x, the image rows and every leaf, the gate's included; vision at
+     smoke size on its five layers on (2, 2) and (1, 4) against (4, 1),
+     each step's loss within 1e-5 and the state 1e-4. A rank's failure
+     fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -266,6 +293,10 @@ builds the flash kernel and runs phase 9 alone.
     python3 chip_smoke.py --mesh-recurrent-only
 
 builds the flash kernel and runs phase 10 alone.
+
+    python3 chip_smoke.py --mesh-cross-only
+
+builds the flash kernel and runs phase 11 alone.
 """
 from __future__ import annotations
 
@@ -2156,7 +2187,9 @@ def phase_cross_archs() -> dict:
     1, and once an encoder, self- and cross-attention layer a prefill
     call); (c) each request's first-token logits against a B=1 prefill,
     on the first zero-copy serve and the first copy serve. The engine, as
-    the reference's, feeds a zero source."""
+    the reference's, feeds a zero source. For llama-vision, (d) the first
+    zero-copy serve's first tokens a layer at a time (``_vision_reading``).
+    """
     from repro_torch.models import init_params
     launches_by_arch = {}
     for arch in CROSS_ATTN_ARCHS:
@@ -2191,6 +2224,9 @@ def phase_cross_archs() -> dict:
         for row, first in zip(turns[:2], firsts):
             row["first_token_rel"] = _first_token_check(
                 cfg, params, prompts, first)[0]
+        if cfg.n_image_tokens:
+            _vision_reading(cfg, params, prompts, firsts[0],
+                            turns[0]["first_token_rel"])
         for row in turns:       # the arch's own peak, past what stays
             row["arch_peak_gib"] = (row["peak_mem_gib"]
                                     - resident / 2**30)
@@ -2216,6 +2252,119 @@ def phase_cross_archs() -> dict:
         del params
         torch.cuda.empty_cache()
     return launches_by_arch
+
+
+VISION_READING_N = 2    # the B=1 prefills held a layer at a time: the
+                        # prompts whose first-token rel reads largest
+# the fp32 run's logits: bucket against B=1. Set after the first reading,
+# 4.2e-5 and 4.4e-5 where bf16 reads 0.040 and 0.032 (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §6): the gap is bf16's rounding at depth
+VISION_FP32_REL = 1e-3
+
+
+def _vision_reading(cfg, params, prompts, served, rels) -> dict:
+    """The first-token reading of llama-vision's zero-copy serve, a layer
+    at a time: the serve's (8, 512) bucket prefill (its padded rows and
+    lengths, the zero image rows the engine feeds) and the B=1 prefills of
+    the VISION_READING_N prompts whose first-token ``rels`` read largest,
+    each run layer by layer without a cache, the residual stream read at
+    each prompt's last token after the embedding and after every layer.
+    ``layer_rel``: max |bucket - B=1| over max |B=1| there, a layer at a
+    time; ``opens_at``: the first layer where it is not 0. Three runs:
+    bf16 as served (flash's kernel), bf16 with flash's plain version, and
+    fp32 (the same weights, each layer's cast up as it runs; activations
+    fp32) with flash's plain version, since no flash kernel takes fp32 at
+    D 128. A diagnostic beside the serve: the main path is the bf16 run.
+    ``bucket_vs_served``: the bf16 bucket's logits against the serve's own
+    first-token logits, which must be 0 (the replay is the served
+    prefill); the fp32 run's logits must agree within VISION_FP32_REL."""
+    from repro_torch.models.blocks import FwdCtx, apply_layer
+    from repro_torch.models.layers import logits_fn, rmsnorm
+    from repro_torch.models.model import _embed_in, layers
+    from repro_torch.tree import tree_map
+    lb = PAGE                   # the engine's bucket: a power of two
+    while lb < max(len(p) for p in prompts):
+        lb *= 2
+    lb = min(lb, TURN_MAX_LEN)
+    nb = len(prompts)
+    toks = torch.zeros((nb, lb), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, device="cuda")
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device="cuda")
+    picks = sorted(range(nb), key=lambda i: -rels[i])[:VISION_READING_N]
+    runs = {"bucket": (toks, lens)}
+    runs.update({i: (toks[i:i + 1, :len(prompts[i])], None) for i in picks})
+    last = {"bucket": lens.long() - 1}
+    last.update({i: torch.tensor([len(prompts[i]) - 1], device="cuda")
+                 for i in picks})
+
+    def residuals(dt, plain: bool) -> tuple:
+        c = dataclasses.replace(cfg, activation_dtype=str(dt).split(".")[-1])
+        up = (lambda tree: tree_map(lambda t: t.float(), tree)
+              if dt == torch.float32 else tree)
+        at = {k: [] for k in runs}
+        src = (nb, _src_len(cfg), cfg.d_model)
+        with (_plain_flash() if plain else contextlib.nullcontext()), \
+                torch.no_grad():
+            emb = up(params["embed"])
+            ctx = {k: FwdCtx(cfg=c, mode="prefill", seq_lengths=ln,
+                             cross_x=torch.zeros((t.shape[0],) + src[1:],
+                                                 dtype=dt, device="cuda"))
+                   for k, (t, ln) in runs.items()}
+            xs = {k: _embed_in(c, {"embed": emb}, t)
+                  for k, (t, _) in runs.items()}
+            kinds = ["embed"]
+            rows_of = {k: torch.arange(t.shape[0], device="cuda")
+                       for k, (t, _) in runs.items()}
+            for k, x in xs.items():
+                at[k].append(x[rows_of[k], last[k]].float())
+            for kind, p in layers(c, params):
+                p = up(p)
+                for k in runs:
+                    xs[k], _ = apply_layer(kind, p, xs[k], ctx[k], None)
+                    at[k].append(xs[k][rows_of[k], last[k]].float())
+                kinds.append(kind)
+                del p
+            logits = {}
+            for k, x in xs.items():
+                h = rmsnorm(x[rows_of[k], last[k]][:, None],
+                            up(params["final_ln"]), cfg.norm_eps)
+                logits[k] = logits_fn(emb, h, cfg.logit_softcap)[:, 0]
+            del emb, xs
+        torch.cuda.empty_cache()
+        rows = {}
+        for i in picks:
+            rel = [_rel(a[i], b[0]) for a, b in zip(at["bucket"], at[i])]
+            rows[str(len(prompts[i]))] = dict(
+                layer_rel=rel,
+                opens_at=next((n for n, r in enumerate(rel) if r > 0), None),
+                logits_rel=_rel(logits["bucket"][i], logits[i][0]))
+        return rows, kinds, logits["bucket"]
+
+    t0 = time.perf_counter()
+    bf16, kinds, bucket = residuals(torch.bfloat16, False)
+    plain, _, _ = residuals(torch.bfloat16, True)
+    fp32, _, _ = residuals(torch.float32, True)
+    served_rel = []
+    for i, p in enumerate(prompts):
+        lg = [lg for n, tk, lg, _ in served
+              if n == len(p) and p[n - len(tk):] == tk][-1]
+        served_rel.append(_rel(bucket[i], lg))
+    for rows in (bf16, plain, fp32):
+        for n, row in rows.items():
+            row["kind_at_open"] = (kinds[row["opens_at"]]
+                                   if row["opens_at"] is not None else None)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, layer_kinds=kinds,
+               bucket=[nb, lb], served_rels=rels,
+               prompts=[len(prompts[i]) for i in picks],
+               bucket_vs_served=served_rel, bf16=bf16, bf16_plain_flash=plain,
+               fp32_plain_flash=fp32, seconds=time.perf_counter() - t0)
+    emit("phase3h vision first-token layers", **row)
+    assert max(served_rel) == 0, served_rel
+    assert all(r["logits_rel"] <= VISION_FP32_REL for r in fp32.values()), \
+        fp32
+    return row
 
 
 def _leaves(tree):
@@ -3642,20 +3791,36 @@ def _mt_tc():
 
 def _mt_batches(cfg, device, B: int = TRAIN_B, S: int = TRAIN_S) -> list:
     """MT_STEPS + 1 batches of random tokens (B, S), phase 6's shape,
-    drawn on the CPU from one seed, so every process holds the same."""
+    drawn on the CPU from one seed, so every process holds the same; for
+    a cross-attention arch each also has its source, ``enc_x`` or
+    ``img_x`` (B, ``_src_len(cfg)``, d), random, drawn after the tokens."""
+    from repro_torch.models.params import torch_dtype
     g = torch.Generator().manual_seed(SEED + 31)
     mk = lambda: torch.randint(0, cfg.vocab_size, (B, S), generator=g)
-    return [{"tokens": mk().to(device), "labels": mk().to(device)}
-            for _ in range(MT_STEPS + 1)]
+    out = [{"tokens": mk().to(device), "labels": mk().to(device)}
+           for _ in range(MT_STEPS + 1)]
+    if cfg.is_encdec or cfg.n_image_tokens:
+        key = "img_x" if cfg.n_image_tokens else "enc_x"
+        for b in out:
+            b[key] = torch.randn((B, _src_len(cfg), cfg.d_model),
+                                 generator=g).to(
+                device, torch_dtype(cfg.activation_dtype))
+    return out
 
 
 def _mt_params(cfg, device, mi=None):
     """The phase's weights (seeded; wq and wk x 0.1, phase 6's "scaled"
-    set, on which attention is not chaotic); on a mesh the rank's blocks
-    of the same tree."""
+    set, on which attention is not chaotic; every cross gate CROSS_GATE,
+    where the init draws 0); on a mesh the rank's blocks of the same
+    tree."""
     from repro_torch.models import NO_MESH, init_params
     g = torch.Generator(device=device).manual_seed(SEED + 30)
-    return _qk_scaled(init_params(cfg, g, device, mi=mi or NO_MESH))
+    params = _qk_scaled(init_params(cfg, g, device, mi=mi or NO_MESH))
+    for blk in params["blocks"]:
+        for layer in blk.values():
+            if "xattn" in layer:
+                layer["xattn"]["gate"].fill_(CROSS_GATE)
+    return params
 
 
 def _mt_counted(sh, mi) -> bool:
@@ -3795,18 +3960,29 @@ def _mt_equal_to_file(ck_dir: str, step: int, state, shards) -> bool:
 
 
 def _mt_replicas_equal(tree, shards, mi) -> bool:
-    """Every block held by more than one rank (the axes of size > 1 a leaf
-    is not split on) equal bit for bit on each of them."""
-    from repro_torch.models.dist import all_gather
+    """Whether every block held by more than one rank (the axes of size >
+    1 a leaf is not split on) equals, bit for bit, the copy of the axis's
+    first rank, which broadcasts it 2^24 entries at a time (a whole leaf
+    gathered over four ranks would not fit beside their state:
+    seamless's 1 GB fp32 table on (1, 4)). Every rank returns the same
+    answer, over the whole mesh (its callers stop at the first False)."""
+    import torch.distributed as dist
+    from repro_torch.models.dist import all_reduce, axis_group
     from repro_torch.tree import leaves
+    flat = leaves(tree)
     ok = True
-    for t, sh in zip(leaves(tree), leaves(shards)):
+    for t, sh in zip(flat, leaves(shards)):
         for a in mi.axis_names:
             if a in sh.split or mi.size(a) == 1:
                 continue
-            parts = all_gather(t.reshape(1, -1), 0, mi, a)
-            ok &= all(torch.equal(p, parts[0]) for p in parts)
-    return bool(ok)
+            group = axis_group(mi, a)
+            first = dist.get_global_rank(group, 0)
+            for part in t.reshape(-1).split(2 ** 24):
+                theirs = part.clone()
+                dist.broadcast(theirs, first, group=group)
+                ok &= torch.equal(theirs, part)
+    differ = torch.tensor(float(not ok), device=flat[0].device)
+    return all_reduce(differ, mi, mi.axis_names, op="max").item() == 0
 
 
 MT_COLLECTIVE_MB = (1, 16, 64)
@@ -3960,19 +4136,33 @@ def _mt_flash(cfg, mesh=MT_MESH, phase="phase8 mesh train flash",
               dtype=torch.bfloat16) -> dict:
     """(d) The flash kernel at the local shape of a rank of ``mesh`` in a
     step of batch (B, S): its rows (B / data) over its heads (q and KV
-    heads / model), causal, with lse: out and lse against the plain
-    version, times (with and without lse, plain, SDPA with K/V repeated)
-    and the bound."""
+    heads / model), causal, with lse (``_flash_row``)."""
+    d, m = mesh
+    hq = cfg.n_heads // m
+    return _flash_row(phase, dict(arch=cfg.name, mesh=list(mesh)), dtype,
+                      B // d, S, S, hq, _rank_kv_heads(cfg, m), cfg.d_head,
+                      True)
+
+
+def _rank_kv_heads(cfg, m: int) -> int:
+    """A model rank's KV heads: n_kv_heads / m where they split, else each
+    of its q heads' own (``blocks._tp_kv_heads``)."""
+    hq = cfg.n_heads // m
+    return (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+            else -(-hq // (cfg.n_heads // cfg.n_kv_heads)))
+
+
+def _flash_row(phase: str, head: dict, dtype, B: int, Sq: int, Skv: int,
+               hq: int, hkv: int, D: int, causal: bool) -> dict:
+    """The flash kernel at one shape a step gives it, with lse: out and lse
+    against the plain version, times (with and without lse, plain, SDPA
+    with K/V repeated) and the bound; emitted as a ``phase`` row after
+    ``head``'s fields."""
     from repro_torch.kernels import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    d, m = mesh
-    B, hq = B // d, cfg.n_heads // m
-    # KV heads too few to split: each q head's own (blocks._tp_kv_heads)
-    hkv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
-           else -(-hq // (cfg.n_heads // cfg.n_kv_heads)))
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
-    q, k, v = _flash_inputs(g, dtype, B, S, S, hq, hkv, cfg.d_head)
-    kw = dict(causal=True, window=None, softcap=None, q_offset=0)
+    q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, hq, hkv, D)
+    kw = dict(causal=causal, window=None, softcap=None, q_offset=0)
     check = _flash_check(q, k, v, kw)
     out, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
     _, ref_lse = flash_attention_ref(q, k, v, **kw, return_lse=True)
@@ -3985,11 +4175,11 @@ def _mt_flash(cfg, mesh=MT_MESH, phase="phase8 mesh train flash",
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
-    fl = _flash_flops(B, S, S, hq, cfg.d_head, True, None, 0)
+    fl = _flash_flops(B, Sq, Skv, hq, D, causal, None, 0)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bound, by = _bound(nbytes + lse.numel() * 4, fl, q.dtype)
-    row = dict(arch=cfg.name, mesh=list(mesh), dtype=str(dtype),
-               shape=[B, S, hq, hkv, cfg.d_head], **check,
+    row = dict(**head, dtype=str(dtype), causal=causal,
+               shape=[B, Sq, hq, hkv, D], skv=Skv, **check,
                lse_err=lse_err, lse_tol=LSE_TOL,
                ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
                ms_lse=cuda_ms(lambda: flash_attention_fwd(
@@ -3998,7 +4188,7 @@ def _mt_flash(cfg, mesh=MT_MESH, phase="phase8 mesh train flash",
                                 warmup=1, iters=3),
                library_ms=cuda_ms(lambda: torch.nn.functional
                                   .scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True)),
+                                      qt, kt, vt, is_causal=causal)),
                bound_ms=bound, bound_by=by)
     emit(phase, **row)
     return row
@@ -4106,8 +4296,10 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
 # ------------------------------------------------------------------ phase 9
 
 MZ_ARCH = "olmoe-1b-7b"
-MZ_LAYERS = 2           # full width, depth cut as phase 8's: gloo on one card
-                        # moves every gather through the host
+MZ_LAYERS = 1           # full width, depth cut (2 layers until phase 11
+                        # came; the steps are each layer's 805 MB of
+                        # experts gathered through the host, over gloo on
+                        # one card)
 MZ_WHOLE = (4, 1)       # experts whole: the yardstick. Every mesh of four
                         # routes in G = gcd(T, 4) = 4 token groups, no mesh
                         # in 1, so the one-device step is not one
@@ -4117,6 +4309,11 @@ MZ_VARIANT = (1, 4)     # the planted fault and the sound variant
 MZ_SMOKE_ARCH = "kimi-k2-1t-a32b"   # a dense first layer, a shared expert
 MZ_SMOKE_B, MZ_SMOKE_S = 4, 64
 MZ_RANKS_S = 900
+# one step a mesh, where phases 8 and 11 take MT_STEPS (3): with phase 11
+# the whole script took 1,020-1,052 s of its 1,200 on NVIDIA H100 80GB
+# HBM3, 700.00 W, and a slower host ran its gloo steps up to 1.8 times
+# slower (PERF.md §5); phases 9 and 10 spend most of theirs in steps
+MZ_STEPS = 1
 # The routers' master against the (4, 1) steps' (0.02% of the weights: the
 # sum over every leaf cannot see them). A router entry's first AdamW steps
 # follow its gradient's sign, so two runs whose router gradients share no
@@ -4222,7 +4419,7 @@ def _mz_shards(cfg, mi) -> tuple:
 
 
 def _mesh_run(cfg, tc, batches, mi, sh, device) -> tuple:
-    """MT_STEPS steps on ``mi`` from the phase's weights (the rank's
+    """A step a batch on ``mi`` from the phase's weights (the rank's
     blocks): (params, opt, the initial params, readings: each step's loss,
     norm and ms, peak GiB, flash launches from 0, whether every leaf has
     its local shape)."""
@@ -4267,14 +4464,15 @@ def _mz_run(cfg, tc, batches, mi, sh, device) -> tuple:
 
 def _mesh_held(mi, stacked, params, opt, start, ref_dir,
                parts=None) -> dict:
-    """This rank's params and master after MT_STEPS against the yardstick's
-    (its blocks of ``ref_dir``'s files), as ``_mt_diff``; and each of
+    """This rank's params and master after its steps against the
+    yardstick's (its blocks of ``ref_dir``'s files, the last step saved
+    there), as ``_mt_diff``; and each of
     ``parts`` ({name: a function of a tree to a list of its leaves}) of the
     master alone."""
-    from repro_torch.checkpoint.ckpt import restore
+    from repro_torch.checkpoint.ckpt import latest_step, restore
     from repro_torch.models.params import stack_blocks
     now = _mt_ref_state(params, opt)
-    got = restore(ref_dir, MT_STEPS, now,
+    got = restore(ref_dir, latest_step(ref_dir), now,
                   shardings={"params": stacked, "master": stacked})
     init = stack_blocks(start)
     out = {k: _mt_diff(now[k], got[k], init, stacked, mi)
@@ -4335,14 +4533,14 @@ def _mz_moe_ms(cfg, meshes: dict, device, B: int, S: int) -> dict:
 
 
 def _smoke_held(cfg, tc, mesh, device, B: int, S: int, whole_shape,
-                shapes) -> dict:
-    """A smoke config (fp32) MT_STEPS steps on ``whole_shape`` and on each
+                shapes, steps: int = MT_STEPS) -> dict:
+    """A smoke config (fp32) ``steps`` steps on ``whole_shape`` and on each
     of ``shapes``, each state gathered whole; each of ``shapes`` against
     ``whole_shape`` with phase 8's readings and limits, its replicas and
     flash launches, and the yardstick's replicas, by str(shape)."""
     from repro_torch.models.dist import gather_whole
     from repro_torch.tree import leaves
-    batches = _mt_batches(cfg, device, B, S)[:MT_STEPS]
+    batches = _mt_batches(cfg, device, B, S)[:steps]
     runs = {}
     for shape in (whole_shape,) + tuple(shapes):
         mi = mesh(shape)
@@ -4369,16 +4567,17 @@ def _smoke_held(cfg, tc, mesh, device, B: int, S: int, whole_shape,
 
 def _mz_smoke(tc, mesh, device) -> dict:
     """kimi-k2 at smoke size (fp32: a dense first layer, a shared expert):
-    MT_STEPS steps on (2, 2) against (4, 1), each state gathered whole;
+    MZ_STEPS steps on (2, 2) against (4, 1), each state gathered whole;
     phase 8's readings and limits, and the replicas."""
     return _smoke_held(_mz_cfg(smoke=True), tc, mesh, device, MZ_SMOKE_B,
-                       MZ_SMOKE_S, MZ_WHOLE, (MZ_SAVE,))[str(MZ_SAVE)]
+                       MZ_SMOKE_S, MZ_WHOLE, (MZ_SAVE,),
+                       MZ_STEPS)[str(MZ_SAVE)]
 
 
 def _mz_rank(rank: int, port: int, backend: str, tmp: str,
              device_type: str = "cuda", B: int = TRAIN_B, S: int = TRAIN_S,
              cfg=None) -> None:
-    """One rank of phase 9. (b) MT_STEPS steps on (4, 1), experts whole,
+    """One rank of phase 9. (b) MZ_STEPS steps on (4, 1), experts whole,
     its params and master saved as the yardstick; the same steps on (2, 2)
     and (1, 4), experts split, held against it, with each rank's routing
     of layer 0, its dropped pairs, flash launches, peak GiB and the
@@ -4399,7 +4598,7 @@ def _mz_rank(rank: int, port: int, backend: str, tmp: str,
                      device=device, backend=backend)
     cfg = cfg or _mz_cfg()
     tc = _mt_tc()
-    batches = _mt_batches(cfg, device, B, S)[:MT_STEPS]
+    batches = _mt_batches(cfg, device, B, S)[:MZ_STEPS]
     res = dict(rank=rank, device=str(device), backend=dist.get_backend(),
                runs={}, coords={}, batch=(B, S))
     meshes = {}
@@ -4423,7 +4622,7 @@ def _mz_rank(rank: int, port: int, backend: str, tmp: str,
         params, opt, _, ref = _mz_run(cfg, tc, batches, mi, sh, device)
     plan = _mz_whole_routes(log, mi)
     del log
-    save(ref_dir, MT_STEPS, _mt_ref_state(params, opt),
+    save(ref_dir, MZ_STEPS, _mt_ref_state(params, opt),
          shardings={"params": stacked, "master": stacked}, mi=mi)
     res["runs"][str(MZ_WHOLE)] = ref
     del params, opt
@@ -4440,15 +4639,15 @@ def _mz_rank(rank: int, port: int, backend: str, tmp: str,
         state = _mt_ref_state(params, opt)
         if shape == MZ_SAVE:
             t0 = time.perf_counter()
-            save(ck, MT_STEPS, state, shardings=both(stacked), mi=mi)
+            save(ck, MZ_STEPS, state, shardings=both(stacked), mi=mi)
             run["save_s"] = time.perf_counter() - t0
-            run["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state,
+            run["saved_equal"] = _mt_equal_to_file(ck, MZ_STEPS, state,
                                                    both(stacked))
         if shape == MZ_RESTORE:
             t0 = time.perf_counter()
-            got = restore(ck, MT_STEPS, state, shardings=both(stacked))
+            got = restore(ck, MZ_STEPS, state, shardings=both(stacked))
             run["restore_s"] = time.perf_counter() - t0
-            run["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, got,
+            run["restored_equal"] = _mt_equal_to_file(ck, MZ_STEPS, got,
                                                       both(stacked))
             del got
         res["runs"][str(shape)] = run
@@ -4499,8 +4698,8 @@ def phase_mesh_moe(device_type: str = "cuda") -> dict:
     128), with lse, against the plain version; the same at a (1, 4) and a
     (4, 1) rank's shape, and at kimi-k2's smoke shapes (fp32, D 16) on
     (4, 1) and (2, 2): every shape the ranks' steps give it. Then the
-    ranks (_mz_rank): (b) three steps on (2, 2) and (1, 4) against three
-    on (4, 1), all in G = 4 token groups (loss 2e-3, gradient norm 2e-2,
+    ranks (_mz_rank): (b) one step on (2, 2) and (1, 4) against one on
+    (4, 1), all in G = 4 token groups (loss 2e-3, gradient norm 2e-2,
     params and master 0.1 of the steps' own change, the routers' master
     0.5), which the planted fault must miss (its routers unequal across
     ranks too) and the sound variant meet; the (token, choice) pairs of
@@ -4593,7 +4792,7 @@ def _mz_check(ranks, cfg, head: dict) -> int:
                    save_s=save["save_s"], restore_s=rest["restore_s"])
     smoke = r0["smoke"]
     row = dict(**head, arch=cfg.name, layers=cfg.n_layers,
-               batch=list(r0["batch"]), steps=MT_STEPS,
+               batch=list(r0["batch"]), steps=MZ_STEPS,
                devices=[r["device"] for r in ranks],
                limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
                            state_rel=MT_STATE_REL, router_rel=MZ_ROUTER_REL,
@@ -4623,7 +4822,7 @@ def _mz_check(ranks, cfg, head: dict) -> int:
         <= MZ_REPLAY_REL, replayed
     for key, m in meshes.items():
         n = m["flash_launches_ranks"]
-        assert all(x == 2 * cfg.n_layers * MT_STEPS for x in n), (key, n)
+        assert all(x == 2 * cfg.n_layers * MZ_STEPS for x in n), (key, n)
         if head["cards"]:
             assert m["flash_wgmma_ranks"] == n, (key, m)
     assert smoke["flash_launches"] > 0, smoke
@@ -4664,6 +4863,7 @@ MR_SMOKE_WHOLE = (4, 1)  # the smoke yardstick: experts and widths whole,
 MR_SMOKE_MESHES = ((2, 2), (1, 4))
 MR_SMOKE_LOSS_REL = 1e-5    # fp32: each step's loss against (4, 1)
 MR_RANKS_S = 900
+MR_STEPS = 1            # as phase 9's MZ_STEPS
 # the mixers' leaves, whose master is read alone beside the whole state's
 # (the embedding and head are most of the weights and take most of the
 # steps' change, so the sum over every leaf hardly sees a mixer's fault)
@@ -4732,7 +4932,7 @@ def _in_proj_fault():
 
 def _mr_one_device(cfg, tc, batches, device, ref_dir) -> dict:
     """The one-device steps on the phase's weights and batches: each
-    step's loss, norm and ms, the peak GiB; the state after MT_STEPS
+    step's loss, norm and ms, the peak GiB; the state after the last
     written to ``ref_dir`` (params and master, the reference's layout) for
     the ranks to read their blocks of."""
     from repro_torch.checkpoint.ckpt import save
@@ -4747,14 +4947,14 @@ def _mr_one_device(cfg, tc, batches, device, ref_dir) -> dict:
                                  batches)
     if cuda:
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    save(ref_dir, MT_STEPS, _mt_ref_state(params, opt))
+    save(ref_dir, len(batches), _mt_ref_state(params, opt))
     return out
 
 
 def _mr_rank(rank: int, port: int, backend: str, tmp: str,
              device_type: str = "cuda", cfgs=None, sizes=None) -> None:
     """One rank of phase 10. rwkv6-3b on MR_MESHES and jamba's full-width
-    cut on MR_JAMBA_MESHES (the (4, 1) witness first), MT_STEPS steps
+    cut on MR_JAMBA_MESHES (the (4, 1) witness first), MR_STEPS steps
     each, their state against the one-device steps' (``tmp``/rwkv,
     ``tmp``/jamba), the replicas, ms a step, peak GiB; rwkv6's (2, 2) state saved and restored on (1, 4), bit
     for bit against the file; the planted fault on jamba's (1, 4); jamba
@@ -4789,7 +4989,7 @@ def _mr_rank(rank: int, port: int, backend: str, tmp: str,
     def run(which, shape, variant=contextlib.nullcontext):
         cfg, mi = cfgs[which], mesh(shape)
         sh, stacked = _mz_shards(cfg, mi)
-        batches = _mt_batches(cfg, device, *sizes[which])[:MT_STEPS]
+        batches = _mt_batches(cfg, device, *sizes[which])[:MR_STEPS]
         with variant():
             params, opt, start, out = _mesh_run(cfg, tc, batches, mi, sh,
                                                 device)
@@ -4811,15 +5011,15 @@ def _mr_rank(rank: int, port: int, backend: str, tmp: str,
         state = _mt_ref_state(params, opt)
         if shape == MR_SAVE:
             t0 = time.perf_counter()
-            save(ck, MT_STEPS, state, shardings=both(stacked), mi=mesh(shape))
+            save(ck, MR_STEPS, state, shardings=both(stacked), mi=mesh(shape))
             out["save_s"] = time.perf_counter() - t0
-            out["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state,
+            out["saved_equal"] = _mt_equal_to_file(ck, MR_STEPS, state,
                                                    both(stacked))
         if shape == MR_RESTORE:
             t0 = time.perf_counter()
-            got = restore(ck, MT_STEPS, state, shardings=both(stacked))
+            got = restore(ck, MR_STEPS, state, shardings=both(stacked))
             out["restore_s"] = time.perf_counter() - t0
-            out["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, got,
+            out["restored_equal"] = _mt_equal_to_file(ck, MR_STEPS, got,
                                                       both(stacked))
             del got
         res["rwkv"][str(shape)] = out
@@ -4832,7 +5032,7 @@ def _mr_rank(rank: int, port: int, backend: str, tmp: str,
     release()
     res["smoke"] = _smoke_held(cfgs["smoke"], tc, mesh, device,
                                *sizes["smoke"], MR_SMOKE_WHOLE,
-                               MR_SMOKE_MESHES)
+                               MR_SMOKE_MESHES, MR_STEPS)
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -4847,7 +5047,7 @@ def phase_mesh_recurrent(device_type: str = "cuda", cfgs=None,
     version with lse; the one-device steps of rwkv6-3b (full width, 2
     layers, bf16, B 4 x 2048) and of jamba's full-width mamba layer (B 4 x
     128) on the phase's weights and batches. Then the ranks
-    (``_mr_rank``): three steps of rwkv6-3b on (2, 2), (1, 4) and (4, 1),
+    (``_mr_rank``): one step of rwkv6-3b on (2, 2), (1, 4) and (4, 1),
     and of jamba's layer on (4, 1), (2, 2) and (1, 4), each held against
     the one-device steps (loss 2e-3, gradient norm 2e-2, params and master
     0.1 of the steps' own change, the mixers' master 0.1 too; jamba's
@@ -4874,7 +5074,7 @@ def phase_mesh_recurrent(device_type: str = "cuda", cfgs=None,
         one = {}
         for which in ("rwkv", "jamba"):
             batches = _mt_batches(cfgs[which], device_type,
-                                  *sizes[which])[:MT_STEPS]
+                                  *sizes[which])[:MR_STEPS]
             one[which] = _mr_one_device(cfgs[which], tc, batches,
                                         device_type,
                                         os.path.join(tmp, which))
@@ -4951,7 +5151,7 @@ def _mr_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
         rows[key] = dict(
             **head, arch=cfg.name, layers=cfg.n_layers,
             block_pattern=list(cfg.block_pattern), batch=list(sizes[key]),
-            steps=MT_STEPS, devices=[r["device"] for r in ranks],
+            steps=MR_STEPS, devices=[r["device"] for r in ranks],
             limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
                         state_rel=MT_STATE_REL),
             one_device=dict(one[key],
@@ -4997,8 +5197,495 @@ def _mr_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
         assert m["within"] and m["replicas_equal"], (shape, m)
         assert max(m["loss_rel"]) <= MR_SMOKE_LOSS_REL, (shape, m)
         if head["cards"]:       # the wrappers count launches on a card
-            assert m["flash_launches"] == 2 * n_attn * MT_STEPS, (shape, m)
+            assert m["flash_launches"] == 2 * n_attn * MR_STEPS, (shape, m)
     return smoke[str((2, 2))]["flash_launches"]
+
+
+# ------------------------------------------------------------------ phase 11
+
+MC_SEAMLESS = "seamless-m4t-medium"
+MC_LAYERS = 2           # 2 encoder and 2 decoder layers at full width, the
+                        # depth cut as phases 8-10 cut theirs
+MC_MESHES = ((2, 2), (1, 4), (4, 1))     # 8, 4 and 16 of 16 heads a rank
+MC_SAVE, MC_RESTORE = (2, 2), (1, 4)
+MC_FAULT = (1, 4)       # the planted fault's mesh
+# The encoder trains through the cross-attention alone, and bf16 summation
+# order moves its master by 0.118 of the steps' change on (4, 1), the mesh
+# without tensor parallelism (its steps differ from one device's by FSDP's
+# bf16 gradient sums alone), past MT_STATE_REL; the tensor-parallel meshes
+# read 1.9-2.0 times that and the planted fault 8 times (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §6). So the encoder is held within
+# MC_WITNESS_FACTOR times the (4, 1) witness's reading where that is
+# larger than MT_STATE_REL; the factor was set after that reading.
+MC_WITNESS = (4, 1)
+MC_WITNESS_FACTOR = 3
+MC_B, MC_S = 4, 512     # tokens a step, over _src_len (3072) frames
+MC_VISION = "llama-3.2-vision-90b"
+# vision's xattn_mlp layer at full width (64/8 heads, d_ff 28672, 4096
+# image tokens) held a rank at a time: its tensor-parallel form against the
+# whole layer on the rank's rows
+MC_LAYER_B, MC_LAYER_S = 4, 128
+MC_LAYER_MESHES = ((2, 2), (1, 4))
+MC_LAYER_REL = 2e-2     # bf16: a rel of the output and of every gradient
+MC_SMOKE_B, MC_SMOKE_S = 4, 64
+MC_SMOKE_WHOLE = (4, 1)  # vision at smoke size: every width whole
+MC_SMOKE_MESHES = ((2, 2), (1, 4))
+MC_SMOKE_LOSS_REL = 1e-5    # fp32: each step's loss against (4, 1)
+MC_SMOKE_STATE_REL = 1e-4   # fp32: params and master against (4, 1)
+MC_RANKS_S = 900
+
+
+def _mc_encoder(tree) -> list:
+    """The leaves of a stacked tree's encoder."""
+    from repro_torch.tree import leaves
+    return leaves(tree["encoder"])
+
+
+def _mc_cross(tree) -> list:
+    """The leaves of a stacked seamless tree's cross-attention and its
+    norm."""
+    from repro_torch.tree import leaves
+    return leaves(tree["blocks"]["0"]["xattn"]) + [tree["blocks"]["0"]["lnx"]]
+
+
+# seamless's leaves whose master is read alone beside the whole state's
+MC_PARTS = {"encoder": _mc_encoder, "cross": _mc_cross}
+
+
+def _mc_cfg(which: str):
+    """seamless-m4t-medium at full width on MC_LAYERS encoder and decoder
+    layers; llama-vision at full width (its xattn_mlp layer alone is
+    built); or llama-vision at smoke size (5 layers, fp32)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    if which == "seamless":
+        return dataclasses.replace(get_config(MC_SEAMLESS),
+                                   n_layers=MC_LAYERS, n_enc_layers=MC_LAYERS)
+    cfg = get_config(MC_VISION)
+    return reduce_for_smoke(cfg) if which == "smoke" else cfg
+
+
+MC_BATCH = {"seamless": (MC_B, MC_S), "vision": (MC_LAYER_B, MC_LAYER_S),
+            "smoke": (MC_SMOKE_B, MC_SMOKE_S)}
+
+
+@contextlib.contextmanager
+def _source_fault():
+    """The planted fault: the cross source (seamless's encoder output)
+    enters the tensor-parallel cross-attention without ``copy_to``, so
+    each model rank keeps the part of its gradient its own heads give and
+    the encoder trains on that part. The shapes line up, so nothing
+    raises."""
+    from repro_torch.models import blocks
+    from repro_torch.models.dist import copy_to
+
+    def partial(p, x, src, ctx):
+        return blocks._tp_kv_heads(p, ctx), copy_to(x, ctx.mi, "model"), src
+    with mock.patch.object(blocks, "_tp_cross_inputs", partial):
+        yield
+
+
+def _mc_layer(cfg, mi, device, B: int, S: int) -> dict:
+    """(b) on one rank: llama-vision's xattn_mlp layer at full width, bf16,
+    seeded (gate CROSS_GATE), over B x S tokens and ``_src_len`` random
+    image rows: the whole layer on the rank's rows (each leaf's gradient
+    summed over the data ranks and cut to the rank's block) against its
+    tensor-parallel form on the rank's blocks. rel (max |tp - whole| over
+    max |whole|) of the output and of the gradients of x, img_x and every
+    leaf; flash launches and ms of each form's forward and backward."""
+    import math
+    from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
+    from repro_torch.models.blocks import FwdCtx, apply_layer
+    from repro_torch.models.dist import NO_MESH, all_reduce
+    from repro_torch.models.model import _use_params, batch_sharding
+    from repro_torch.models.params import (_layer_specs, materialize,
+                                           shardings, torch_dtype)
+    from repro_torch.tree import flatten, tree_map, unflatten
+    specs = _layer_specs(cfg, "xattn_mlp",
+                         1.0 / math.sqrt(2.0 * cfg.n_layers))
+    sh = shardings(specs, mi)
+    g = torch.Generator(device=device).manual_seed(SEED + 50)
+    whole = materialize(specs, cfg, g, device)
+    whole["xattn"]["gate"].fill_(CROSS_GATE)
+    dt = torch_dtype(cfg.activation_dtype)
+    x, img, w = (torch.randn(shape, generator=g, device=device).to(dt)
+                 for shape in ((B, S, cfg.d_model),
+                               (B, _src_len(cfg), cfg.d_model),
+                               (B, S, cfg.d_model)))
+    rows = batch_sharding(x.shape, mi)
+    axes = tuple(a for a in rows.axes(0) if mi.size(a) > 1)
+    x, img, w = (rows.cut(t).contiguous() for t in (x, img, w))
+    names = [".".join(k) for k in _leaf_names(whole)]
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: 0)
+
+    def run(p, tp):
+        flat, tdef = flatten(p)
+        live = [t.detach().requires_grad_(True) for t in flat]
+        xs = [x.clone().requires_grad_(True), img.clone().requires_grad_(True)]
+        ctx = FwdCtx(cfg=cfg, mode="prefill", cross_x=xs[1],
+                     mi=mi if tp else NO_MESH, tp=tp,
+                     grad_axes=axes if tp else ())
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        pl = unflatten(tdef, live)
+        if tp:
+            pl = _use_params(pl, sh, ctx)
+        y, _ = apply_layer("xattn_mlp", pl, xs[0], ctx, None)
+        grads = torch.autograd.grad((y.float() * w.float()).sum(),
+                                    live + xs)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = len(live)
+        if not tp:
+            g_leaves = [all_reduce(t, mi, axes) for t in grads[:n]]
+            grads = flatten(tree_map(lambda t, s_: s_.cut(t).contiguous(),
+                                     unflatten(tdef, g_leaves), sh))[0] \
+                + list(grads[n:])
+        return [y.detach()] + list(grads), ms, flash_attention_fwd.launches
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ref, ms_whole, fl_whole = run(whole, False)
+    local = tree_map(lambda t, s_: s_.cut(t).contiguous(), whole, sh)
+    got, ms_tp, fl_tp = run(local, True)
+    rels = [_rel(a, b) for a, b in zip(got, ref)]
+    live = [float(b.float().abs().max()) > 0 for b in ref]
+    n = len(names)
+    out = dict(mesh=[mi.size("data"), mi.size("model")], rows=B // (
+        mi.size("data")), rel_y=rels[0],
+        rel_leaves=dict(zip(names, rels[1:n + 1])), rel_x=rels[n + 1],
+        rel_img=rels[n + 2], rel_max=max(rels), all_live=all(live),
+        ms_whole=ms_whole, ms_tp=ms_tp, flash_whole=fl_whole,
+        flash_tp=fl_tp, peak_gib=(torch.cuda.max_memory_allocated(device)
+                                  / 2 ** 30 if cuda else None))
+    out["within"] = bool(out["rel_max"] <= MC_LAYER_REL and out["all_live"])
+    del whole, local, ref, got
+    return out
+
+
+def _leaf_names(tree, pre=()):
+    """The key paths of a tree's leaves, in ``repro_torch.tree``'s order
+    (a dict's by sorted key)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                               pre + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, pre + (str(i),))]
+    return [pre]
+
+
+def _mc_rank(rank: int, port: int, backend: str, tmp: str,
+             device_type: str = "cuda", cfgs=None, sizes=None) -> None:
+    """One rank of phase 11: seamless-m4t-medium's cut on MC_MESHES,
+    MT_STEPS steps each, their state against the one-device steps'
+    (``tmp``/seamless), the encoder's and the cross leaves' master alone,
+    the replicas, ms a step, peak GiB, flash launches; the (2, 2) state
+    saved and restored on (1, 4), bit for bit against the file; the
+    planted fault on (1, 4); vision's xattn_mlp layer on MC_LAYER_MESHES
+    (``_mc_layer``); vision at smoke size on MC_SMOKE_MESHES against
+    MC_SMOKE_WHOLE. ``cfgs`` and ``sizes`` replace ``_mc_cfg`` and MC_BATCH
+    (a rehearsal at small size). Results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import MeshInfo
+    from repro_torch.models.dist import axis_rank
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", rank if backend == "nccl" else 0)
+              if cuda else torch.device("cpu"))
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    cfgs = cfgs or {k: _mc_cfg(k) for k in MC_BATCH}
+    sizes = sizes or MC_BATCH
+    tc = _mt_tc()
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend(),
+               coords={}, seamless={}, layer={})
+    meshes = {}
+
+    def mesh(shape):
+        if shape not in meshes:
+            meshes[shape] = MeshInfo(make_mesh(shape, ("data", "model"),
+                                               device=device_type))
+            res["coords"][str(shape)] = [axis_rank(meshes[shape], a)
+                                         for a in ("data", "model")]
+        return meshes[shape]
+
+    def run(shape, variant=contextlib.nullcontext):
+        cfg, mi = cfgs["seamless"], mesh(shape)
+        sh, stacked = _mz_shards(cfg, mi)
+        batches = _mt_batches(cfg, device, *sizes["seamless"])[:MT_STEPS]
+        t0 = time.perf_counter()
+        with variant():
+            params, opt, start, out = _mesh_run(cfg, tc, batches, mi, sh,
+                                                device)
+        out["run_s"] = time.perf_counter() - t0
+        out["held"] = _mesh_held(mi, stacked, params, opt, start,
+                                 os.path.join(tmp, "seamless"),
+                                 parts=MC_PARTS)
+        out["held_s"] = time.perf_counter() - t0 - out["run_s"]
+        if variant is contextlib.nullcontext:
+            t0 = time.perf_counter()
+            out["replicas_equal"] = all(
+                _mt_replicas_equal(t, sh, mi)
+                for t in (params, opt.master, opt.mu, opt.nu))
+            out["replicas_s"] = time.perf_counter() - t0
+        return params, opt, stacked, out
+
+    def release():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "ck")
+    both = lambda st: {"params": st, "master": st}
+    for shape in MC_MESHES:
+        params, opt, stacked, out = run(shape)
+        state = _mt_ref_state(params, opt)
+        if shape == MC_SAVE:
+            t0 = time.perf_counter()
+            save(ck, MT_STEPS, state, shardings=both(stacked), mi=mesh(shape))
+            out["save_s"] = time.perf_counter() - t0
+            out["saved_equal"] = _mt_equal_to_file(ck, MT_STEPS, state,
+                                                   both(stacked))
+        if shape == MC_RESTORE:
+            t0 = time.perf_counter()
+            got = restore(ck, MT_STEPS, state, shardings=both(stacked))
+            out["restore_s"] = time.perf_counter() - t0
+            out["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, got,
+                                                      both(stacked))
+            del got
+        res["seamless"][str(shape)] = out
+        del params, opt, state
+        release()
+    res["fault"] = run(MC_FAULT, _source_fault)[3]
+    release()
+    t0 = time.perf_counter()
+    for shape in MC_LAYER_MESHES:
+        res["layer"][str(shape)] = _mc_layer(cfgs["vision"], mesh(shape),
+                                             device, *sizes["vision"])
+        release()
+    res["layer_s"] = time.perf_counter() - t0
+    res["smoke"] = _smoke_held(cfgs["smoke"], tc, mesh, device,
+                               *sizes["smoke"], MC_SMOKE_WHOLE,
+                               MC_SMOKE_MESHES)
+    res["smoke_s"] = time.perf_counter() - t0 - res["layer_s"]
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mc_flash(cfgs: dict, sizes: dict) -> list:
+    """Flash at every rank shape phase 11 gives it, against the plain
+    version with lse: seamless's causal self-attention, its non-causal
+    encoder and its non-causal cross-attention over ``_src_len`` frames on
+    each of MC_MESHES; vision's cross-attention over its image tokens in
+    the layer case, tensor-parallel and whole on each of MC_LAYER_MESHES
+    (bf16); vision's smoke self- and cross-attention on MC_SMOKE_WHOLE and
+    MC_SMOKE_MESHES (fp32 D 16)."""
+    phase = "phase11 mesh cross flash"
+    rows = []
+    cfg = cfgs["seamless"]
+    B, S = sizes["seamless"]
+    src = _src_len(cfg)
+    for d, m in MC_MESHES:
+        hq, hkv = cfg.n_heads // m, _rank_kv_heads(cfg, m)
+        for what, sq, skv, causal in (("self", S, S, True),
+                                      ("encoder", src, src, False),
+                                      ("cross", S, src, False)):
+            rows.append(_flash_row(phase, dict(arch=cfg.name, mesh=[d, m],
+                                               what=what), torch.bfloat16,
+                                   B // d, sq, skv, hq, hkv, cfg.d_head,
+                                   causal))
+    cfg = cfgs["vision"]
+    B, S = sizes["vision"]
+    for d, m in MC_LAYER_MESHES:
+        for what, mm in (("cross tp", m), ("cross whole", 1)):
+            rows.append(_flash_row(phase, dict(arch=cfg.name, mesh=[d, m],
+                                               what=what), torch.bfloat16,
+                                   B // d, S, _src_len(cfg),
+                                   cfg.n_heads // mm, _rank_kv_heads(cfg, mm),
+                                   cfg.d_head, False))
+    cfg = cfgs["smoke"]
+    B, S = sizes["smoke"]
+    for d, m in (MC_SMOKE_WHOLE,) + MC_SMOKE_MESHES:
+        hq, hkv = cfg.n_heads // m, _rank_kv_heads(cfg, m)
+        for what, skv, causal in (("smoke self", S, True),
+                                  ("smoke cross", _src_len(cfg), False)):
+            rows.append(_flash_row(phase, dict(arch=cfg.name, mesh=[d, m],
+                                               what=what), torch.float32,
+                                   B // d, S, skv, hq, hkv, cfg.d_head,
+                                   causal))
+    return rows
+
+
+def phase_mesh_cross(device_type: str = "cuda", cfgs=None,
+                     sizes=None) -> dict:
+    """11. Cross-attention training on a mesh: four ranks as in 8, each
+    rank its blocks of every parameter and optimizer buffer (the self-
+    and cross-attention's heads, the encoder's, and the MLPs' d_ff over
+    model, d over data; the gates whole). Here: flash at every rank shape
+    against the plain version with lse (``_mc_flash``); the one-device
+    steps of seamless-m4t-medium (full width, 2 encoder and 2 decoder
+    layers, bf16, B 4 x 512 over 3072 random frames, every gate
+    CROSS_GATE). Then the ranks (``_mc_rank``): three steps on (2, 2), (1,
+    4) and (4, 1), each held against the one-device steps (loss 2e-3,
+    gradient norm 2e-2, params and master 0.1 of the steps' own change,
+    the encoder's and the cross leaves' master 0.1 too); (1, 4) again with
+    the encoder output entering the cross-attention without ``copy_to``,
+    which must miss on the encoder's leaves; the replicated leaves bit for
+    bit; the (2, 2) save restored on (1, 4) bit for bit; llama-vision's
+    full-width xattn_mlp layer, tensor-parallel on (2, 2) and (1, 4)
+    against the whole layer on each rank's rows (output and every
+    gradient within MC_LAYER_REL); vision at smoke size on (2, 2) and (1,
+    4) against (4, 1) (loss 1e-5, state MC_SMOKE_STATE_REL); readings: ms
+    a step, peak GiB a rank, flash launches. A rank's failure fails the
+    phase."""
+    import shutil
+    import torch.multiprocessing as mp
+    card = _card_line()
+    cfgs = cfgs or {k: _mc_cfg(k) for k in MC_BATCH}
+    sizes = sizes or MC_BATCH
+    cuda = device_type == "cuda"
+    flash = _mc_flash(cfgs, sizes) if cuda else []
+    tc = _mt_tc()
+    tmp = tempfile.mkdtemp(prefix=".mesh_cross_", dir=HERE)
+    try:
+        batches = _mt_batches(cfgs["seamless"], device_type,
+                              *sizes["seamless"])[:MT_STEPS]
+        one = _mr_one_device(cfgs["seamless"], tc, batches, device_type,
+                             os.path.join(tmp, "seamless"))
+        del batches
+        if cuda:
+            torch.cuda.empty_cache()       # the ranks share this card
+        n_cards = torch.cuda.device_count() if cuda else 0
+        backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+        parent_gib = (torch.cuda.memory_reserved() / 2 ** 30 if cuda
+                      else None)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_mc_rank, args=(_free_port(), backend, tmp,
+                                       device_type, cfgs, sizes),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MC_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the ranks ran past {MC_RANKS_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _mc_check(ranks, one, cfgs, sizes, dict(
+        card=card, backend=backend, cards=n_cards, ranks_s=ranks_s,
+        parent_reserved_gib=parent_gib))
+    return dict(flash=flash, launches=launches)
+
+
+def _mc_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
+    """Phase 11's rows from the ranks' results, and its gates; returns the
+    flash launches of a (2, 2) rank in seamless's steps."""
+    r0 = ranks[0]
+    cfg = cfgs["seamless"]
+    witness = r0["seamless"][str(MC_WITNESS)]["held"]["encoder"]["rel"]
+    enc_limit = max(MT_STATE_REL, MC_WITNESS_FACTOR * witness)
+
+    def hold(steps, held, shape: str):
+        """_mr_hold with the cross leaves' master as its mixer, and the
+        encoder's within ``enc_limit`` (the witness's: not held)."""
+        row = _mr_hold(steps, one, dict(held, mixer=held["cross"]))
+        row["cross"] = row.pop("mixer")
+        row["encoder"] = held["encoder"]
+        is_witness = shape == str(MC_WITNESS)
+        row["encoder_limit"] = None if is_witness else enc_limit
+        row["encoder_within"] = (is_witness
+                                 or held["encoder"]["rel"] <= enc_limit)
+        row["within"] = bool(row["within"] and row["encoder_within"])
+        return row
+
+    meshes = {}
+    for shape, x0 in r0["seamless"].items():
+        runs = [r["seamless"][shape] for r in ranks]
+        meshes[shape] = dict(
+            held=hold(x0["steps"], x0["held"], shape),
+            held_equal_across_ranks=all(
+                x["held"] == x0["held"] for x in runs),
+            loss=x0["steps"]["loss"], grad_norm=x0["steps"]["grad_norm"],
+            losses_equal_across_ranks=all(
+                x["steps"]["loss"] == x0["steps"]["loss"] for x in runs),
+            ms_ranks=[x["steps"]["ms"] for x in runs],
+            ms_median=statistics.median(x0["steps"]["ms"]),
+            peak_gib_ranks=[x.get("peak_gib") for x in runs],
+            run_s=x0["run_s"], held_s=x0["held_s"],
+            replicas_s=x0["replicas_s"],
+            local_shapes_ok=all(x["local_shapes_ok"] for x in runs),
+            replicas_equal=all(x["replicas_equal"] for x in runs),
+            flash_launches_ranks=[x["flash_launches"] for x in runs])
+    fault = r0["fault"]
+    fault_row = dict(mesh=list(MC_FAULT), loss=fault["steps"]["loss"],
+                     grad_norm=fault["steps"]["grad_norm"],
+                     held=hold(fault["steps"], fault["held"],
+                               str(MC_FAULT)))
+    save, rest = (r0["seamless"][str(s)] for s in (MC_SAVE, MC_RESTORE))
+    elastic = dict(saved=list(MC_SAVE), restored=list(MC_RESTORE),
+                   saved_equal=[r["seamless"][str(MC_SAVE)]["saved_equal"]
+                                for r in ranks],
+                   restored_equal=[r["seamless"][str(MC_RESTORE)]
+                                   ["restored_equal"] for r in ranks],
+                   save_s=save["save_s"], restore_s=rest["restore_s"])
+    layer = {shape: [r["layer"][shape] for r in ranks]
+             for shape in r0["layer"]}
+    smoke = r0["smoke"]
+    emit("phase11 mesh cross seamless", **head, arch=cfg.name,
+         layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+         src_len=_src_len(cfg), batch=list(sizes["seamless"]),
+         steps=MT_STEPS, devices=[r["device"] for r in ranks],
+         cross_gate=CROSS_GATE,
+         limits=dict(loss_rel=MT_LOSS_REL, gnorm_rel=MT_GNORM_REL,
+                     state_rel=MT_STATE_REL),
+         one_device=dict(one, ms_median=statistics.median(one["ms"])),
+         witness=dict(mesh=list(MC_WITNESS), encoder_rel=witness,
+                      factor=MC_WITNESS_FACTOR, encoder_limit=enc_limit),
+         meshes=meshes, fault=fault_row)
+    emit("phase11 mesh cross elastic", **elastic)
+    emit("phase11 mesh cross vision layer", arch=cfgs["vision"].name,
+         batch=list(sizes["vision"]), src_len=_src_len(cfgs["vision"]),
+         rel_limit=MC_LAYER_REL, seconds=r0["layer_s"], meshes=layer)
+    emit("phase11 mesh cross smoke", arch=cfgs["smoke"].name,
+         layers=cfgs["smoke"].n_layers, batch=list(sizes["smoke"]),
+         whole=list(MC_SMOKE_WHOLE), loss_rel_limit=MC_SMOKE_LOSS_REL,
+         state_rel_limit=MC_SMOKE_STATE_REL, seconds=r0["smoke_s"],
+         smoke_equal_across_ranks=all(r["smoke"] == smoke for r in ranks),
+         meshes=smoke)
+    for shape, m in meshes.items():
+        assert m["local_shapes_ok"] and m["losses_equal_across_ranks"], \
+            (shape, m)
+        assert m["held"]["within"], (shape, m["held"])
+        assert m["replicas_equal"], shape
+    assert not fault_row["held"]["encoder_within"], fault_row
+    assert all(elastic["saved_equal"]) and all(elastic["restored_equal"]), \
+        elastic
+    for shape, rows in layer.items():
+        assert all(x["within"] for x in rows), (shape, rows)
+    for shape, m in smoke.items():
+        assert m["within"] and m["replicas_equal"], (shape, m)
+        assert max(m["loss_rel"]) <= MC_SMOKE_LOSS_REL, (shape, m)
+        assert max(m["params"]["rel"], m["master"]["rel"]) <= \
+            MC_SMOKE_STATE_REL, (shape, m)
+    if head["cards"]:           # the wrappers count launches on a card
+        # a step: each encoder layer's attention once (not rematerialised),
+        # each decoder layer's self- and cross-attention in the forward
+        # and in the remat recompute
+        per_step = cfg.n_enc_layers + 4 * cfg.layer_kinds().count("cross_mlp")
+        for shape, m in meshes.items():
+            assert all(n == per_step * MT_STEPS
+                       for n in m["flash_launches_ranks"]), (shape, m)
+        n_smoke = len(cfgs["smoke"].layer_kinds())
+        for shape, m in smoke.items():
+            assert m["flash_launches"] == 2 * n_smoke * MT_STEPS, (shape, m)
+    return meshes[str((2, 2))]["flash_launches_ranks"][0]
 
 
 def _precision_fields(row: dict) -> dict:
@@ -5045,6 +5732,10 @@ def main(argv=None) -> int:
                     help="build the flash kernel and run phase 10 "
                          "(recurrent training on a mesh of four ranks) "
                          "only")
+    ap.add_argument("--mesh-cross-only", action="store_true",
+                    help="build the flash kernel and run phase 11 "
+                         "(cross-attention training on a mesh of four "
+                         "ranks) only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -5081,6 +5772,10 @@ def main(argv=None) -> int:
         phase_card(["flash_attention"])
         phase_mesh_recurrent()
         return 0
+    if args.mesh_cross_only:
+        phase_card(["flash_attention"])
+        phase_mesh_cross()
+        return 0
     phase_s = {}            # each phase's wall seconds, the build's too
 
     def timed(name, fn, *a):
@@ -5112,6 +5807,7 @@ def main(argv=None) -> int:
     mesh_train = timed("8", phase_mesh_train)
     mesh_moe = timed("9", phase_mesh_moe)
     mesh_recurrent = timed("10", phase_mesh_recurrent)
+    mesh_cross = timed("11", phase_mesh_cross)
     emit("phase seconds", **phase_s)
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
@@ -5203,6 +5899,12 @@ def main(argv=None) -> int:
              "arch", "mesh", "dtype", "shape", "max_abs_err", "tol",
              "lse_err", "ms", "ms_lse", "plain_ms", "library_ms", "bound_ms",
              "bound_by")} for r in mesh_recurrent["flash"]],
+         "launches_mesh_cross_a_rank": mesh_cross["launches"],
+         "mesh_cross_shapes": [{k: r[k] for k in (
+             "arch", "mesh", "what", "dtype", "causal", "shape", "skv",
+             "max_abs_err", "tol", "lse_err", "ms", "ms_lse", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}
+             for r in mesh_cross["flash"]],
          "train_shape": {k: train["flash"][k] for k in (
              "shape", "max_abs_err", "lse_err", "ms", "ms_lse", "plain_ms",
              "library_ms", "bound_ms", "bound_by", "plain_bwd_ms")},

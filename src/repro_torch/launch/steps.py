@@ -64,8 +64,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     gradients go through ``ef_compress`` before the clip. The optimizer
     state is updated in place (see ``optim/adamw.py``).
 
-    On a mesh (the dense, MoE and recurrent decoders: the
-    cross-attention kinds raise ``NotImplementedError``) ``params`` and
+    On a mesh (a model axis that does not split the arch's widths raises
+    ``NotImplementedError``, ``mesh_train_refusal``) ``params`` and
     ``opt_state`` are this rank's blocks (``params.shardings``, ``init_opt_state`` of the blocks) and
     ``batch`` the global batch; the gradients are the rank's blocks of
     the global batch's, the global norm and ``ef_compress``'s per-leaf

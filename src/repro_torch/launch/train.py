@@ -12,9 +12,9 @@ Examples:
 
 Runs on a CUDA device unless ``--device cpu`` is given. Same flags and
 output lines as the reference's. ``--mesh d,m`` trains on a ("data",
-"model") mesh of d x m ranks, one process a rank (the dense, MoE and
-recurrent decoders; the cross-attention archs are refused): the
-launcher starts the ranks itself, or,
+"model") mesh of d x m ranks, one process a rank (every arch; a model
+axis that does not split its widths is refused with an argparse error
+naming them): the launcher starts the ranks itself, or,
 under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set),
 joins the group its environment names. Ranks talk over gloo with
 ``--device cpu``, over NCCL with one rank a card where there are d x m

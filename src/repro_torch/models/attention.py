@@ -58,11 +58,17 @@ def q_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
     return _proj(p["wq"], x)
 
 
-def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+def out_proj(p: dict, o: torch.Tensor, gated: bool = True) -> torch.Tensor:
     """(B, S, Hq, Dh) -> (B, S, d); a cross-attention's ``gate`` scales the
-    result by tanh(gate), taken in fp32 and cast to the output's dtype."""
+    result (:func:`gate`) unless ``gated`` is False."""
     h, k, d = p["wo"].shape
     y = o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    return gate(p, y) if gated else y
+
+
+def gate(p: dict, y: torch.Tensor) -> torch.Tensor:
+    """``y`` scaled by tanh(``p["gate"]``), taken in fp32 and cast to
+    ``y``'s dtype, where ``p`` has a gate; else ``y``."""
     if "gate" in p:
         y = torch.tanh(p["gate"].float()).to(y.dtype) * y
     return y

@@ -42,6 +42,15 @@ parallel, with its sum. K/V projections whose heads do not split (fewer
 KV heads than the axis) are whole on every rank: each takes the KV
 heads its own q heads read, and their gradient is summed over ``model``.
 Norm weights are whole and their gradients are whole on every rank.
+A cross-attention (``xattn_mlp``'s, ``cross_mlp``'s second) takes the
+same form over its source (``_tp_cross_inputs``): the source enters
+through ``copy_to`` too, since each rank projects it with its own KV
+heads (for seamless its gradient is the encoder output's, which would
+otherwise stay a part of the whole); the scalar ``gate``, whole on every
+rank, scales the output after ``wo``'s sum (``_tp_gated_out``), so its
+gradient is whole on every rank without a sum over ``model``. Seamless's
+encoder layers are dense layers in this form, their blocks gathered by
+``model._run_encoder``.
 
 The recurrent layers' tensor-parallel forms (``rwkv`` and the mamba
 kinds) live in their mixers, ``rwkv6.rwkv_time_mix``,
@@ -361,18 +370,47 @@ def _prefill_write_global(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
 def _cross_attention(p, x, ctx: FwdCtx, xkv: Optional[attn.CrossKV]):
     """Cross-attention, non-causal, no rope. Prefill: K/V projected from
     ``ctx.cross_x`` become the layer's new entry (where it has one).
-    Decode: the query alone, over the cached K/V (Sq = 1)."""
+    Decode: the query alone, over the cached K/V (Sq = 1). Under tensor
+    parallelism (training) the self-attention's form over this rank's
+    heads (``_tp_cross_inputs``), the gate applied after ``wo``'s sum
+    (``_tp_gated_out``)."""
     cfg = ctx.cfg
     if ctx.mode == "decode":
         q, k, v = attn.q_proj(p, x), xkv.k, xkv.v
     else:
-        q, k, v = attn.qkv_proj(p, x, kv_x=ctx.cross_x.to(x.dtype))
+        src = ctx.cross_x.to(x.dtype)
+        if ctx.tp:
+            p, x, src = _tp_cross_inputs(p, x, src, ctx)
+        q, k, v = attn.qkv_proj(p, x, kv_x=src)
     o = attn.flash_attention(q, k, v, causal=False,
                              q_chunk=cfg.flash_q_chunk,
                              kv_chunk=cfg.flash_kv_chunk)
     if ctx.mode != "decode" and xkv is not None:
         xkv = attn.CrossKV(k, v)
+    if ctx.tp:
+        return _tp_gated_out(p, o, ctx), xkv
     return attn.out_proj(p, o), xkv
+
+
+def _tp_cross_inputs(p, x, src, ctx: FwdCtx):
+    """The cross-attention's leaves and inputs under tensor parallelism:
+    the K/V projections as :func:`_tp_kv_heads` gives them, and the query's
+    input ``x`` and the source ``src`` through ``copy_to``: each rank
+    projects them with its own heads, so its gradient of each is a part
+    of the whole one (for seamless, the source's is the encoder output's
+    gradient)."""
+    return (_tp_kv_heads(p, ctx), copy_to(x, ctx.mi, "model"),
+            copy_to(src, ctx.mi, "model"))
+
+
+def _tp_gated_out(p, o, ctx: FwdCtx):
+    """A rank's heads through its rows of ``wo``, summed over ``model``,
+    then scaled by tanh(gate). The gate is whole on every rank and scales
+    the sum, so each rank's gate gradient is already the whole one (its
+    sum over the data ranks is ``_use_params``'s); before the sum it would
+    be a partial one."""
+    y = reduce_from(attn.out_proj(p, o, gated=False), ctx.mi, "model")
+    return attn.gate(p, y)
 
 
 def _apply_mlp(p, x, ctx: FwdCtx):

@@ -23,10 +23,10 @@ a slot, which the walkers below treat alike.
       -> (logits, cache)
   forward_train(cfg, params, batch, mi=NO_MESH) -> loss
 
-Training on a mesh (``mi``; the dense, MoE and recurrent decoders,
-``check_mesh_trainable``) each rank holds its blocks of the parameters
-(FSDP over ``data``, TP over ``model``, ``params.shardings``) and takes
-its rows of the global batch; see :func:`forward_train`.
+Training on a mesh (``mi``; every arch whose widths split over the model
+axis, ``check_mesh_trainable``) each rank holds its blocks of the
+parameters (FSDP over ``data``, TP over ``model``, ``params.shardings``)
+and takes its rows of the global batch; see :func:`forward_train`.
 
 Serving on a mesh, every rank runs the same forward on the same inputs.
 One sequence of at least 262144 tokens (``blocks._sp_mode``) takes the
@@ -41,6 +41,7 @@ encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -288,25 +289,35 @@ def _run_blocks(cfg: ModelConfig, params, x, ctx: FwdCtx,
     return x, (flat(cfg, new) if new is not None else None)
 
 
-def _run_encoder(cfg: ModelConfig, params, enc_x: torch.Tensor
-                 ) -> torch.Tensor:
+def _run_encoder(cfg: ModelConfig, params, enc_x: torch.Tensor,
+                 ctx: Optional[FwdCtx] = None, sh=None) -> torch.Tensor:
     """The encoder over ``enc_x`` (B, src_len, d): its blocks over the full
     sequence, non-causal and without a cache (the reference runs them in
-    its ``"train"`` mode), then its final norm."""
-    ctx = FwdCtx(cfg=cfg, mode="prefill", causal=False)
+    its ``"train"`` mode), then its final norm. In a train step on a mesh
+    (``ctx``, the step's; ``sh``, the encoder's Shardings) each block and
+    the final norm are gathered at use as the decoder's are
+    (``_use_params``), and the layers run their tensor-parallel forms;
+    not rematerialised, as the reference's encoder is not."""
+    ctx = (FwdCtx(cfg=cfg, mode="prefill", causal=False) if ctx is None
+           else dataclasses.replace(ctx, causal=False, cross_x=None))
     x = enc_x.to(torch_dtype(cfg.activation_dtype))
     enc = params["encoder"]
-    for blk in enc["blocks"]:
+    for b, blk in enumerate(enc["blocks"]):
+        blk = _use_params(blk, sh and sh["blocks"][b], ctx)
         for i, kind in enumerate(cfg.enc_block_pattern):
             x, _ = apply_layer(kind, blk[str(i)], x, ctx, None)
-    return rmsnorm(x, enc["final_ln"], cfg.norm_eps)
+    return rmsnorm(x, _use_params(enc["final_ln"], sh and sh["final_ln"],
+                                  ctx), cfg.norm_eps)
 
 
-def _cross_source(cfg: ModelConfig, params, batch) -> Optional[torch.Tensor]:
+def _cross_source(cfg: ModelConfig, params, batch, ctx: Optional[FwdCtx] = None,
+                  sh=None) -> Optional[torch.Tensor]:
     """What a prefill's cross-attention attends over: the encoder's output
-    over ``enc_x``, or ``img_x`` itself; None for a decoder alone."""
+    over ``enc_x`` (on a mesh, ``_run_encoder`` with the train step's
+    ``ctx`` and the encoder's Shardings ``sh``), or ``img_x`` itself; None
+    for a decoder alone."""
     if cfg.is_encdec:
-        return _run_encoder(cfg, params, batch["enc_x"])
+        return _run_encoder(cfg, params, batch["enc_x"], ctx, sh)
     if cfg.n_image_tokens:
         return batch["img_x"].to(torch_dtype(cfg.activation_dtype))
     return None
@@ -428,33 +439,30 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kw)
 
 
-MESH_TRAIN_KINDS = ("attn_mlp", "attn_mlp_local", "attn_moe", "attn", "rwkv",
-                    "mamba", "mamba_moe")
 DENSE_KINDS = ("attn_mlp", "attn_mlp_local")
 
 
 def mesh_train_refusal(cfg: ModelConfig, model: int) -> Optional[str]:
     """Why training ``cfg`` on a mesh whose model axis is ``model`` is not
-    ported, or None. A layer kind without a tensor-parallel form (the
-    cross-attention kinds) refuses; so does a width that does not split
-    over the model axis, where a layer would run whole on every rank and
-    its sum over ``model`` count it ``model`` times: the heads (attention
-    and rwkv's time mix); ``d_ff`` where a dense MLP exists (a dense, an
-    ``attn`` or a ``mamba`` layer, ``first_k_dense``) or rwkv's channel
-    mix; mamba's ``d_in = ssm.expand * d_model``; an MoE layer's experts,
-    and its shared expert's width ``moe.d_ff * n_shared_experts``."""
+    ported, or None. Every layer kind the port serves has its
+    tensor-parallel form; a width that does not split over the model axis
+    refuses, where a layer would run whole on every rank and its sum over
+    ``model`` count it ``model`` times: the heads (self- and
+    cross-attention, an encoder's too, and rwkv's time mix); ``d_ff``
+    where a dense MLP exists (a dense, an ``attn``, a ``mamba``, an
+    ``xattn_mlp`` or a ``cross_mlp`` layer, an encoder's layers,
+    ``first_k_dense``) or rwkv's channel mix; mamba's ``d_in = ssm.expand
+    * d_model``; an MoE layer's experts, and its shared expert's width
+    ``moe.d_ff * n_shared_experts``. KV heads too few to split are whole
+    on every rank (``blocks._tp_kv_heads``)."""
     kinds = set(cfg.layer_kinds())
-    other = sorted(kinds - set(MESH_TRAIN_KINDS))
-    if other:
-        return (f"training {cfg.name} on a mesh is not ported: its {other} "
-                f"layers have no tensor-parallel form (the port trains "
-                f"{MESH_TRAIN_KINDS} layers and dense first layers on a "
-                f"mesh); ROADMAP queue 1, item 2c(ii)(b) brings the "
-                f"cross-attention kinds")
+    if cfg.is_encdec:
+        kinds |= set(cfg.enc_block_pattern)
     need = {}
     if kinds - set(MAMBA_KINDS):
         need["heads"] = cfg.n_heads
-    if kinds & set(DENSE_KINDS + ("attn", "mamba", "rwkv")):
+    if kinds & set(DENSE_KINDS + ("attn", "mamba", "rwkv", "xattn_mlp",
+                                  "cross_mlp")):
         need["d_ff"] = cfg.d_ff
     if kinds & set(MAMBA_KINDS):
         need["d_in"] = cfg.ssm.expand * cfg.d_model
@@ -501,16 +509,24 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     encoder are not (as in the reference).
 
     On a mesh ``params`` are this rank's blocks and ``batch`` the global
-    batch, of which the rank takes its rows (``batch_sharding``). Each
-    block's parameters, and each first dense layer's, are gathered over
-    ``data`` at use (``_apply_block``, ``_use_params``); the embedding
-    table (and an untied head) is gathered whole over both axes once, and
-    every rank of a data group computes the same embedding and the same
-    cross-entropy (a vocab-parallel cross-entropy is ROADMAP item
-    2c(ii)(c)). The rank's loss is its rows' share of the global mean,
-    summed over the batch axes
-    (``reduce_from``), so every rank returns the global loss and its
-    backward gives the rank's blocks of the global gradient."""
+    batch, of which the rank takes its rows (``batch_sharding``; ``enc_x``
+    and ``img_x`` with the tokens' rows). Each block's parameters, and
+    each first dense layer's, are gathered over ``data`` at use
+    (``_apply_block``, ``_use_params``); so are the encoder's, block by
+    block, and its final norm (``_run_encoder`` with the step's context,
+    its layers in their tensor-parallel forms). The encoder's output, or
+    ``img_x``, enters every cross-attention through ``copy_to``, so its
+    gradient sums the model ranks' parts; each cross gate scales the
+    layer's output after ``wo``'s sum over ``model``, so its gradient is
+    whole on every rank and sums over the data ranks alone
+    (``blocks._tp_cross_inputs``, ``blocks._tp_gated_out``). The
+    embedding table (and an untied head) is gathered whole over both axes
+    once, and every rank of a data group computes the same embedding and
+    the same cross-entropy (a vocab-parallel cross-entropy is ROADMAP
+    item 2c(ii)(c)). The rank's loss is its rows' share of the global
+    mean, summed over the batch axes (``reduce_from``), so every rank
+    returns the global loss and its backward gives the rank's blocks of
+    the global gradient."""
     B, S = batch["tokens"].shape
     if mi.active:
         check_mesh_trainable(cfg, mi)
@@ -521,9 +537,10 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         sh = shardings(model_specs(cfg), mi)
     else:
         grad_axes, sh = (), None
-    ctx = FwdCtx(cfg=cfg, mode="prefill",
-                 cross_x=_cross_source(cfg, params, batch), mi=mi,
-                 tp=model_size(mi) > 1, grad_axes=grad_axes)
+    ctx = FwdCtx(cfg=cfg, mode="prefill", mi=mi, tp=model_size(mi) > 1,
+                 grad_axes=grad_axes)
+    ctx = dataclasses.replace(ctx, cross_x=_cross_source(
+        cfg, params, batch, ctx, sh and sh.get("encoder")))
     emb = _use_params(params["embed"], sh and sh["embed"], ctx,
                       gather=mi.axis_names)
     x = _embed_in(cfg, {"embed": emb}, batch["tokens"])

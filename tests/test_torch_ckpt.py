@@ -226,17 +226,35 @@ def test_train_launcher_restart_recipe(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_mesh(capsys):
-    """An arch whose layers do not train on a mesh yet (cross-attention)
-    is refused with an argparse error naming its layer kinds and the
-    ROADMAP item that brings them."""
-    for arch, kind in (("seamless-m4t-medium", "cross_mlp"),
-                       ("llama-3.2-vision-90b", "xattn_mlp")):
+    """A mesh whose model axis does not split an arch's widths is refused
+    with an argparse error naming them: the cross-attention archs' smoke
+    heads (4) and d_ff (128) on a model axis of 3."""
+    for arch in ("seamless-m4t-medium", "llama-3.2-vision-90b"):
         with pytest.raises(SystemExit) as e:
             train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                        "--mesh", "2,2"])
+                        "--mesh", "1,3"])
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert "ROADMAP" in err and "2c(ii)(b)" in err and kind in err, err
+        assert "heads 4" in err and "model axis of 3" in err, err
+
+
+def test_train_launcher_mesh_cross_runs():
+    """``--mesh 2,2`` with smoke seamless-m4t-medium (its encoder, and 2 of
+    its 4 heads a model rank): four gloo ranks take three steps and the
+    run ends."""
+    import os
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "seamless-m4t-medium", "--smoke", "--device", "cpu", "--mesh",
+         "2,2", "--steps", "3"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("[train] done 3 steps") == 1, r.stdout
+    assert r.stdout.count("step     2 loss") == 1, r.stdout
 
 
 def test_train_launcher_mesh_recurrent_runs():

@@ -22,8 +22,8 @@ weights; this process compares them. The cases:
       live); and the mamba mixer with in_proj's contiguous block taken as
       (xi, z), which must miss;
   (c) a jamba save on (2, 2) restored on (1, 4), bit for bit;
-  (d) ``mesh_train_refusal``: the recurrent archs train on every mesh of
-      four, cross-attention and widths that do not split refuse.
+  (d) ``mesh_train_refusal``: the recurrent and the cross-attention
+      archs train on every mesh of four, widths that do not split refuse.
 """
 import contextlib
 import dataclasses
@@ -548,10 +548,18 @@ def test_width_that_does_not_split_refuses(arch, change, model, named):
 @pytest.mark.parametrize("arch,kind", [("seamless-m4t-medium", "cross_mlp"),
                                        ("llama-3.2-vision-90b", "xattn_mlp")])
 def test_cross_attention_still_refuses(arch, kind):
+    """The cross-attention archs, smoke and full, train on every mesh of
+    four (their kinds have tensor-parallel forms since ROADMAP item
+    2c(ii)(b)), and still refuse a width that does not split: their heads
+    on a model axis of 3."""
     from repro_torch.models.model import mesh_train_refusal
     for smoke in (True, False):
         cfg = tconfigs.get_config(arch)
         if smoke:
             cfg = reduce_for_smoke(cfg)
-        why = mesh_train_refusal(cfg, 2)
-        assert why is not None and kind in why and "2c(ii)(b)" in why, why
+        assert kind in cfg.layer_kinds()
+        for model in (1, 2, 4):
+            assert mesh_train_refusal(cfg, model) is None, (smoke, model)
+        why = mesh_train_refusal(cfg, 3)
+        assert why is not None and f"heads {cfg.n_heads}" in why, why
+        assert "model axis of 3" in why, why
