@@ -202,10 +202,14 @@ Phases (each prints one line; any failure exits non-zero):
      Then each rank: the step's collectives timed alone; (a) three steps
      held against the one-device steps (loss 2e-3, gradient norm 2e-2,
      params and master 0.1 of the steps' own change), which the fault
-     must miss; ms a step, peak GiB, flash launches; (b) the replicated
-     blocks bit for bit across ranks; (c) a save on (2, 2), the restore on
-     (4, 1) and on one device bit for bit, one more step on (4, 1) held
-     alike. A rank's failure fails the phase.
+     must miss; ms a step, peak GiB, flash launches, the embedding leaves'
+     shapes as the loss used them (on (2, 2) each rank's vocab block:
+     the table (64128, 2048), not (128256, 2048)); the same steps with
+     each rank clamping the label into its vocab block instead of masking
+     it, which must miss too; (b) the replicated blocks bit for bit
+     across ranks; (c) a save on (2, 2), the restore on (4, 1) and on one
+     device bit for bit, one more step on (4, 1) held alike, with its
+     peak GiB and embedding shapes. A rank's failure fails the phase.
   9. MoE training on a mesh: four ranks as in 7, olmoe-1b-7b at full
      width in bf16 cut to 1 layer (wq, wk x 0.1), B 4 x 2048, the experts
      split over model (expert parallelism) and d over data. First flash
@@ -217,8 +221,9 @@ Phases (each prints one line; any failure exits non-zero):
      held against it (loss 2e-3, gradient norm 2e-2, params and master 0.1
      of the steps' own change, the routers' master 0.5), with the (token,
      choice) pairs of layer 0 routed otherwise, the dropped share, ms a
-     step, peak GiB and flash launches; a planted fault (the router's
-     gradient not summed over model), which must miss, and a sound
+     step, peak GiB, flash launches and the embedding leaves' shapes as
+     used (each rank's vocab block where it splits); a planted fault (the
+     router's gradient not summed over model), which must miss, and a sound
      variant (the plain MoE FFN in the step), which must pass, on (1, 4);
      the replicated leaves bit for bit; the (2, 2) save restored on (1, 4)
      bit for bit; one moe_ffn call's device ms on a (2, 2) rank's experts
@@ -261,8 +266,9 @@ Phases (each prints one line; any failure exits non-zero):
      the whole layer on each rank's rows: the output and the gradients of
      x, the image rows and every leaf, the gate's included; vision at
      smoke size on its five layers on (2, 2) and (1, 4) against (4, 1),
-     each step's loss within 1e-5 and the state 1e-4. A rank's failure
-     fails the phase.
+     each step's loss within 1e-5 and the state 1e-4; seamless's
+     embedding leaves' shapes as used (its 256206 rows split over a model
+     axis of 2, not 4). A rank's failure fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -4025,15 +4031,82 @@ def _mt_steps(step, params, opt, batches) -> tuple:
     return params, opt, dict(loss=losses, grad_norm=gnorms, ms=times)
 
 
+@contextlib.contextmanager
+def _embed_used():
+    """Records, at every loss of ``forward_train``, the path it takes
+    ("vocab_parallel" or "whole") and the embedding leaves' shapes as the
+    loss uses them (gathered over the batch axes; over ``model`` too where
+    the vocab does not split)."""
+    from repro_torch.models import model
+    calls = []
+
+    def recording(name, fn):
+        def rec(emb, *a, **kw):
+            calls.append(dict(path=name, **{k: list(v.shape)
+                                            for k, v in emb.items()}))
+            return fn(emb, *a, **kw)
+        return rec
+
+    with mock.patch.object(model, "chunked_xent",
+                           recording("whole", model.chunked_xent)), \
+            mock.patch.object(model, "vocab_parallel_xent",
+                              recording("vocab_parallel",
+                                        model.vocab_parallel_xent)):
+        yield calls
+
+
+def _embed_expected(cfg, shape) -> dict:
+    """The embedding leaves' shapes a rank of ``shape`` (data, model) uses:
+    the vocab over model where it divides, else whole."""
+    m = shape[1]
+    split = m > 1 and cfg.vocab_size % m == 0
+    v = cfg.vocab_size // m if split else cfg.vocab_size
+    out = dict(path="vocab_parallel" if split else "whole",
+               table=[v, cfg.d_model])
+    if not cfg.tie_embeddings:
+        out["head"] = [cfg.d_model, v]
+    return out
+
+
+def _embed_reading(calls: list) -> dict:
+    """The first loss's record, and whether every loss used the same."""
+    return dict(calls[0], losses=len(calls),
+                alike=all(c == calls[0] for c in calls))
+
+
+def _embed_ok(reading: dict, want: dict) -> bool:
+    """Whether every loss of a run used the path and shapes ``want``."""
+    return reading["alike"] and {k: v for k, v in reading.items()
+                                 if k not in ("losses", "alike")} == want
+
+
+@contextlib.contextmanager
+def _label_clamp():
+    """The planted fault of the vocab-parallel loss: each rank takes the
+    logit at its label clamped into its vocab block, where the label
+    should be masked (every rank adds a wrong logit to the gold)."""
+    from repro_torch.models import layers
+
+    def clamped(logits, labels, v0):
+        n = logits.shape[-1]
+        return torch.gather(logits, -1,
+                            (labels - v0).clamp(0, n - 1)[..., None])[..., 0]
+
+    with mock.patch.object(layers, "_vocab_gold", clamped):
+        yield
+
+
 def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
              device_type: str = "cuda", B: int = TRAIN_B,
              S: int = TRAIN_S, cfg=None) -> None:
     """One rank of phase 8: (a) MT_STEPS steps on the (2, 2) mesh, held
     against the one-device steps (``ref``; the state from ``tmp``/ref),
-    every local shape against its resolved spec, flash launches and peak
-    memory; (b) the replicas; (c) a save on (2, 2), the restore on (4,
-    1), bit for bit against the file, and one more step there, held
-    against the one-device step. Results to ``tmp``/rank<r>.pt."""
+    every local shape against its resolved spec, flash launches, peak
+    memory and the embedding leaves' shapes as used; the same steps under
+    the label-clamp fault, held alike; (b) the replicas; (c) a save on
+    (2, 2), the restore on (4, 1), bit for bit against the file, and one
+    more step there, held against the one-device step. Results to
+    ``tmp``/rank<r>.pt."""
     import torch.distributed as dist
     from repro_torch.checkpoint.ckpt import restore, save
     from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
@@ -4084,8 +4157,10 @@ def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    params, opt, res["steps"] = _mt_steps(step, params, opt,
-                                          batches[:MT_STEPS])
+    with _embed_used() as used:
+        params, opt, res["steps"] = _mt_steps(step, params, opt,
+                                              batches[:MT_STEPS])
+    res["embed_used"] = _embed_reading(used)
     res["flash_launches"] = flash_attention_fwd.launches
     res["flash_wgmma_launches"] = flash_attention_fwd.wgmma_launches
     if cuda:
@@ -4097,6 +4172,18 @@ def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
     # (b) the replicas
     res["replicas_equal"] = all(_mt_replicas_equal(t, sh, mi) for t in
                                 (params, opt.master, opt.mu, opt.nu))
+    # the planted fault: the same steps with the label clamped, not masked
+    fparams = _mt_params(cfg, device, mi)
+    with _label_clamp():
+        fparams, fopt, fsteps = _mt_steps(step, fparams,
+                                          init_opt_state(fparams),
+                                          batches[:MT_STEPS])
+    p_diff, m_diff = held(mi, stacked, fparams, fopt, start, MT_STEPS)
+    res["label_fault"] = _mt_hold(fsteps["loss"], fsteps["grad_norm"],
+                                  ref["loss"][:MT_STEPS],
+                                  ref["grad_norm"][:MT_STEPS],
+                                  p_diff, m_diff)
+    del fparams, fopt
     # (c) save on (2, 2), restore on (4, 1), one more step
     ck = os.path.join(tmp, "ck")
     state = ckpt_state(params, opt)
@@ -4115,8 +4202,15 @@ def _mt_rank(rank: int, port: int, backend: str, tmp: str, ref: dict,
     res["restore_s"] = time.perf_counter() - t0
     res["restored_equal"] = _mt_equal_to_file(ck, MT_STEPS, state2, placed2)
     params2, opt2 = from_ckpt_state(state2)
-    params2, opt2, res["elastic_step"] = _mt_steps(
-        make_train_step(cfg, tc, mi2), params2, opt2, batches[MT_STEPS:])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with _embed_used() as used:
+        params2, opt2, res["elastic_step"] = _mt_steps(
+            make_train_step(cfg, tc, mi2), params2, opt2, batches[MT_STEPS:])
+    res["embed_used_elastic"] = _embed_reading(used)
+    if cuda:
+        res["elastic_peak_gib"] = (torch.cuda.max_memory_allocated(device)
+                                   / 2 ** 30)
     p_diff, m_diff = held(mi2, stacked2, params2, opt2, start2,
                           MT_STEPS + 1)
     res["c"] = _mt_hold(res["elastic_step"]["loss"],
@@ -4203,10 +4297,12 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
     over model). Here: (d) flash at a rank's shape; the one-device steps
     on the same weights and batches, and the planted fault (the steps on
     one data rank's rows). Then the ranks: (a) three steps held against
-    the one-device steps (loss, gradient norm, params and master); (b)
-    the replicas bit for bit; (c) the save on (2, 2), the restore on
-    (4, 1) bit for bit and one more step there, held alike. Last the
-    restore on one device, bit for bit."""
+    the one-device steps (loss, gradient norm, params and master), the
+    embedding leaves' shapes as used (a rank's vocab block), and the
+    same steps under the label-clamp fault, which must miss; (b) the
+    replicas bit for bit; (c) the save on (2, 2), the restore on (4, 1)
+    bit for bit and one more step there, held alike (the table whole).
+    Last the restore on one device, bit for bit."""
     import shutil
     import torch.multiprocessing as mp
     from repro_torch.checkpoint.ckpt import restore
@@ -4264,6 +4360,11 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
                one_device_ms_median=statistics.median(ref["ms"]),
                peak_gib_ranks=[r.get("peak_gib") for r in ranks],
                one_device_peak_gib=ref.get("peak_gib"),
+               embed_used=r0["embed_used"],
+               embed_used_ranks_alike=all(
+                   r["embed_used"] == r0["embed_used"] for r in ranks),
+               embed_expected=_embed_expected(cfg, MT_MESH),
+               label_fault=r0["label_fault"],
                local_params_ranks=[r["local_params"] for r in ranks],
                local_shapes_ok=all(r["local_shapes_ok"] for r in ranks),
                flash_launches_ranks=launches,
@@ -4275,6 +4376,10 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
                    restored_equal=[r["restored_equal"] for r in ranks],
                    one_device_equal=one_equal, c=r0["c"],
                    elastic_ms=[r["elastic_step"]["ms"] for r in ranks],
+                   elastic_peak_gib=[r.get("elastic_peak_gib")
+                                     for r in ranks],
+                   embed_used=r0["embed_used_elastic"],
+                   embed_expected=_embed_expected(cfg, MT_ELASTIC),
                    save_s=[r["save_s"] for r in ranks],
                    restore_s=[r["restore_s"] for r in ranks],
                    replicas_equal=all(r["replicas_equal_elastic"]
@@ -4283,6 +4388,11 @@ def phase_mesh_train(device_type: str = "cuda") -> dict:
     assert row["local_shapes_ok"] and row["losses_equal_across_ranks"], row
     assert row["a"]["within"], row["a"]
     assert not fault["within"], fault
+    assert row["embed_used_ranks_alike"], row
+    assert not row["label_fault"]["within"], row["label_fault"]
+    for used, want in ((row["embed_used"], row["embed_expected"]),
+                       (elastic["embed_used"], elastic["embed_expected"])):
+        assert _embed_ok(used, want), (used, want)
     assert all(n == 2 * MT_LAYERS * MT_STEPS for n in launches), launches
     assert all(r["flash_wgmma_launches"] == n
                for r, n in zip(ranks, launches)), launches
@@ -4422,7 +4532,8 @@ def _mesh_run(cfg, tc, batches, mi, sh, device) -> tuple:
     """A step a batch on ``mi`` from the phase's weights (the rank's
     blocks): (params, opt, the initial params, readings: each step's loss,
     norm and ms, peak GiB, flash launches from 0, whether every leaf has
-    its local shape)."""
+    its local shape, the embedding leaves' shapes as the loss used
+    them)."""
     from repro_torch.kernels import flash_attention_fwd, reset_launch_counts
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import model_specs
@@ -4440,7 +4551,9 @@ def _mesh_run(cfg, tc, batches, mi, sh, device) -> tuple:
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    params, opt, out["steps"] = _mt_steps(step, params, opt, batches)
+    with _embed_used() as used:
+        params, opt, out["steps"] = _mt_steps(step, params, opt, batches)
+    out["embed_used"] = _embed_reading(used)
     out["flash_launches"] = flash_attention_fwd.launches
     out["flash_wgmma_launches"] = flash_attention_fwd.wgmma_launches
     if cuda:
@@ -4763,6 +4876,10 @@ def _mz_check(ranks, cfg, head: dict) -> int:
             losses_equal_across_ranks=all(
                 x["steps"]["loss"] == runs[0]["steps"]["loss"] for x in runs),
             peak_gib_ranks=[x.get("peak_gib") for x in runs],
+            embed_used=runs[0]["embed_used"],
+            embed_ok=all(_embed_ok(x["embed_used"],
+                                   _embed_expected(cfg, shape))
+                         for x in runs),
             flash_launches_ranks=[x["flash_launches"] for x in runs],
             flash_wgmma_ranks=[x["flash_wgmma_launches"] for x in runs],
             local_shapes_ok=all(x["local_shapes_ok"] for x in runs),
@@ -4809,6 +4926,7 @@ def _mz_check(ranks, cfg, head: dict) -> int:
     for key, m in meshes.items():
         assert m["local_shapes_ok"] and m["losses_equal_across_ranks"], m
         assert m["routes_alike_across_model"], key
+        assert m["embed_ok"], (key, m["embed_used"])
         if key != str(MZ_WHOLE):
             assert m["held"]["within"], (key, m["held"])
             assert m["replicas_equal"], (key, m)
@@ -5605,7 +5723,7 @@ def _mc_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
         row["within"] = bool(row["within"] and row["encoder_within"])
         return row
 
-    meshes = {}
+    meshes, shapes = {}, {str(s): s for s in MC_MESHES}
     for shape, x0 in r0["seamless"].items():
         runs = [r["seamless"][shape] for r in ranks]
         meshes[shape] = dict(
@@ -5618,6 +5736,9 @@ def _mc_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
             ms_ranks=[x["steps"]["ms"] for x in runs],
             ms_median=statistics.median(x0["steps"]["ms"]),
             peak_gib_ranks=[x.get("peak_gib") for x in runs],
+            embed_used=x0["embed_used"],
+            embed_ok=all(_embed_ok(x["embed_used"], _embed_expected(
+                cfg, shapes[shape])) for x in runs),
             run_s=x0["run_s"], held_s=x0["held_s"],
             replicas_s=x0["replicas_s"],
             local_shapes_ok=all(x["local_shapes_ok"] for x in runs),
@@ -5664,6 +5785,7 @@ def _mc_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
             (shape, m)
         assert m["held"]["within"], (shape, m["held"])
         assert m["replicas_equal"], shape
+        assert m["embed_ok"], (shape, m["embed_used"])
     assert not fault_row["held"]["encoder_within"], fault_row
     assert all(elastic["saved_equal"]) and all(elastic["restored_equal"]), \
         elastic

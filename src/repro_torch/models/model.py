@@ -61,7 +61,9 @@ from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.blocks import FwdCtx, _sp_mode, apply_layer
 from repro_torch.models.dist import (NO_MESH, MeshInfo, gather_param,
                                      reduce_from)
-from repro_torch.models.layers import chunked_xent, embed, logits_fn, rmsnorm
+from repro_torch.models.layers import (chunked_xent, embed, logits_fn,
+                                      rmsnorm, vocab_parallel_embed,
+                                      vocab_parallel_xent)
 from repro_torch.models.params import (MAMBA_KINDS, Sharding, model_specs,
                                        resolve_device, sharding_of,
                                        shardings, split_axes, torch_dtype)
@@ -323,8 +325,12 @@ def _cross_source(cfg: ModelConfig, params, batch, ctx: Optional[FwdCtx] = None,
     return None
 
 
-def _embed_in(cfg: ModelConfig, params, tokens):
-    x = embed(params["embed"], tokens).to(torch_dtype(cfg.activation_dtype))
+def _embed_in(cfg: ModelConfig, params, tokens, vocab_mi=None):
+    """The scaled embedding of ``tokens``; with ``vocab_mi`` the table is
+    this rank's vocab block on that mesh (``vocab_parallel_embed``)."""
+    x = (embed(params["embed"], tokens) if vocab_mi is None else
+         vocab_parallel_embed(params["embed"], tokens, vocab_mi))
+    x = x.to(torch_dtype(cfg.activation_dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -499,6 +505,14 @@ def batch_sharding(shape, mi: MeshInfo) -> Sharding:
     return sharding_of(("batch",), shape[:1], mi)
 
 
+def vocab_split(sh, ctx: FwdCtx) -> bool:
+    """Whether the embedding leaves, placed by the Shardings ``sh``, split
+    the vocab over a model axis larger than 1 (``resolve_spec`` keeps
+    ``model`` on the vocab dimension only where it divides it; the table
+    and an untied head share it)."""
+    return ctx.tp and "model" in sh["embed"]["table"].axes(0)
+
+
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                   mi: MeshInfo = NO_MESH) -> torch.Tensor:
     """The mean next-token loss. ``batch``: tokens (B, S) and labels (B, S),
@@ -519,14 +533,25 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     gradient sums the model ranks' parts; each cross gate scales the
     layer's output after ``wo``'s sum over ``model``, so its gradient is
     whole on every rank and sums over the data ranks alone
-    (``blocks._tp_cross_inputs``, ``blocks._tp_gated_out``). The
-    embedding table (and an untied head) is gathered whole over both axes
-    once, and every rank of a data group computes the same embedding and
-    the same cross-entropy (a vocab-parallel cross-entropy is ROADMAP
-    item 2c(ii)(c)). The rank's loss is its rows' share of the global
-    mean, summed over the batch axes (``reduce_from``), so every rank
-    returns the global loss and its backward gives the rank's blocks of
-    the global gradient."""
+    (``blocks._tp_cross_inputs``, ``blocks._tp_gated_out``).
+
+    The embedding table (and an untied head) is gathered over the batch
+    axes at use (``_use_params``), so a rank keeps over ``model`` what the
+    reference's specs give it. Where they split the vocab there
+    (``vocab_split``), the rank looks its tokens up in its vocab block
+    (zero rows for the others) and sums the rows over ``model``
+    (``vocab_parallel_embed``: one all-reduce of (B/data, S, d)), and
+    computes its block's logits of each chunk, the logsumexp and the
+    gold logit summed over ``model`` (``vocab_parallel_xent``: per chunk
+    one all-reduce MAX and one SUM of (B/data, S/n) rows, and on backward
+    the all-reduce of x's gradient in ``copy_to``); the gradients reach
+    the rank's block alone. Where the vocab does not split (seamless's
+    256206 rows on a model axis of 4: the reference leaves them whole
+    too), the table and head are whole over ``model`` and every rank of a
+    data group computes the same embedding and cross-entropy. The rank's
+    loss is its rows' share of the global mean, summed over the batch
+    axes (``reduce_from``), so every rank returns the global loss and its
+    backward gives the rank's blocks of the global gradient."""
     B, S = batch["tokens"].shape
     if mi.active:
         check_mesh_trainable(cfg, mi)
@@ -541,9 +566,9 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                  grad_axes=grad_axes)
     ctx = dataclasses.replace(ctx, cross_x=_cross_source(
         cfg, params, batch, ctx, sh and sh.get("encoder")))
-    emb = _use_params(params["embed"], sh and sh["embed"], ctx,
-                      gather=mi.axis_names)
-    x = _embed_in(cfg, {"embed": emb}, batch["tokens"])
+    vocab_mi = mi if vocab_split(sh, ctx) else None
+    emb = _use_params(params["embed"], sh and sh["embed"], ctx)
+    x = _embed_in(cfg, {"embed": emb}, batch["tokens"], vocab_mi)
     for i in range(cfg.first_k_dense):
         p_i = _use_params(params["first"][str(i)],
                           sh and sh["first"][str(i)], ctx)
@@ -553,6 +578,10 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         x = body(x, p_blk, ctx, sh and sh["blocks"][b])
     x = rmsnorm(x, _use_params(params["final_ln"], sh and sh["final_ln"],
                                ctx), cfg.norm_eps)
-    loss = chunked_xent(emb, x, batch["labels"], cfg.logit_softcap,
-                        count=B * S)
+    if vocab_mi is None:
+        loss = chunked_xent(emb, x, batch["labels"], cfg.logit_softcap,
+                            count=B * S)
+    else:
+        loss = vocab_parallel_xent(emb, x, batch["labels"],
+                                   cfg.logit_softcap, vocab_mi, count=B * S)
     return reduce_from(loss, mi, grad_axes) if mi.active else loss

@@ -17,10 +17,16 @@ by side. The cases:
   (b) ``compressed_psum`` under ``shard_map`` on four ranks against the
       reference's on four devices, bit for bit;
   (c) one train step of smoke llama3.2-1b on (2, 2), (4, 1) and (1, 4),
-      of smoke qwen2-7b (random QKV biases) on (2, 2), and of llama with
-      int8_ef and two microbatches on (2, 2), against the reference's
-      one-device step, and (llama, qwen2) its (2, 2) mesh step; replicas
-      bit for bit;
+      of smoke qwen2-7b (random QKV biases) on (2, 2), of llama with
+      int8_ef and two microbatches on (2, 2), of smoke gemma2-2b (tied,
+      softcapped, scaled embedding) on (1, 4) and of llama with a vocab of
+      514 (which does not split over 4: the table stays whole, as the
+      reference's ``resolve_spec`` leaves it) on (1, 4), against the
+      reference's one-device step, and (llama, qwen2) its (2, 2) mesh
+      step; replicas bit for bit; on every case with a model axis over 1,
+      no embedding leaf gathered over ``model`` (a spy on
+      ``dist.all_gather``, which sees the table gathered whole over every
+      axis, as the step did before the vocab-parallel path);
   (d) a save on (2, 2), the restore on (4, 1) and on one device, one more
       step each, against two uninterrupted steps; and the JAX launcher's
       checkpoint restored on (2, 2), each rank's blocks against the
@@ -28,8 +34,17 @@ by side. The cases:
   (e) the cross-attention configs' ``make_train_step`` builds on a mesh
       (their steps are held in ``test_torch_mesh_cross.py``, the MoE and
       recurrent configs' in ``test_torch_mesh_moe.py`` and
-      ``test_torch_mesh_recurrent.py``).
+      ``test_torch_mesh_recurrent.py``);
+  (f) the vocab-parallel embedding and cross-entropy
+      (``layers.vocab_parallel_embed``, ``vocab_parallel_xent``) on (1, 4)
+      and (2, 2), tied and untied, with and without softcap 30, labels
+      and tokens at every block edge, against the reference's
+      ``chunked_xent`` of its ``embed`` on the whole leaves (loss 1e-6
+      relative, every gradient 1e-5 of its leaf's largest); the planted
+      fault, each rank clamping the label into its own block instead of
+      masking it, misses by far.
 """
+import contextlib
 import json
 import os
 import pickle
@@ -38,6 +53,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -52,16 +68,20 @@ WORLD = 4
 DEADLINE_S = 240        # each side takes ~30 s
 LR = 1e-3
 B, S = 4, 32
-# (c): case -> (arch, mesh shape, TrainConfig fields)
+# a model -> (arch, its smoke config's fields changed)
+MODELS = {"llama3.2-1b-v514": ("llama3.2-1b", {"vocab_size": 514})}
+# (c): case -> (model, mesh shape, TrainConfig fields)
 STEP_CASES = {"llama_2x2": ("llama3.2-1b", (2, 2), {}),
               "llama_4x1": ("llama3.2-1b", (4, 1), {}),
               "llama_1x4": ("llama3.2-1b", (1, 4), {}),
               "qwen2_2x2": ("qwen2-7b", (2, 2), {}),
               "llama_2x2_int8_mb2": ("llama3.2-1b", (2, 2),
                                      {"grad_compression": "int8_ef",
-                                      "microbatches": 2})}
+                                      "microbatches": 2}),
+              "gemma2_1x4": ("gemma2-2b", (1, 4), {}),
+              "llama_v514_1x4": ("llama3.2-1b-v514", (1, 4), {})}
 MESH_CASES = ("llama_2x2", "qwen2_2x2")     # the reference's (2, 2) step too
-ARCHS = ("llama3.2-1b", "qwen2-7b")
+ARCHS = ("llama3.2-1b", "qwen2-7b", "gemma2-2b", "llama3.2-1b-v514")
 SPEC_MESHES = ((("data", "model"), (2, 2)), (("data", "model"), (4, 1)),
                (("data", "model"), (1, 4)), (("data", "model"), (16, 16)),
                (("pod", "data", "model"), (2, 16, 16)),
@@ -74,12 +94,16 @@ LAUNCHER_ARGS = ["--arch", "llama3.2-1b", "--smoke", "--steps", "3",
                  "--log-every", "100"]
 
 
-def _cfg(jax_side: bool, arch="llama3.2-1b"):
+def _cfg(jax_side: bool, model="llama3.2-1b"):
+    """The smoke config of ``model`` (an arch, or a name of ``MODELS``)."""
+    import dataclasses
+    arch, fields = MODELS.get(model, (model, {}))
     if jax_side:
         from repro.configs import get_config
         from repro.configs import reduce_for_smoke as j_reduce
-        return j_reduce(get_config(arch))
-    return reduce_for_smoke(tconfigs.get_config(arch))
+        return dataclasses.replace(j_reduce(get_config(arch)), **fields)
+    return dataclasses.replace(reduce_for_smoke(tconfigs.get_config(arch)),
+                               **fields)
 
 
 def _kw(case: str) -> dict:
@@ -102,6 +126,32 @@ def with_biases(arch: str, tree):
             tree["blocks"]["0"]["attn"][name] = (
                 0.3 * r.standard_normal(leaf.shape)).astype(np.float32)
     return tree
+
+
+# (f): the vocab-parallel loss's cases, and its inputs' sizes
+VOCAB_CASES = [(shape, tied, softcap) for shape in ((1, 4), (2, 2))
+               for tied in (True, False) for softcap in (None, 30.0)]
+VOCAB, D_VOCAB = 512, 64
+
+
+def vocab_inputs() -> dict:
+    """The whole table (V, d) and head (d, V), x0 (B, S, d) added to the
+    embedding, and tokens and labels (B, S) with every vocab block's edges
+    on meshes of 2 and 4 model ranks among them; entries of about unit
+    size, so a softcap of 30 bends the logits."""
+    r = np.random.default_rng(23)
+    out = {"table": r.standard_normal((VOCAB, D_VOCAB)),
+           "head": r.standard_normal((D_VOCAB, VOCAB)) / 4,
+           "x0": r.standard_normal((B, S, D_VOCAB))}
+    out = {k: v.astype(np.float32) for k, v in out.items()}
+    edges = sorted({e for m in (2, 4) for b in range(m)
+                    for e in (b * VOCAB // m, (b + 1) * VOCAB // m - 1)})
+    for i, k in enumerate(("tokens", "labels")):
+        t = r.integers(0, VOCAB, (B, S))
+        t[i, :len(edges)] = edges
+        t[2 + i, -len(edges):] = edges[::-1]
+        out[k] = t.astype(np.int32)
+    return out
 
 
 def psum_input() -> np.ndarray:
@@ -142,19 +192,37 @@ with mesh_context(mesh4):
         lambda x: compressed_psum(x, "data"), mesh=mesh4, in_specs=P("data"),
         out_specs=P("data")))(jnp.asarray(T.psum_input())))
 
+from repro.models import layers as jl
+v = {{k: jnp.asarray(a) for k, a in T.vocab_inputs().items()}}
+for tied in (True, False):
+    for softcap in (None, 30.0):
+        def f(table, head, x0):
+            p = {{"table": table}} if tied else {{"table": table, "head": head}}
+            x = jl.embed(p, v["tokens"]) + x0
+            return jl.chunked_xent(p, x, v["labels"], softcap)
+        loss, grads = jax.value_and_grad(f, argnums=(0, 1, 2))(
+            v["table"], v["head"], v["x0"])
+        out[("vocab", tied, softcap)] = host(dict(
+            loss=loss, table=grads[0], head=grads[1], x0=grads[2]))
+
 mesh22 = make_host_mesh(data=2, model=2)
 params = {{a: T.with_biases(a, host(init_params(T._cfg(True, a),
                                               jax.random.key(0))))
           for a in T.ARCHS}}
 out["params"] = params
+steps = {{}}          # (model, TrainConfig fields) -> the one-device step
 for case, (arch, shape, extra) in T.STEP_CASES.items():
     cfg, tc = T._cfg(True, arch), TrainConfig(**T._kw(case))
     ef = tc.grad_compression == "int8_ef"
     p = jax.tree.map(jnp.asarray, params[arch])
     b = {{k: jnp.asarray(v) for k, v in T.batch(cfg, 0).items()}}
     step = jax.jit(make_train_step(cfg, tc, NO_MESH))
-    p1, o1, m1 = step(p, init_opt_state(p, with_ef=ef), b)
-    out[case] = host(dict(params=p1, opt=T._np_opt(o1), metrics=m1))
+    key = (arch, tuple(sorted(extra.items())))
+    if key not in steps:
+        p1, o1, m1 = step(p, init_opt_state(p, with_ef=ef), b)
+        steps[key] = (p1, o1, host(dict(params=p1, opt=T._np_opt(o1),
+                                        metrics=m1)))
+    p1, o1, out[case] = steps[key]
     if case == "llama_2x2":          # (d): two uninterrupted steps
         b2 = {{k: jnp.asarray(v) for k, v in T.batch(cfg, 1).items()}}
         p2, o2, m2 = step(p1, o1, b2)
@@ -206,6 +274,69 @@ def _dump(params, opt, m) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _gathers():
+    """Records the axis and the result's shape of every ``dist.all_gather``
+    (the collective of ``gather_param``, ``gather_from`` and
+    ``gather_whole``) while it is entered."""
+    from repro_torch.models import dist
+    calls, gather = [], dist.all_gather
+
+    def spy(t, dim, mi, axis):
+        out = gather(t, dim, mi, axis)
+        calls.append((axis, tuple(out.shape)))
+        return out
+
+    with mock.patch.object(dist, "all_gather", spy):
+        yield calls
+
+
+def _vocab_over_model(calls: list, vocab: int) -> list:
+    """The gathers over ``model`` whose result has a vocab-sized
+    dimension: an embedding leaf gathered whole over the axis."""
+    return [c for c in calls if c[0] == "model" and vocab in c[1]]
+
+
+def _clamped_gold(logits, labels, v0):
+    """The planted fault of (f): the label clamped into this rank's block,
+    where it should be masked (every rank adds a wrong logit)."""
+    n = logits.shape[-1]
+    return torch.gather(logits, -1,
+                        (labels - v0).clamp(0, n - 1)[..., None])[..., 0]
+
+
+def _vocab_case(mi, tied: bool, softcap, fault: bool = False) -> dict:
+    """(f) on one rank: the vocab-parallel embedding of the tokens plus x0
+    and the loss, placed and gathered as ``forward_train`` does (the
+    table's and head's vocab over ``model``, d over ``data``, gathered
+    over ``data`` at use; the rank's rows of x0 and the batch); the loss
+    and the rank's blocks of the gradients."""
+    from repro_torch.models import layers
+    from repro_torch.models.dist import gather_param, reduce_from
+    from repro_torch.models.model import batch_sharding
+    from repro_torch.models.params import sharding_of, split_axes
+    v = {k: torch.from_numpy(a) for k, a in vocab_inputs().items()}
+    specs = {"table": ("tp", "fsdp"), "head": ("fsdp", "tp")}
+    names = ("table",) if tied else ("table", "head")
+    sh = {k: sharding_of(specs[k], v[k].shape, mi) for k in names}
+    rows = batch_sharding((B, S), mi)
+    grad_axes = tuple(a for a in split_axes(rows.spec[0]) if mi.size(a) > 1)
+    blocks = {k: sh[k].cut(v[k]).clone().requires_grad_() for k in names}
+    x0 = rows.cut(v["x0"]).clone().requires_grad_()
+    tokens, labels = (rows.cut(v[k]).long() for k in ("tokens", "labels"))
+    emb = {k: gather_param(blocks[k], sh[k], mi, ("data",), grad_axes)
+           for k in names}
+    with (mock.patch.object(layers, "_vocab_gold", _clamped_gold) if fault
+          else contextlib.nullcontext()):
+        x = layers.vocab_parallel_embed(emb, tokens, mi) + x0
+        loss = reduce_from(layers.vocab_parallel_xent(
+            emb, x, labels, softcap, mi, count=B * S), mi, grad_axes)
+        loss.backward()         # recomputes each chunk: the fault too
+    out = {k: blocks[k].grad.numpy().copy() for k in names}
+    out.update(loss=loss.item(), x0=x0.grad.numpy().copy())
+    return out
+
+
 def _rank(rank: int, port: int, tmp: str, jparams) -> None:
     """One rank: every port case, results to files."""
     torch.set_num_threads(1)
@@ -235,6 +366,11 @@ def _rank(rank: int, port: int, tmp: str, jparams) -> None:
                             ("data",), ("data",))(
         torch.from_numpy(psum_input())).numpy()
 
+    for shape, tied, softcap in VOCAB_CASES:        # (f)
+        for fault in (False, True):
+            out[("vocab", shape, tied, softcap, fault)] = _vocab_case(
+                meshes[shape], tied, softcap, fault)
+
     for case, (arch, shape, _) in STEP_CASES.items():
         mi, cfg, tc = meshes[shape], _cfg(False, arch), TrainConfig(**_kw(case))
         params = from_jax_params(cfg, jparams[arch], device="cpu", mi=mi)
@@ -245,7 +381,10 @@ def _rank(rank: int, port: int, tmp: str, jparams) -> None:
             [list(x.shape) for x in leaves(tree)]
             for tree in (params, opt.master, opt.mu, opt.nu)]
         step = make_train_step(cfg, tc, mi)
-        params, opt, m = step(params, opt, t(batch(cfg, 0)))
+        with _gathers() as calls:
+            params, opt, m = step(params, opt, t(batch(cfg, 0)))
+        out[case + "_vocab_gathers"] = _vocab_over_model(calls,
+                                                         cfg.vocab_size)
         out[case] = _dump(params, opt, m)
         out[case + "_replicas"] = _replicas(
             (params, opt.master, opt.mu, opt.nu), sh, mi)
@@ -279,6 +418,17 @@ def _rank(rank: int, port: int, tmp: str, jparams) -> None:
     out["builds"] = {arch: callable(make_train_step(_cfg(False, arch),
                                                     TrainConfig(), mi))
                      for arch in CROSS}
+
+    # (c): the spy's witness, the table gathered over every axis on (1, 4)
+    # (the whole-table gather of the step before the vocab-parallel path)
+    from repro_torch.models.dist import gather_param
+    cfg, mi = _cfg(False), meshes[(1, 4)]
+    p = from_jax_params(cfg, jparams["llama3.2-1b"], device="cpu", mi=mi)
+    with _gathers() as calls:
+        gather_param(p["embed"]["table"],
+                     shardings(model_specs(cfg), mi)["embed"]["table"], mi,
+                     mi.axis_names, ())
+    out["witness_vocab_gathers"] = _vocab_over_model(calls, cfg.vocab_size)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -679,3 +829,71 @@ def test_unported_kinds_refuse_on_a_mesh(runs, arch):
     ``make_train_step`` builds on the (2, 2) mesh on every rank."""
     for r in runs["ranks"]:
         assert r["builds"][arch] is True
+
+
+@pytest.mark.parametrize("case", [c for c, (_, shape, _) in STEP_CASES.items()
+                                  if shape[1] > 1])
+def test_no_embed_leaf_gathered_over_model(runs, case):
+    """On every mesh case with a model axis over 1, no rank gathers the
+    table or the head over ``model`` in its step: where the vocab splits
+    each rank keeps its block, where it does not (vocab 514 on (1, 4)) the
+    leaves are whole over ``model`` already."""
+    for r in runs["ranks"]:
+        assert r[case + "_vocab_gathers"] == []
+
+
+def test_gather_spy_sees_the_whole_table(runs):
+    """The spy's witness: the table gathered over every axis on (1, 4), as
+    the step did before the vocab-parallel path, shows as the (512, 64)
+    table gathered whole over ``model``."""
+    for r in runs["ranks"]:
+        assert ("model", (512, 64)) in r["witness_vocab_gathers"]
+
+
+# ---------------------------------------------------------------- (f)
+
+def _vocab_ref(runs, shape, tied, softcap, rank) -> dict:
+    """The reference's loss and gradients, cut to ``rank``'s blocks on
+    ``shape`` (the table's vocab over model and d over data, the head's
+    transposed, x0's rows over data)."""
+    from repro_torch.models.params import Sharding, resolve_spec
+    ref = runs["ref"][("vocab", tied, softcap)]
+    sizes = dict(zip(("data", "model"), shape))
+    place = lambda spec, shp: Sharding(
+        resolve_spec(spec, shp, sizes), tuple(sizes.items()),
+        tuple(zip(("data", "model"), _coords(runs, rank, shape))))
+    out = {"loss": float(ref["loss"])}
+    for k, spec in (("table", ("tp", "fsdp")), ("head", ("fsdp", "tp")),
+                    ("x0", ("batch", None, None))):
+        out[k] = place(spec, ref[k].shape).cut(ref[k])
+        out[k + "_max"] = float(np.abs(ref[k]).max())
+    return out
+
+
+@pytest.mark.parametrize("shape,tied,softcap", VOCAB_CASES)
+def test_vocab_parallel_xent_matches_reference(runs, shape, tied, softcap):
+    """Loss within 1e-6 relative, and each rank's blocks of the table's,
+    the head's and x0's gradients within 1e-5 of the leaf's largest."""
+    for rank, r in enumerate(runs["ranks"]):
+        ours = r[("vocab", shape, tied, softcap, False)]
+        ref = _vocab_ref(runs, shape, tied, softcap, rank)
+        assert abs(ours["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+        for k in ("table", "x0") + (() if tied else ("head",)):
+            assert ours[k].shape == ref[k].shape, k
+            err = float(np.abs(ours[k] - ref[k]).max())
+            assert err <= GRAD_AGREE * ref[k + "_max"], (k, err)
+
+
+@pytest.mark.parametrize("shape,tied,softcap", VOCAB_CASES)
+def test_vocab_label_clamp_fault_misses(runs, shape, tied, softcap):
+    """The planted fault, each rank clamping the label into its block
+    instead of masking it, misses the loss by over 100 times its limit
+    and the gradient of the leaf the logits come from (the table, tied,
+    or the head) by over a tenth of its largest entry."""
+    for rank, r in enumerate(runs["ranks"]):
+        bad = r[("vocab", shape, tied, softcap, True)]
+        ref = _vocab_ref(runs, shape, tied, softcap, rank)
+        assert abs(bad["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"])
+        grad = "table" if tied else "head"
+        assert float(np.abs(bad[grad] - ref[grad]).max()) > \
+            0.1 * ref[grad + "_max"]
