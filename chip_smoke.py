@@ -33,7 +33,10 @@ Phases (each prints one line; any failure exits non-zero):
      (one row over 4096); and held against the plain version where fewer
      query rows than one tile (Sq 1 to 33) reach either kernel and at every
      prefill shape of phase 3h's serves (the zero-copy bucket, each
-     prompt's length at B 1, seamless's encoder at B 8 and 1). Flash is
+     prompt's length at B 1, seamless's encoder at B 8 and 1). kimi-k2's
+     head dim 112 on the wgmma kernel (two slabs, the second zero-padded):
+     mask cases, phase 3i's prefill shapes, its bucket (8 x 512, 64/8)
+     timed, and its global decode row (64/8, D 112). Flash is
      held to the smaller of the dtype's limit and 2e-2 of the plain
      output's largest value; every non-causal case over more than one KV
      tile also shows that the plain version with one tile of keys dropped
@@ -120,6 +123,18 @@ Phases (each prints one line; any failure exits non-zero):
      last token), in bf16 as served, in bf16 with flash's plain version,
      and in fp32: the bucket's logits equal the serve's bit for bit, and
      the fp32 run's agree within 1e-3.
+  3i. kimi-k2 at full width on its first two layers (bf16, random seeded
+     weights: the dense first layer, attention 64/8 at D 112 and FFN
+     16384; one attn_moe layer of 384 experts of d_ff 2048, top 8, a
+     shared expert; the 163840-row table and head; ~37 GiB): (a) decode
+     against prefill layer by layer and end to end at capacity factor 48
+     (E / K: no choice drops at any batch size); (b) one zero-copy serve
+     of phase 3's requests at the published capacity: no staging copy,
+     one global decode a layer a step, one flash a layer a prefill call,
+     every one on the wgmma kernel at D 112, the dropped shares, ms a
+     step, TTFT, peak GiB; (c) each request's first-token logits against
+     a B=1 prefill on a serve at capacity 16, within 5e-2 for every
+     request whose last token took the same experts in both prefills.
   4. the smoke-reduced llama3.2-1b, qwen2-7b, llama3.2-3b, gemma2-2b,
      olmoe-1b-7b, kimi-k2-1t-a32b, rwkv6-3b, jamba, seamless-m4t-medium
      and llama-vision (at src_len 8, its smoke image tokens) (fp32) served
@@ -269,6 +284,15 @@ Phases (each prints one line; any failure exits non-zero):
      each step's loss within 1e-5 and the state 1e-4; seamless's
      embedding leaves' shapes as used (its 256206 rows split over a model
      axis of 2, not 4). A rank's failure fails the phase.
+ 12. GPipe (launch/pipeline.py) over a (4,) ("stage",) mesh of four ranks
+     as in 7. (a) The reference test's case (W (8, 16, 16), x (6, 2, 4,
+     16), fp32) against the one-device stack: the output within 1e-5 and
+     each stage's W gradient within 1e-4; (b) llama3.2-1b's 16 blocks at
+     full width in fp32, 4 a stage, a batch of 8 x 512 in 4 microbatches:
+     the output and each leaf's gradient within 1e-4 of its largest value
+     against the one-device stack, ms a forward and backward beside the
+     one-device stack's, flash launches a rank, peak GiB, the bubble
+     fraction. A rank's failure fails the phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -303,6 +327,15 @@ builds the flash kernel and runs phase 10 alone.
     python3 chip_smoke.py --mesh-cross-only
 
 builds the flash kernel and runs phase 11 alone.
+
+    python3 chip_smoke.py --kimi-only
+
+builds the decode and flash kernels, runs phase 2's rows at head dim 112
+(kimi-k2's decode row, the flash cases and the timed prefill) and phase 3i.
+
+    python3 chip_smoke.py --pipeline-only
+
+builds the flash kernel and runs phase 12 alone.
 """
 from __future__ import annotations
 
@@ -552,7 +585,10 @@ DECODE_ARCHS = [("qwen2-7b", "global", 8, 28, 4, 128, 64, None, 185, 513),
                 ("seamless-m4t-medium", "global", 8, 16, 16, 64, 64, None,
                  185, 513),
                 ("seamless-m4t-medium", "slot", 8, 16, 16, 64, 64, None,
-                 185, 513)]
+                 185, 513),
+                # phase 3i's kimi-k2: G = 8 at D 112 (224-byte rows)
+                ("kimi-k2-1t-a32b", "global", 8, 64, 8, 112, 64, None, 185,
+                 513)]
 DECODE_KERNELS = "paged_decode"       # every decode kernel's name holds it
 
 
@@ -678,9 +714,10 @@ def _arch_decode_inputs(layout, B, Hq, Hkv, Dh, pages, lo, hi, g):
     return mk(B, Hq, Dh), mk(*shape), mk(*shape), table, lens
 
 
-def _decode_archs() -> list:
-    """Both decode kernels at the DECODE_ARCHS shapes: error against the
-    plain version on the same inputs, times beside the bound."""
+def _decode_archs(arch_only=None) -> list:
+    """Both decode kernels at the DECODE_ARCHS shapes (with ``arch_only``,
+    that arch's alone): error against the plain version on the same
+    inputs, times beside the bound."""
     from repro_torch.kernels import paged_attention_global
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import (
@@ -688,6 +725,8 @@ def _decode_archs() -> list:
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     rows = []
     for arch, layout, B, Hq, Hkv, Dh, pages, cap, lo, hi in DECODE_ARCHS:
+        if arch_only is not None and arch != arch_only:
+            continue
         q, kp, vp, tbl, lens = _arch_decode_inputs(layout, B, Hq, Hkv, Dh,
                                                    pages, lo, hi, g)
         fn, ref_fn, bound_fn = (
@@ -899,9 +938,17 @@ FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
                     # 128-row TMA box of q reads zeros past Sq
                     (2, 1, 77, 8, 1, 128, False, None, None, 0),
                     (2, 5, 100, 4, 2, 256, False, None, None, 0),
-                    (1, 17, 9, 4, 4, 128, False, None, None, 0)]
-# (bf16 also runs phase 3g's jamba prefills, _jamba_prefill_cases, and
-# phase 3h's, _cross_prefill_cases)
+                    (1, 17, 9, 4, 4, 128, False, None, None, 0),
+                    # head dim 112 (kimi-k2's; the second slab padded):
+                    # causal at G = 8, non-causal, Sq = 1, a window, a
+                    # q_offset with a softcap
+                    (2, 100, 100, 16, 2, 112, True, None, None, 0),
+                    (1, 130, 130, 4, 4, 112, False, None, None, 0),
+                    (2, 1, 77, 8, 1, 112, False, None, None, 0),
+                    (1, 200, 260, 8, 1, 112, True, 100, None, 60),
+                    (1, 65, 200, 8, 2, 112, True, None, 50.0, 150)]
+# (bf16 also runs phase 3g's jamba prefills, _jamba_prefill_cases, phase
+# 3h's, _cross_prefill_cases, and phase 3i's, _kimi_prefill_cases)
 # Timed shapes (B, Sq, Skv, Hq, Hkv, D, causal): the serve's prefill, then
 # llama3.2-1b's, qwen2-7b's and gemma2-2b's widths at 4096 tokens (gemma2
 # without its softcap: SDPA has none), then olmoe-1b-7b's prefill of phase
@@ -909,8 +956,8 @@ FLASH_WIDE_CASES = [(2, 100, 164, 8, 2, 128, True, 48, 50.0, 64),
 # 128); then phase 3h's non-causal shapes: seamless's encoder (8 x 3072,
 # 16/16, D 64), its cross prefill (8 x 512 over 3072) and its cross decode
 # (Sq 1 over 3072), llama-vision's cross prefill (8 x 512 over 4096 image
-# tokens, 64/8, D 128) and its cross decode (Sq 1 over 4096). bf16; the
-# first also in fp32.
+# tokens, 64/8, D 128) and its cross decode (Sq 1 over 4096); then kimi-k2's
+# prefill of phase 3i (8 x 512, 64/8, D 112). bf16; the first also in fp32.
 FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D, True),
                (1, 4096, 4096, 32, 8, 64, True),
                (1, 4096, 4096, 28, 4, 128, True),
@@ -921,7 +968,8 @@ FLASH_TIMED = [(FLASH_B, FLASH_S, FLASH_S, HQ, HKV, D, True),
                (8, 512, 3072, 16, 16, 64, False),
                (8, 1, 3072, 16, 16, 64, False),
                (8, 512, 4096, 64, 8, 128, False),
-               (8, 1, 4096, 64, 8, 128, False)]
+               (8, 1, 4096, 64, 8, 128, False),
+               (8, 512, 512, 64, 8, 112, True)]
 
 
 def _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh):
@@ -1004,14 +1052,20 @@ def _cross_prefill_cases() -> list:
     return sorted(cases, key=lambda c: c[:7])
 
 
-def _flash_cases() -> list:
+def _flash_cases(head_dim=None) -> list:
+    """Every FLASH_CASES row in fp32 and bf16, and the wide rows in bf16,
+    each held against the plain version; with ``head_dim`` only the rows of
+    that head dim."""
     from repro_torch.kernels.flash_attention.ops import kernel_for
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    wide = FLASH_WIDE_CASES + _jamba_prefill_cases() + _cross_prefill_cases()
+    wide = (FLASH_WIDE_CASES + _jamba_prefill_cases() + _cross_prefill_cases()
+            + _kimi_prefill_cases())
     for dtype in (torch.float32, torch.bfloat16):
         for (B, Sq, Skv, Hq, Hkv, Dh, causal, window, cap, qoff) in (
                 FLASH_CASES + (wide if dtype == torch.bfloat16 else [])):
+            if head_dim is not None and Dh != head_dim:
+                continue
             q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
             row = dict(dtype=str(dtype), B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
@@ -1045,17 +1099,19 @@ def _kernel_device_ms(fn, name: str, iters: int = 20):
     return None, 0, []
 
 
-def _flash_timed() -> list:
+def _flash_timed(head_dim=None) -> list:
     """CUDA-event ms of one call, the kernel's device ms, the plain
     version's and SDPA's (K/V repeated to Hq beforehand) ms, and the bound,
     at each timed shape: one row each, the serve's shape first (fp32, then
-    bf16)."""
+    bf16); with ``head_dim`` only the shapes of that head dim."""
     from repro_torch.kernels import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ops import kernel_for
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     for i, (B, Sq, Skv, Hq, Hkv, Dh, causal) in enumerate(FLASH_TIMED):
+        if head_dim is not None and Dh != head_dim:
+            continue
         for dtype in ((torch.float32, torch.bfloat16) if i == 0
                       else (torch.bfloat16,)):
             q, k, v = _flash_inputs(g, dtype, B, Sq, Skv, Hq, Hkv, Dh)
@@ -1487,7 +1543,10 @@ CONSISTENCY_S = {"llama3.2-1b": 1000, "qwen2-7b": 1000, "llama3.2-3b": 1000,
                  # S and S + 1 both lengths the reference's chunking takes:
                  # rwkv6 1023 = 31 x 33 and 1024 = 32 x 32; mamba one chunk
                  "rwkv6-3b": 1023, "jamba-1.5-large-398b": 500,
-                 "seamless-m4t-medium": 1000, "llama-3.2-vision-90b": 1000}
+                 "seamless-m4t-medium": 1000, "llama-3.2-vision-90b": 1000,
+                 # at KIMI_NO_DROP_CF a prefill's expert buffers are (384,
+                 # B S, 7168): 5.5 GB each at B 2 x 501
+                 "kimi-k2-1t-a32b": 500}
 LOGIT_REL = 5e-2        # max|d logits| / max|logit| in bf16
 LONG_MAX_LEN = 8192     # gemma2's serve: 4 slots of 512 pages
 # The reference's init draws wq and wk at std heads**-0.5 (its fan-in is
@@ -1740,16 +1799,17 @@ def _first_logits():
 
 
 def _first_token_check(cfg, params, prompts, served_rows,
-                       gate: bool = True) -> tuple:
+                       gate: bool = True, last_token: bool = False) -> tuple:
     """Each request's first-token logits from the serve (the prefill row
     of its length whose tokens end its prompt) against a B=1
     forward_prefill of its prompt on the card: the engine's padded,
     table-driven (mixed-layout) prefill, where bf16 tokens cannot be
     compared. Returns (rels, flips): ``flips`` counts, a request, the
     (token, MoE layer) pairs whose expert set differs between the two
-    prefills (0 without MoE layers). With ``gate`` False a reading only.
-    A cross-attention arch's B=1 prefill takes the zero source the
-    engine's does."""
+    prefills (0 without MoE layers; with ``last_token``, the prompt's last
+    token's alone). With ``gate`` False a reading only. A
+    cross-attention arch's B=1 prefill takes the zero source the engine's
+    does."""
     from repro_torch.models import forward_prefill
     rels, flips = [], []
     for p in prompts:
@@ -1760,7 +1820,8 @@ def _first_token_check(cfg, params, prompts, served_rows,
             ref, _ = forward_prefill(cfg, params, {"tokens": torch.tensor(
                 [p], device="cuda"), **_cross_inputs(cfg, 1)}, None)
         rels.append(_rel(lg, ref[0, -1]))
-        flips.append(sum(int((c != r[-len(c):]).any(-1).sum())
+        keep = slice(-1, None) if last_token else slice(None)
+        flips.append(sum(int((c[keep] != r[-len(c):][keep]).any(-1).sum())
                          for c, r in zip(choices, routes)))
     assert not gate or max(rels) < LOGIT_REL, rels
     return rels, flips
@@ -2371,6 +2432,136 @@ def _vision_reading(cfg, params, prompts, served, rels) -> dict:
     assert all(r["logits_rel"] <= VISION_FP32_REL for r in fp32.values()), \
         fp32
     return row
+
+
+# ------------------------------------------------------------------ phase 3i
+
+KIMI_ARCH = "kimi-k2-1t-a32b"
+# kimi-k2's cut: its dense first layer (attention 64/8 at D 112, FFN 16384)
+# and its first attn_moe layer (384 experts of d_ff 2048, top 8, a shared
+# expert, the published capacity factor), with the whole 163840-row table
+# and head: ~37 GiB of bf16. All 61 layers are ~2 TB.
+KIMI_CUT = 2
+# (a)'s capacity factor: E / K gives every expert as many slots as the
+# batch has tokens, so no choice drops at any batch size. MOE_NO_DROP_CF
+# does not suffice here: a decode batch of 2 tokens has C = 1 over 384
+# experts, and two tokens that share an expert drop a choice.
+KIMI_NO_DROP_CF = 384 / 8
+
+
+def _kimi_cfg(capacity_factor=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=KIMI_CUT)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def _kimi_prefill_cases() -> list:
+    """Phase 3i's prefills as flash takes them (causal, 64/8, D 112): phase
+    3's 8 requests padded to the engine's bucket, each request's length at
+    B 1 (the first-token check), and (a)'s B 2 at S and S + 1 tokens."""
+    cfg = _kimi_cfg()
+    lens = [len(p) for p in requests(cfg.vocab_size,
+                                     np.random.default_rng(SEED))]
+    bucket = PAGE           # the engine's _bucket_len at max_len 1024
+    while bucket < max(lens):
+        bucket *= 2
+    S = CONSISTENCY_S[KIMI_ARCH]
+    shapes = ({(len(lens), bucket), (2, S), (2, S + 1)}
+              | {(1, L) for L in lens})
+    return [(B, L, L, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True, None,
+             None, 0) for B, L in sorted(shapes)]
+
+
+def phase_kimi_arch() -> dict:
+    """kimi-k2 at full width on KIMI_CUT layers (bf16, random weights from
+    SEED built on the card): (a) decode against prefill, layer by layer
+    and end to end where not chaotic, at KIMI_NO_DROP_CF; (b) on the
+    weights as built or, where chaotic, q/k-scaled, one zero-copy serve of
+    phase 3's requests at the published capacity: no staging copy, one
+    global decode launch a layer a step, one flash launch a layer a
+    prefill call that has no shared prefix, every one on the kernel
+    ``kernel_for`` names at D 112, the dropped shares, ms a step, TTFT and
+    peak GiB (and past what earlier phases keep resident); (c) each
+    request's first-token logits against a B=1 prefill on a serve at
+    MOE_NO_DROP_CF (where the prefills' capacities, a third of their
+    tokens and more, drop nothing): a gate for every request whose last
+    token took the same experts in both prefills (its logits read only
+    its own MoE output), a reading where one choice flipped."""
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    from repro_torch.models import init_params
+    cfg = _kimi_cfg()
+    assert kernel_for(torch.bfloat16, cfg.d_head) == "wgmma"
+    resident = torch.cuda.memory_allocated()        # earlier phases'
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    weights_gib = sum(t.numel() * t.element_size()
+                      for t in _leaves(params)) / 2**30
+    params, cons = _consistency(_kimi_cfg(KIMI_NO_DROP_CF), params,
+                                CONSISTENCY_S[KIMI_ARCH],
+                                phase="phase3i decode-vs-prefill")
+    prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
+    with _moe_drops() as rec:
+        outs, eng, row, _ = _dense_serve(cfg, params, prompts,
+                                         TURN_NEW_TOKENS, TURN_SLOTS,
+                                         TURN_MAX_LEN)
+    launches, steps = row["launches"], row["decode_steps"]
+    assert row["staging_copies"] == 0, row
+    assert launches["paged_attention_global"] == cfg.n_layers * steps, \
+        launches
+    flash = launches["flash_attention_fwd"]
+    assert flash >= cfg.n_layers and flash % cfg.n_layers == 0, launches
+    _other_launches_zero(launches, ("paged_attention_global",
+                                    "flash_attention_fwd"))
+    row["drops"] = drops = _drop_shares(rec)
+    assert drops["decode"]["pairs"] == (
+        steps * TURN_SLOTS * cfg.moe.experts_per_token), drops
+    del eng
+    kinds = cfg.layer_kinds()
+    row.update(arch=KIMI_ARCH, dtype=cfg.activation_dtype,
+               n_layers=cfg.n_layers, layer_kinds=list(kinds),
+               d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+               d_head=cfg.d_head, flash_kernel=kernel_for(torch.bfloat16,
+                                                          cfg.d_head),
+               flash_prefill_calls=flash // cfg.n_layers, d_ff=cfg.d_ff,
+               experts=cfg.moe.n_experts, top_k=cfg.moe.experts_per_token,
+               d_ff_expert=cfg.moe.d_ff,
+               shared_experts=cfg.moe.n_shared_experts,
+               capacity_factor=cfg.moe.capacity_factor,
+               vocab=cfg.vocab_size, requests=len(prompts),
+               prompt_lens=[len(p) for p in prompts],
+               new_tokens=TURN_NEW_TOKENS, slots=TURN_SLOTS,
+               max_len=TURN_MAX_LEN, page=PAGE, init_s=init_s,
+               init_peak_gib=init_peak, weights_gib=weights_gib,
+               resident_gib=resident / 2**30,
+               arch_peak_gib=row["peak_mem_gib"] - resident / 2**30,
+               served_weights="q/k-scaled" if cons["chaotic"] else "as built")
+    emit("phase3i serve", **row)
+    # (c): no choice drops in the serve's prefill nor in a B=1 prefill
+    no_drop = _kimi_cfg(MOE_NO_DROP_CF)
+    _, eng, c_row, first = _dense_serve(no_drop, params, prompts,
+                                        TURN_NEW_TOKENS, TURN_SLOTS,
+                                        TURN_MAX_LEN)
+    del eng
+    rels, flips = _first_token_check(no_drop, params, prompts, first,
+                                     gate=False, last_token=True)
+    gated = [r for r, f in zip(rels, flips) if f == 0]
+    emit("phase3i first-token", arch=KIMI_ARCH,
+         capacity_factor=MOE_NO_DROP_CF, first_token_rel=rels,
+         last_token_flips=flips, gated=len(gated),
+         **{k: c_row[k] for k in ("decode_ms_per_step", "tokens_per_s",
+                                  "ttft_ms_median", "peak_mem_gib")})
+    assert gated and max(gated) < LOGIT_REL, (rels, flips)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _leaves(tree):
@@ -5810,6 +6001,229 @@ def _mc_check(ranks, one: dict, cfgs: dict, sizes: dict, head: dict) -> int:
     return meshes[str((2, 2))]["flash_launches_ranks"][0]
 
 
+# ------------------------------------------------------------------ phase 12
+
+PP_WORLD = 4
+# (a): the reference's own case (tests/test_multidevice.py:23-52): W (8,
+# 16, 16) at scale 0.3, x (6, 2, 4, 16), a block x -> tanh(x @ w), the loss
+# sum(sin(out)); the output within 1e-5, W's gradient within 1e-4
+PP_TOY_W, PP_TOY_X = (8, 16, 16), (6, 2, 4, 16)
+PP_TOY_OUT_TOL, PP_TOY_GRAD_TOL = 1e-5, 1e-4
+# (b): llama3.2-1b's 16 blocks at full width in fp32 (flash's fp32 kernel
+# takes D 64), 4 a stage, a batch of 8 x 512 in 4 microbatches of 2 rows
+PP_ARCH = "llama3.2-1b"
+PP_B, PP_S, PP_MICRO = 8, 512, 4
+PP_REL = 1e-4           # the output's and each leaf's max |d| / max |ref|
+PP_RANKS_S = 600
+
+
+def _pp_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(PP_ARCH), param_dtype="float32",
+                               activation_dtype="float32")
+
+
+def _pp_toy_stage(w_loc, x):
+    for w in w_loc:
+        x = torch.tanh(x @ w)
+    return x
+
+
+def _pp_toy_inputs():
+    r = np.random.default_rng(SEED)
+    W = (r.standard_normal(PP_TOY_W) * 0.3).astype(np.float32)
+    return W, r.standard_normal(PP_TOY_X).astype(np.float32)
+
+
+def _pp_llama_stage(cfg):
+    """apply_stage for llama's blocks: each as the train step applies it
+    (a prefill without a cache, flash's autograd Function), no remat."""
+    from repro_torch.models.blocks import FwdCtx
+    from repro_torch.models.model import _apply_block
+    ctx = FwdCtx(cfg=cfg, mode="prefill")
+
+    def apply(blocks, x):
+        for p in blocks:
+            x = _apply_block(x, p, ctx)
+        return x
+    return apply
+
+
+def _pp_leaves(block):
+    """A block's parameters as new leaves that need a gradient."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), block)
+
+
+def _pp_llama(device):
+    """(cfg, the 16 blocks, x_micro (4, 2, 512, 2048)), fp32, from SEED:
+    the same on every process."""
+    from repro_torch.models import init_params
+    cfg = _pp_cfg()
+    params = init_params(cfg, torch.Generator(device=device)
+                         .manual_seed(SEED), device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    x = torch.randn(PP_MICRO, PP_B // PP_MICRO, PP_S, cfg.d_model,
+                    generator=g, device=device)
+    return cfg, params["blocks"], x
+
+
+def _pp_stack_step(stage, blocks, x, want=None) -> tuple:
+    """The one-device sequential stack: every microbatch through all the
+    blocks, sum(sin(out)) backward a microbatch at a time. Returns (out, the
+    gradients of the blocks in ``want`` (default all), ms)."""
+    want = range(len(blocks)) if want is None else want
+    leaves = {i: _pp_leaves(blocks[i]) for i in want}
+    use = [leaves.get(i, b) for i, b in enumerate(blocks)]
+    torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    outs = []
+    for xi in x:
+        y = stage(use, xi)
+        torch.sin(y).sum().backward()
+        outs.append(y.detach())
+    torch.cuda.synchronize(x.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {i: [t.grad for t in _leaves(leaves[i])] for i in want}
+    return torch.stack(outs), grads, ms
+
+
+def _pp_rank(rank: int, port: int, backend: str, tmp: str, toy_ref: dict,
+             device_type: str = "cuda") -> None:
+    """One stage of phase 12: (a) the reference's case, (b) llama's blocks
+    twice (the second timed), then the one-device stack for this stage's
+    gradients; results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.pipeline import pipeline_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if backend == "nccl" else 0)
+    init_distributed(rank, PP_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    mesh = make_mesh((PP_WORLD,), ("stage",), device=device_type)
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend())
+    # (a)
+    W, x = (torch.from_numpy(a).to(device) for a in _pp_toy_inputs())
+    per = W.shape[0] // PP_WORLD
+    w = W[rank * per:(rank + 1) * per].clone().requires_grad_(True)
+    out = pipeline_apply(w, x, _pp_toy_stage, mesh)
+    torch.sin(out).sum().backward()
+    res["toy"] = dict(
+        out_err=(out.detach().cpu() - toy_ref["out"]).abs().max().item(),
+        grad_err=(w.grad.cpu() - toy_ref["gW"][rank * per:(rank + 1) * per]
+                  ).abs().max().item())
+    # (b)
+    cfg, blocks, x = _pp_llama(device)
+    per = len(blocks) // PP_WORLD
+    mine = range(rank * per, (rank + 1) * per)
+    stage = _pp_llama_stage(cfg)
+    ms, launches = [], []
+    for _ in range(2):
+        local = [_pp_leaves(blocks[i]) for i in mine]
+        dist.barrier()
+        reset_launch_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = pipeline_apply(local, x, stage, mesh)
+        torch.sin(out).sum().backward()
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(launch_counts()["flash_attention_fwd"])
+    res["ms"], res["flash_launches"] = ms, launches
+    res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    got = [[t.grad for t in _leaves(b)] for b in local]
+    out = out.detach()
+    del local
+    dist.barrier()          # the pipeline's steps are over on every rank
+    ref_out, ref_grads, ref_ms = _pp_stack_step(stage, blocks, x, mine)
+    res["stack_ms"] = ref_ms
+    res["out_rel"] = _rel(out, ref_out)
+    rels = [_rel(a, b) for blk, i in zip(got, mine)
+            for a, b in zip(blk, ref_grads[i])]
+    res["grad_rel_max"], res["grad_leaves"] = max(rels), len(rels)
+    res["grad_rel_min"] = min(rels)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_pipeline(device_type: str = "cuda") -> dict:
+    """12. GPipe (``launch/pipeline.py::pipeline_apply``) on a (4,)
+    ("stage",) mesh of four ranks (NCCL, one rank a card, with four cards;
+    else gloo, the four on cuda:0). Here: the reference's case on one
+    device (the sequential stack, its output and W's gradient), and the
+    one-device stack of llama3.2-1b's 16 full-width blocks in fp32, timed.
+    In the ranks, each a stage of 4 blocks: (a) the reference's case
+    against the one-device stack (output 1e-5, the stage's W gradient
+    1e-4); (b) llama's blocks, a batch of 8 x 512 in 4 microbatches, one
+    forward and backward (sum(sin(out))) twice, the second timed, then the
+    one-device stack on the rank: the output and each of the stage's
+    leaves' gradients within 1e-4 of their largest value; ms a forward and
+    backward beside the one-device stack's, flash launches a rank (4
+    blocks x 7 ticks), peak GiB, the bubble fraction (n_stages - 1) / T."""
+    import torch.multiprocessing as mp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    W, x = (torch.from_numpy(a).to(device_type) for a in _pp_toy_inputs())
+    Wg = W.clone().requires_grad_(True)
+    out = torch.stack([_pp_toy_stage(Wg, xi) for xi in x])
+    torch.sin(out).sum().backward()
+    toy_ref = dict(out=out.detach().cpu(), gW=Wg.grad.cpu())
+    cfg, blocks, xl = _pp_llama(device_type)
+    stage = _pp_llama_stage(cfg)
+    stack_ms = [_pp_stack_step(stage, blocks, xl)[2] for _ in range(2)]
+    stack_peak = torch.cuda.max_memory_allocated() / 2**30
+    del blocks, xl
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= PP_WORLD else "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(_pp_rank, args=(_free_port(), backend, tmp, toy_ref,
+                                       device_type),
+                       nprocs=PP_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > PP_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the pipeline's ranks ran past "
+                                   f"{PP_RANKS_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(PP_WORLD)]
+    ticks = PP_MICRO + PP_WORLD - 1
+    row = dict(world_size=PP_WORLD, backend=backend, cards=n_cards,
+               devices=[r["device"] for r in ranks],
+               ranks_s=time.perf_counter() - t0,
+               toy=dict(W=list(PP_TOY_W), x=list(PP_TOY_X),
+                        out_err=[r["toy"]["out_err"] for r in ranks],
+                        grad_err=[r["toy"]["grad_err"] for r in ranks],
+                        out_tol=PP_TOY_OUT_TOL, grad_tol=PP_TOY_GRAD_TOL),
+               arch=PP_ARCH, dtype="float32", blocks=cfg.n_layers,
+               blocks_a_stage=cfg.n_layers // PP_WORLD,
+               batch=[PP_B, PP_S], micro=PP_MICRO, ticks=ticks,
+               bubble_fraction=(PP_WORLD - 1) / ticks,
+               out_rel=[r["out_rel"] for r in ranks],
+               grad_rel_max=[r["grad_rel_max"] for r in ranks],
+               grad_rel_min=[r["grad_rel_min"] for r in ranks],
+               grad_leaves=[r["grad_leaves"] for r in ranks], tol=PP_REL,
+               ms_ranks=[r["ms"] for r in ranks],
+               one_device_ms=stack_ms,
+               stack_on_rank_ms=[r["stack_ms"] for r in ranks],
+               flash_launches_ranks=[r["flash_launches"] for r in ranks],
+               peak_gib_ranks=[r["peak_gib"] for r in ranks],
+               one_device_peak_gib=stack_peak)
+    emit("phase12 pipeline", **row)
+    assert max(row["toy"]["out_err"]) < PP_TOY_OUT_TOL, row["toy"]
+    assert max(row["toy"]["grad_err"]) < PP_TOY_GRAD_TOL, row["toy"]
+    assert max(row["out_rel"]) < PP_REL, row["out_rel"]
+    assert max(row["grad_rel_max"]) < PP_REL, row["grad_rel_max"]
+    want = cfg.n_layers // PP_WORLD * ticks
+    assert all(n == [want, want] for n in row["flash_launches_ranks"]), row
+    return dict(launches=want, row=row)
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -5858,6 +6272,13 @@ def main(argv=None) -> int:
                     help="build the flash kernel and run phase 11 "
                          "(cross-attention training on a mesh of four "
                          "ranks) only")
+    ap.add_argument("--kimi-only", action="store_true",
+                    help="build the decode and flash kernels, hold them at "
+                         "kimi-k2's head dim 112 and run phase 3i (the "
+                         "two-layer kimi-k2 cut) only")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="build the flash kernel and run phase 12 (GPipe "
+                         "over four stage ranks) only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -5898,6 +6319,18 @@ def main(argv=None) -> int:
         phase_card(["flash_attention"])
         phase_mesh_cross()
         return 0
+    if args.kimi_only:
+        phase_card(["paged_attention", "flash_attention"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _decode_archs(KIMI_ARCH)
+        _flash_cases(head_dim=112)
+        _flash_timed(head_dim=112)
+        phase_kimi_arch()
+        return 0
+    if args.pipeline_only:
+        phase_card(["flash_attention"])
+        phase_pipeline()
+        return 0
     phase_s = {}            # each phase's wall seconds, the build's too
 
     def timed(name, fn, *a):
@@ -5916,6 +6349,7 @@ def main(argv=None) -> int:
     moe_launches = timed("3f", phase_moe_arch)
     recurrent_launches = timed("3g", phase_recurrent_archs)
     cross_launches = timed("3h", phase_cross_archs)
+    kimi_launches = timed("3i", phase_kimi_arch)
     if args.profile:
         timed("profile", phase_profile, *served)
     del served              # phase 3's weights: the mesh phases' ranks
@@ -5930,10 +6364,12 @@ def main(argv=None) -> int:
     mesh_moe = timed("9", phase_mesh_moe)
     mesh_recurrent = timed("10", phase_mesh_recurrent)
     mesh_cross = timed("11", phase_mesh_cross)
+    pipeline = timed("12", phase_pipeline)
     emit("phase seconds", **phase_s)
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
     fl = res["flash_timed"][1]          # bf16 at the serve's shape
+    kimi_fl = [r for r in res["flash_timed"] if r["D"] == 112][0]
     slot = res[("slot", torch.bfloat16)]
     kernels = [
         {"name": "paged_attention_global", "route": "cuda",
@@ -5953,6 +6389,7 @@ def main(argv=None) -> int:
              for a, n in recurrent_launches.items()},
          "launches_cross_archs": {a: n["paged_attention_global"]
                                   for a, n in cross_launches.items()},
+         "launches_kimi_arch": kimi_launches["paged_attention_global"],
          **_decode_row(dec),
          "hbm_residency_ms": res[("residency", torch.bfloat16)]["hbm"],
          "smem_residency_ms": res[("residency", torch.bfloat16)]["smem"],
@@ -5995,6 +6432,12 @@ def main(argv=None) -> int:
                                       for a, n in recurrent_launches.items()},
          "launches_cross_archs": {a: n["flash_attention_fwd"]
                                   for a, n in cross_launches.items()},
+         "launches_kimi_arch": kimi_launches["flash_attention_fwd"],
+         "kimi_shape": {k: kimi_fl[k] for k in (
+             "B", "Sq", "Skv", "Hq", "Hkv", "D", "kernel", "max_abs_err",
+             "tol", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")},
+         "launches_pipeline_a_rank": pipeline["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

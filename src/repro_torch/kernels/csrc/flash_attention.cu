@@ -14,13 +14,14 @@
 //
 // Two kernels; ops.py picks one by (dtype, head dim) alone.
 //
-// flash_fwd_wgmma_kernel (bf16, head dims 64, 128, 256): one CTA per
+// flash_fwd_wgmma_kernel (bf16, head dims 64, 112, 128, 256): one CTA per
 // (128 query rows, q head, batch row), three warpgroups. The third is the
 // producer: it gives up registers (setmaxnreg) and one thread issues TMA
 // loads, the Q tile once and K/V tiles of 64 rows through a ring of 2-3
 // stages, each stage a full/empty mbarrier pair. Tiles are 64-column slabs
-// with 128-byte swizzle (a head dim of 128 or 256 is 2 or 4 slabs). The two
-// consumer warpgroups take the registers and own 64 query rows each; both
+// with 128-byte swizzle (a head dim of 128 or 256 is 2 or 4 slabs; 112 is
+// 2, padded: see below). The two consumer warpgroups take the registers
+// and own 64 query rows each; both
 // read every K/V tile, which halves K/V traffic through shared memory per
 // flop against one. Per tile a consumer runs S = Q K^T as wgmma from shared
 // memory (K stored (kv, D) is the K-major B operand), the online softmax
@@ -29,9 +30,15 @@
 // in registers, where the m64n64 accumulator layout is the A fragment of
 // the next product, and runs O += P V as wgmma with V (stored (kv, D), so
 // MN-major) under the transpose bit. KV tiles wholly outside the causal
-// or window range are never loaded. Later work: overlap of one warpgroup's
-// softmax with the other's products (ping-pong), and of the softmax with
-// the next tile's S inside a warpgroup.
+// or window range are never loaded. Head dim 112 (kimi-k2's) runs on two
+// slabs: the tensor maps' inner dimension is 112, so the TMA fills columns
+// 112-127 of the second box with zeros (OOB_FILL_NONE) and still counts the
+// whole box's bytes; S = Q K^T takes only the 7 K steps of 16 real
+// columns, O's second slab gets zero columns there from V, and the
+// epilogue stores only the columns below D (the row stride is D, so a
+// store past it would land in the next head's row). Later work: overlap
+// of one warpgroup's softmax with the other's products (ping-pong), and of
+// the softmax with the next tile's S inside a warpgroup.
 //
 // flash_fwd_kernel (fp32 at head dims 16, 32, 64; bf16 at 16, 32): one
 // block per (64 query rows, q head, batch row); each thread owns one query
@@ -254,7 +261,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct WgCfg {
-  static constexpr int kSlabs = D / 64;
+  static_assert(D % 16 == 0, "wgmma steps K by 16 columns");
+  static constexpr int kSlabs = (D + 63) / 64;  // a partial slab is zero-padded
   static constexpr int kStages = D == 256 ? 2 : 3;
   static constexpr int kQBytes = kSlabs * kSlabQ;
   static constexpr int kKVBytes = kSlabs * kSlabKV;  // K or V, one stage
@@ -475,9 +483,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int s = 0; s < C::kSlabs; ++s)
 #pragma unroll
           for (int g = 0; g < 8; ++g)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 64 * s + 8 * g + c0) =
-                __floats2bfloat162_rn(o[s][4 * g + 2 * x] / den,
-                                      o[s][4 * g + 2 * x + 1] / den);
+            if (64 * s + 8 * g < D)   // D 112: the padded columns stay unstored
+              *reinterpret_cast<__nv_bfloat162*>(orow + 64 * s + 8 * g + c0) =
+                  __floats2bfloat162_rn(o[s][4 * g + 2 * x] / den,
+                                        o[s][4 * g + 2 * x + 1] / den);
         if (lse != nullptr && c0 == 0)
           lse[((size_t)b * s_q + row) * hq + h] = (isinf(m[x]) ? 0.f : m[x]) + logf(den);
       }
@@ -510,7 +519,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
 
 // bf16 only. q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D),
 // all contiguous with 16-byte-aligned bases; lse: (B, Sq, Hq) float32, or
-// null for none; d is 64, 128 or 256. window
+// null for none; d is 64, 112, 128 or 256. window
 // <= 0 and softcap <= 0 mean none. Returns the cudaError_t of the launch
 // (0 = success), or a negative code when a tensor map cannot be encoded
 // (-1: the CUDA driver has no encoder; -(1000 + CUresult): the map is
@@ -526,6 +535,8 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   switch (d) {
     case 64: return launch_wgmma<64>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
                                      window, q_offset, scale, softcap, s);
+    case 112: return launch_wgmma<112>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
+                                       window, q_offset, scale, softcap, s);
     case 128: return launch_wgmma<128>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,
                                        window, q_offset, scale, softcap, s);
     case 256: return launch_wgmma<256>(q, k, v, out, l, b, s_q, s_kv, hq, hkv, causal,

@@ -23,7 +23,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (bf16 only), "simt" the one-thread-a-row kernel on the CUDA cores.
 _KERNEL_FOR = {**{(torch.float32, d): "simt" for d in (16, 32, 64)},
                **{(torch.bfloat16, d): "simt" for d in (16, 32)},
-               **{(torch.bfloat16, d): "wgmma" for d in (64, 128, 256)}}
+               **{(torch.bfloat16, d): "wgmma" for d in (64, 112, 128, 256)}}
 _launchers = {}
 
 

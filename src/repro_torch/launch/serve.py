@@ -41,8 +41,8 @@ from repro_torch.models.params import resolve_device
 
 
 # Archs that serve at smoke size only, and why.
-SMOKE_ONLY = {"kimi-k2-1t-a32b": "about 2 TB of bf16 weights at full width, "
-                                 "and no flash kernel at d_head 112",
+SMOKE_ONLY = {"kimi-k2-1t-a32b": "its 61 layers are about 2 TB of bf16 "
+                                 "weights, past an 80 GB card",
               "jamba-1.5-large-398b": "398 B parameters are about 0.8 TB of "
                                       "bf16 weights, and one period of 8 "
                                       "layers alone is 84 GiB, past an 80 GB "

@@ -357,7 +357,9 @@ def local_blocks(cfg: ModelConfig, params, mi: MeshInfo = NO_MESH):
 def materialize(specs, cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
     """A tree of ParamSpecs as tensors on ``device``, drawn from
-    ``generator`` in the tree's order."""
+    ``generator`` in the tree's order. Each draw is scaled in place, so a
+    leaf needs one float32 buffer beside its own: kimi-k2's expert leaves,
+    (384, 7168, 2048), are 22.5 GB in float32."""
     dev = resolve_device(device)
 
     def mk(s: ParamSpec) -> torch.Tensor:
@@ -369,10 +371,10 @@ def materialize(specs, cfg: ModelConfig, generator: torch.Generator,
         if s.init == "uniform_pm":
             u = torch.rand(s.shape, generator=generator, dtype=torch.float32,
                            device=dev)
-            return ((u * 2 - 1) * s.scale).to(dt)
+            return u.mul_(2).sub_(1).mul_(s.scale).to(dt)
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (w * s.std()).to(dt)
+        return w.mul_(s.std()).to(dt)
 
     return _map(mk, specs)
 

@@ -617,14 +617,15 @@ def test_wrappers_reject_bad_inputs():
 @pytest.mark.parametrize("dtype,head_dim,kind", [
     ("float32", 16, "simt"), ("float32", 32, "simt"), ("float32", 64, "simt"),
     ("bfloat16", 16, "simt"), ("bfloat16", 32, "simt"),
-    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
-    ("bfloat16", 256, "wgmma")])
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 112, "wgmma"),
+    ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma")])
 def test_flash_kernel_for(dtype, head_dim, kind):
     assert kernel_for(getattr(torch, dtype), head_dim) == kind
 
 
 @pytest.mark.parametrize("dtype,head_dim,exc", [
-    ("bfloat16", 48, ValueError), ("float32", 128, ValueError),
+    ("bfloat16", 48, ValueError), ("float32", 112, ValueError),
+    ("float32", 128, ValueError),
     ("float32", 256, ValueError), ("bfloat16", 8, ValueError),
     ("float16", 64, TypeError), ("float16", 128, TypeError)])
 def test_flash_kernel_for_rejects(dtype, head_dim, exc):
@@ -916,7 +917,9 @@ def test_decode_bf16_within_1e3_on_card(cuda, per_slot):
 # consumer warpgroup's 64 (the TMA box of 128 rows reads zeros past Sq):
 # cross-attention's decode (Sq = 1, non-causal, GQA) over sources shorter
 # and longer than a KV tile, a few rows causal with an offset, and a
-# source of 9 keys.
+# source of 9 keys. Last, head dim 112 (kimi-k2's: two 64-column slabs, the
+# second zero-padded past column 112): causal at G = 8, non-causal, Sq = 1,
+# a window, and a q_offset with a softcap.
 FLASH_CARD_BF16 = [
     (2, 100, 100, 8, 2, 64, True, None, 50.0, 0),
     (1, 130, 130, 4, 4, 128, False, None, None, 0),
@@ -931,6 +934,11 @@ FLASH_CARD_BF16 = [
     (2, 5, 100, 4, 2, 256, False, None, None, 0),
     (1, 33, 70, 4, 2, 64, True, None, None, 37),
     (1, 17, 9, 4, 4, 128, False, None, None, 0),
+    (2, 100, 100, 16, 2, 112, True, None, None, 0),
+    (1, 130, 130, 4, 4, 112, False, None, None, 0),
+    (2, 1, 77, 8, 1, 112, False, None, None, 0),
+    (1, 200, 260, 8, 1, 112, True, 100, None, 60),
+    (1, 65, 200, 8, 2, 112, True, None, 50.0, 150),
 ]
 
 

@@ -12,7 +12,9 @@ prefill through the serving layout and a decode step, logits and every
 pool at 1e-4; decode against prefill at capacity 16. Engine level: tokens,
 ``stats()`` minus wall clock and the translation trace against the JAX
 engines (olmoe in zero-copy, copy, continuous and both disaggregated
-modes; kimi in zero-copy). Also the router's float32 at bf16 parameters,
+modes; kimi in zero-copy). kimi's head dim, 112, at a narrow width
+(``KIMI_D112``: d_model 224, 2/1 heads, 8 experts) through the model and
+the engine levels. Also the router's float32 at bf16 parameters,
 the experts' damped init, the serve CLIs on the CPU, and on the card the
 main path against the plain version with no host sync."""
 import dataclasses
@@ -52,6 +54,11 @@ from repro_torch.models.params import model_specs  # noqa: E402
 TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
 OLMOE, KIMI = "olmoe-1b-7b", "kimi-k2-1t-a32b"
+# kimi-k2's head dim at a narrow width: smoke kimi (a dense first layer,
+# then one attn_moe layer with a shared expert) at d_model 224, 2/1 heads
+# of 112, 8 experts, top 2
+KIMI_D112 = "kimi-k2-1t-a32b@d112"
+D112 = dict(d_model=224, n_heads=2, n_kv_heads=1, d_head=112)
 IMPLS = {"main": moe_ffn, "ref": moe_ffn_ref}
 SLOTS, MAX_LEN, PAGE = 4, 32, 8
 P = MAX_LEN // PAGE
@@ -59,9 +66,16 @@ TOTAL = SLOTS * P
 
 
 def _cfgs(arch, **moe):
-    """(JAX cfg, port cfg) of the smoke arch, the MoE fields replaced."""
+    """(JAX cfg, port cfg) of the smoke arch (KIMI_D112: smoke kimi at
+    D112's widths and 8 experts), the MoE fields replaced."""
+    narrow = arch == KIMI_D112
+    arch = KIMI if narrow else arch
     cfg = reduce_for_smoke(get_config(arch))
     tcfg = reduce_for_smoke(tconfigs.get_config(arch))
+    if narrow:
+        cfg = dataclasses.replace(cfg, **D112)
+        tcfg = dataclasses.replace(tcfg, **D112)
+        moe = dict(moe, n_experts=moe.get("n_experts", 8))
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
         tcfg = dataclasses.replace(tcfg,
@@ -269,7 +283,7 @@ def _pools(cfg, jcache, tcache):
             yield t.numpy().copy(), j if at is None else j[at]
 
 
-@pytest.fixture(scope="module", params=[OLMOE, KIMI])
+@pytest.fixture(scope="module", params=[OLMOE, KIMI, KIMI_D112])
 def served(request, models):
     """Three right-padded prompts beside an empty slot, prefilled through
     the serving layout (the padding and the empty row route and take
@@ -338,7 +352,7 @@ def test_decode_logits_and_pools(served):
                for kv in served["tcache"])
 
 
-@pytest.mark.parametrize("arch", [OLMOE, KIMI])
+@pytest.mark.parametrize("arch", [OLMOE, KIMI, KIMI_D112])
 def test_decode_matches_prefill(models, arch):
     """tests/test_decode_consistency.py's MoE case on the port: at capacity
     16 nothing drops, so a prefill of 24 tokens and one decode step equal a
@@ -372,7 +386,8 @@ def test_decode_matches_prefill(models, arch):
     (OLMOE, "continuous", "zero_copy", "pressure", 1),
     (OLMOE, "disagg-share", "zero_copy", "pressure", 1),
     (OLMOE, "disagg-copy", "zero_copy", "pressure", 3),
-    (KIMI, "fixed", "zero_copy", "prefix", 3)])
+    (KIMI, "fixed", "zero_copy", "prefix", 3),
+    (KIMI_D112, "fixed", "zero_copy", "prefix", 3)])
 def test_engine_matches_jax_engine(models, arch, kind, mode, name, arrival):
     """The same tokens, stats (wall clock aside) and translation trace as
     the JAX engine of the same kind; the continuous engine over a pool of
