@@ -293,6 +293,29 @@ Phases (each prints one line; any failure exits non-zero):
      against the one-device stack, ms a forward and backward beside the
      one-device stack's, flash launches a rank, peak GiB, the bubble
      fraction. A rank's failure fails the phase.
+ 13. The reference's serve steps on a mesh (launch/steps.py's
+     make_prefill_step and make_decode_step with placed weights and
+     cache): four ranks as in 7, llama3.2-1b at full width in bf16 (wq, wk
+     x 0.1), each rank its blocks of the parameters (FSDP over data, TP
+     over model) and of the per-slot cache (its rows, and its 64 / model
+     tokens of every page of 64: 8 KV heads are fewer than 16), phase 3's
+     eight prompts right-padded to 512, 1024 tokens a slot, 16 greedy
+     decode steps (sample=True: the argmax over the vocab-parallel head
+     by one all-reduce MAX and one MIN); on (1, 4) at full depth, on (2,
+     2) and (4, 1) on phase 8's 2-layer cut. First flash (q (B / data,
+     512, 32 / model, 64) over its 8 / model KV heads, causal) and the
+     per-slot decode kernel (every q head over the rank's slice of the
+     pages, with lse where the page splits) at every rank shape against
+     their plain versions, timed; the one-device steps on the same
+     weights (the ranks are fed its greedy tokens). Then each rank: its
+     blocks' bytes equal to abstract's prediction, exactly; the prefill's
+     logits and one later step's within 5e-2 of the one-device steps';
+     the first greedy tokens equal wherever the one-device top-2 margin
+     exceeds twice the logits' gap (the rest, and each step's tokens, a
+     reading); model replicas bit for bit; ms a step beside one device's,
+     peak GiB, each kernel's launches from 0 (flash one a layer, the
+     per-slot decode one a layer a step). A rank's failure fails the
+     phase.
 With ``--profile``, phase 3 is served a second time under torch.profiler.
 Then one JSON line of per-kernel numbers, and the contract line
 ``{"ok": true, "device": {...}}`` last.
@@ -336,6 +359,10 @@ builds the decode and flash kernels, runs phase 2's rows at head dim 112
     python3 chip_smoke.py --pipeline-only
 
 builds the flash kernel and runs phase 12 alone.
+
+    python3 chip_smoke.py --mesh-serve-only
+
+builds the decode and flash kernels and runs phase 13 alone.
 """
 from __future__ import annotations
 
@@ -6224,6 +6251,338 @@ def phase_pipeline(device_type: str = "cuda") -> dict:
     return dict(launches=want, row=row)
 
 
+# ------------------------------------------------------------------ phase 13
+
+MS_ARCH = "llama3.2-1b"
+MS_B, MS_S = 8, 512         # phase 3's eight prompts, right-padded
+MS_MAX_LEN, MS_PAGE = 1024, 64
+MS_STEPS = 16               # greedy decode steps a mesh
+MS_FULL = (1, 4)            # at full depth
+MS_CUT = ((2, 2), (4, 1))   # on phase 8's 2-layer cut: FSDP over data
+                            # gathers each layer's blocks (and the table)
+                            # through the host at every step over gloo
+MS_RANKS_S = 600
+
+
+def _ms_cfg(mesh):
+    """The config a mesh serves: full depth on MS_FULL, else the cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MS_ARCH)
+    return cfg if tuple(mesh) == MS_FULL else dataclasses.replace(
+        cfg, n_layers=MT_LAYERS)
+
+
+def _ms_params(cfg, device, mi=None):
+    """Seeded weights, wq and wk x 0.1 (phase 6's "scaled" set: llama's
+    init is chaotic at depth, and the mesh's bf16 sums run in another
+    order); on a mesh the rank's blocks of the same tree."""
+    from repro_torch.models import NO_MESH, init_params
+    g = torch.Generator(device=device).manual_seed(SEED + 40)
+    return _qk_scaled(init_params(cfg, g, device, mi=mi or NO_MESH))
+
+
+def _ms_batch(cfg, device) -> dict:
+    """Phase 3's eight prompts (185-481 tokens) right-padded to MS_S."""
+    prompts = requests(cfg.vocab_size, np.random.default_rng(SEED))
+    tokens = torch.zeros((MS_B, MS_S), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    return {"tokens": tokens.to(device),
+            "lengths": torch.tensor([len(p) for p in prompts],
+                                    dtype=torch.int32, device=device)}
+
+
+def _ms_one_device(cfg, device) -> dict:
+    """The one-device steps on the phase's weights: the prefill's logits,
+    MS_STEPS greedy decode steps with their logits (the tokens the ranks
+    are fed), one more step's logits, each greedy step's ms (a second
+    run, sample=True, as the ranks run) and the peak GiB."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import NO_MESH, init_cache
+    params = _ms_params(cfg, device)
+    batch = _ms_batch(cfg, device)
+    prefill = make_prefill_step(cfg, NO_MESH, MS_PAGE)
+    decode = make_decode_step(cfg, NO_MESH, page_size=MS_PAGE)
+    sample = make_decode_step(cfg, NO_MESH, sample=True, page_size=MS_PAGE)
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, MS_B, MS_MAX_LEN, MS_PAGE, device=device)
+    lg, cache = prefill(params, batch, cache)
+    out = dict(prefill_logits=lg.float().cpu(), tokens=[], margins=[])
+    tok, pos = lg.argmax(-1), batch["lengths"].clone()
+    for _ in range(MS_STEPS):
+        out["tokens"].append(tok.cpu())
+        top2 = lg.float().topk(2, -1).values
+        out["margins"].append((top2[..., 0] - top2[..., 1]).cpu())
+        lg, cache = decode(params, tok, pos, cache)
+        tok, pos = lg.argmax(-1), pos + 1
+    out["last_token"] = tok.cpu()
+    lg, cache = decode(params, tok, pos, cache)
+    out["last_logits"] = lg.float().cpu()
+    cache = init_cache(cfg, MS_B, MS_MAX_LEN, MS_PAGE, device=device)
+    _, cache = prefill(params, batch, cache)
+    pos, ms = batch["lengths"].clone(), []
+    for t in out["tokens"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = sample(params, t.to(device), pos, cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        pos = pos + 1
+    out["ms_steps"] = ms
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _ms_decode_row(cfg, mesh, lengths) -> dict:
+    """The per-slot decode kernel at a rank's shape on ``mesh``: its rows
+    (B / data), every q head (gathered over model), its slice of every
+    page (64 / model tokens of all 8 KV heads, 16 pages), the local
+    lengths of the last rank of ``model`` at ``lengths`` (the served
+    lengths after the last step); with lse where the page splits, as the
+    step runs it. Against the plain version, timed, with its bound."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import split_local_lengths
+    d, m = mesh
+    B, pl, n_pages = MS_B // d, MS_PAGE // m, MS_MAX_LEN // MS_PAGE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q = mk(B, cfg.n_heads, cfg.d_head)
+    kp = mk(B, n_pages, pl, cfg.n_kv_heads, cfg.d_head)
+    vp = mk(B, n_pages, pl, cfg.n_kv_heads, cfg.d_head)
+    tbl = torch.arange(n_pages, dtype=torch.int32, device="cuda") \
+        .expand(B, n_pages).contiguous()
+    ln = split_local_lengths(lengths[:B].cuda(), n_pages * MS_PAGE, MS_PAGE,
+                             m, m - 1).contiguous()
+    lse = m > 1
+    call = lambda: paged_attention(q, kp, vp, tbl, ln, return_lse=lse)
+    plain = lambda: paged_attention_ref(q, kp, vp, tbl, ln, return_lse=lse)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    out, ref = (got[0], want[0]) if lse else (got, want)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (got[1] - want[1]).abs().max().item() if lse else None
+    row = dict(mesh=list(mesh), shape=[list(q.shape), list(kp.shape)],
+               local_lengths=ln.tolist(), return_lse=lse, max_abs_err=err,
+               tol=TOL[torch.bfloat16], lse_err=lse_err,
+               lse_tol=DECODE_LSE_TOL)
+    assert err <= TOL[torch.bfloat16], row
+    assert not lse or lse_err <= DECODE_LSE_TOL, row
+    nbytes, flops = _slot_decode_bound(q, kp, tbl, ln)
+    if lse:
+        nbytes += 4 * q.shape[0] * q.shape[1]
+    row.update(_decode_times(call, plain, nbytes, flops, torch.bfloat16,
+                             plain_iters=3), library_ms=None)
+    emit("phase13 mesh serve decode", **row)
+    return row
+
+
+def _ms_rank(rank: int, port: int, backend: str, tmp: str, forced: dict,
+             device_type: str = "cuda") -> None:
+    """One rank of phase 13: for each mesh, its blocks of the weights and
+    of the per-slot cache, their bytes against ``abstract``'s; the
+    prefill step, then MS_STEPS greedy decode steps fed the one-device
+    run's tokens (``forced``: the rank's argmax beside them), each timed;
+    the launches and the peak from 0 just before; then one more step's
+    logits. Results to ``tmp``/rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.input_specs import prefill_cache_specs
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import MeshInfo, init_cache
+    from repro_torch.models.dist import axis_rank
+    from repro_torch.models.model import batch_sharding
+    from repro_torch.models.params import abstract, model_specs
+    from repro_torch.tree import leaves
+    device = torch.device(device_type, rank if backend == "nccl" else 0)
+    init_distributed(rank, MESH_WORLD, f"tcp://localhost:{port}",
+                     device=device, backend=backend)
+    res = dict(rank=rank, device=str(device), backend=dist.get_backend())
+    for mesh in (MS_FULL,) + MS_CUT:
+        mi = MeshInfo(make_mesh(mesh, ("data", "model"), device=device_type))
+        cfg = _ms_cfg(mesh)
+        params = _ms_params(cfg, device, mi)
+        cache = init_cache(cfg, MS_B, MS_MAX_LEN, MS_PAGE, device=device,
+                           mi=mi, placed=True)
+        torch.cuda.synchronize(device)
+        held = leaves(params) + leaves(cache)
+        want = (leaves(abstract(model_specs(cfg), mi, cfg=cfg))
+                + leaves(prefill_cache_specs(
+                    cfg, ShapeConfig("c", MS_MAX_LEN, MS_B, "prefill"), mi,
+                    MS_PAGE)[0]))
+        r = dict(coords=[axis_rank(mi, a) for a in ("data", "model")],
+                 nbytes=sum(t.untyped_storage().nbytes() for t in held),
+                 want_nbytes=sum(t.numel() * t.element_size() for t in want),
+                 shapes_ok=[list(t.shape) for t in held]
+                 == [list(t.shape) for t in want])
+        rows = batch_sharding((MS_B,), mi)
+        batch = _ms_batch(cfg, device)
+        prefill = make_prefill_step(cfg, mi, MS_PAGE)
+        sample = make_decode_step(cfg, mi, sample=True, page_size=MS_PAGE)
+        decode = make_decode_step(cfg, mi, page_size=MS_PAGE)
+        steps = forced[tuple(mesh) == MS_FULL]
+        dist.barrier()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize(device)
+        r["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        r["prefill_logits"] = lg.float().cpu()
+        pos, toks, ms = batch["lengths"].clone(), [], []
+        for t in steps["tokens"]:
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            tok, cache = sample(params, t.to(device), pos, cache)
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok.cpu())
+            pos = pos + 1
+        r["launches"] = launch_counts()
+        r["flash_wgmma"] = _serve_launches()["flash_attention_fwd_wgmma"]
+        r["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        r["tokens"], r["ms_steps"] = toks, ms
+        lg, cache = decode(params, steps["last_token"].to(device), pos, cache)
+        r["last_logits"] = lg.float().cpu()
+        r["rows"] = [rows.cut(torch.arange(MS_B)).tolist()]
+        res[str(tuple(mesh))] = r
+        del params, cache
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_serve(device_type: str = "cuda") -> dict:
+    """13. The reference's serve steps on a mesh: four ranks as in 7,
+    llama3.2-1b at full width in bf16 (wq, wk x 0.1) through
+    ``make_prefill_step`` and ``make_decode_step`` with placed weights and
+    cache (each rank its blocks of the parameters, FSDP over data and TP
+    over model, and of the per-slot cache, each page's 64 tokens over
+    model), phase 3's eight prompts right-padded to 512, a cache of 1024
+    tokens at page 64, 16 greedy steps: on (1, 4) at full depth, on (2,
+    2) and (4, 1) on phase 8's 2-layer cut. Here: flash and the per-slot
+    decode at every rank shape against their plain versions, and the
+    one-device steps (logits, the greedy tokens the ranks are fed, ms a
+    step). In the ranks: the bytes of their blocks against ``abstract``'s
+    prediction, the prefill's logits and one later step's within 5e-2 of
+    the one-device steps', the first greedy tokens equal wherever the
+    one-device top-2 margin exceeds twice the logits' gap, each step's
+    greedy tokens (a reading), replicas bit for bit, ms a step, peak GiB
+    and each kernel's launches a rank."""
+    import torch.multiprocessing as mp
+    from repro_torch.models.model import page_split
+    torch.backends.cuda.matmul.allow_tf32 = False
+    forced, one = {}, {}
+    for full in (True, False):
+        mesh = MS_FULL if full else MS_CUT[0]
+        cfg = _ms_cfg(mesh)
+        one[full] = _ms_one_device(cfg, device_type)
+        forced[full] = {k: one[full][k] for k in ("tokens", "last_token")}
+        torch.cuda.empty_cache()
+    lengths = torch.tensor([len(p) for p in requests(
+        _ms_cfg(MS_FULL).vocab_size, np.random.default_rng(SEED))]) + MS_STEPS
+    flash_rows, decode_rows = [], []
+    for mesh in (MS_FULL,) + MS_CUT:
+        cfg = _ms_cfg(mesh)
+        d, m = mesh
+        flash_rows.append(_flash_row(
+            "phase13 mesh serve flash", dict(arch=cfg.name, mesh=list(mesh)),
+            torch.bfloat16, MS_B // d, MS_S, MS_S, cfg.n_heads // m,
+            _rank_kv_heads(cfg, m), cfg.d_head, True))
+        decode_rows.append(_ms_decode_row(cfg, mesh, lengths))
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(_ms_rank, args=(_free_port(), backend, tmp, forced,
+                                       device_type),
+                       nprocs=MESH_WORLD, join=False)
+        while not ctx.join(timeout=5):      # a rank's failure raises here
+            if time.perf_counter() - t0 > MS_RANKS_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the serve ranks ran past {MS_RANKS_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_WORLD)]
+    ranks_s = time.perf_counter() - t0
+    meshes = {}
+    for mesh in (MS_FULL,) + MS_CUT:
+        cfg = _ms_cfg(mesh)
+        ref = one[tuple(mesh) == MS_FULL]
+        rs = [r[str(tuple(mesh))] for r in ranks]
+        rels, last_rels, firsts, decisive, equal = [], [], [], [], []
+        for r in rs:
+            idx = r["rows"][0]
+            pre = ref["prefill_logits"][idx]
+            rels.append(_rel(r["prefill_logits"], pre))
+            last_rels.append(_rel(r["last_logits"], ref["last_logits"][idx]))
+            gap = (r["prefill_logits"] - pre).abs().max().item()
+            ours = r["prefill_logits"].argmax(-1)
+            sure = ref["margins"][0][idx] > 2 * gap
+            firsts.append((ours == ref["tokens"][0][idx]).sum().item())
+            decisive.append(bool((ours == ref["tokens"][0][idx])[sure].all()))
+            equal.append(sum((a.cpu() == b[idx]).sum().item() for a, b in
+                             zip(r["tokens"][:-1], ref["tokens"][1:])))
+        groups = {}
+        for r in rs:
+            groups.setdefault(r["coords"][0], []).append(r)
+        replicas = all(
+            torch.equal(a["prefill_logits"], g[0]["prefill_logits"])
+            and torch.equal(a["last_logits"], g[0]["last_logits"])
+            and all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                      g[0]["tokens"]))
+            for g in groups.values() for a in g[1:])
+        L = cfg.n_layers
+        want = {"flash_attention_fwd": L, "paged_attention": L * MS_STEPS,
+                "paged_attention_global": 0}
+        row = dict(
+            arch=cfg.name, mesh=list(mesh), layers=L, batch=[MS_B, MS_S],
+            max_len=MS_MAX_LEN, page=MS_PAGE,
+            page_split=page_split(cfg, MS_PAGE, _placed_stand_in(mesh)),
+            steps=MS_STEPS, prefill_rel=rels, last_step_rel=last_rels,
+            tol=LOGIT_REL, first_tokens_equal=firsts,
+            first_tokens_decisive_equal=decisive,
+            greedy_equal_of=[equal, MS_B * (MS_STEPS - 1) // mesh[0]],
+            replicas_equal=replicas,
+            bytes_ranks=[r["nbytes"] for r in rs],
+            bytes_predicted_ranks=[r["want_nbytes"] for r in rs],
+            shapes_ok=[r["shapes_ok"] for r in rs],
+            prefill_ms_ranks=[r["prefill_ms"] for r in rs],
+            ms_a_step_ranks=[statistics.median(r["ms_steps"][1:])
+                             for r in rs],
+            one_device_ms_a_step=statistics.median(ref["ms_steps"][1:]),
+            peak_gib_ranks=[r["peak_gib"] for r in rs],
+            one_device_peak_gib=ref["peak_gib"],
+            launches_ranks=[{k: r["launches"][k] for k in want} for r in rs],
+            flash_wgmma_ranks=[r["flash_wgmma"] for r in rs])
+        emit("phase13 mesh serve", **row)
+        assert max(rels) < LOGIT_REL and max(last_rels) < LOGIT_REL, row
+        assert all(decisive) and replicas, row
+        assert all(r["nbytes"] == r["want_nbytes"] and r["shapes_ok"]
+                   for r in rs), row
+        assert all({k: r["launches"][k] for k in want} == want
+                   for r in rs), row
+        meshes[str(tuple(mesh))] = row
+    emit("phase13 mesh serve ranks", world_size=MESH_WORLD, backend=backend,
+         cards=n_cards, devices=[r["device"] for r in ranks],
+         ranks_s=ranks_s)
+    return dict(flash=flash_rows, decode=decode_rows, meshes=meshes,
+                launches={m: r["launches_ranks"][0]
+                          for m, r in meshes.items()})
+
+
+def _placed_stand_in(mesh):
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import MeshInfo
+    return MeshInfo(abstract_mesh(mesh, ("data", "model")))
+
+
 def _precision_fields(row: dict) -> dict:
     """The kernels-line fields of a decode layout's precision row."""
     return {"max_abs_err_cancellation": row["max_abs_err"],
@@ -6279,6 +6638,10 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline-only", action="store_true",
                     help="build the flash kernel and run phase 12 (GPipe "
                          "over four stage ranks) only")
+    ap.add_argument("--mesh-serve-only", action="store_true",
+                    help="build the decode and flash kernels and run phase "
+                         "13 (the serve steps on a mesh of four ranks) "
+                         "only")
     args = ap.parse_args(argv)
     if args.src is not None:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -6331,6 +6694,10 @@ def main(argv=None) -> int:
         phase_card(["flash_attention"])
         phase_pipeline()
         return 0
+    if args.mesh_serve_only:
+        phase_card(["paged_attention", "flash_attention"])
+        phase_mesh_serve()
+        return 0
     phase_s = {}            # each phase's wall seconds, the build's too
 
     def timed(name, fn, *a):
@@ -6365,6 +6732,7 @@ def main(argv=None) -> int:
     mesh_recurrent = timed("10", phase_mesh_recurrent)
     mesh_cross = timed("11", phase_mesh_cross)
     pipeline = timed("12", phase_pipeline)
+    mesh_serve = timed("13", phase_mesh_serve)
     emit("phase seconds", **phase_s)
     dec = res[("decode", torch.bfloat16)]
     flash_rows = res["flash_cases"] + res["flash_timed"]
@@ -6418,7 +6786,14 @@ def main(argv=None) -> int:
                          if r["layout"] == "slot"],
          "launches_mesh_a_rank": mesh["launches"]["paged_attention"],
          "launches_mesh_one_device": mesh["one_device"]["paged_attention"],
-         "lse_shapes": mesh["lse"]},
+         "lse_shapes": mesh["lse"],
+         "launches_mesh_serve_a_rank": {
+             m: n["paged_attention"]
+             for m, n in mesh_serve["launches"].items()},
+         "mesh_serve_shapes": [{k: r[k] for k in (
+             "mesh", "shape", "local_lengths", "return_lse", "max_abs_err",
+             "tol", "lse_err", "ms", "device_ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")} for r in mesh_serve["decode"]]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
@@ -6438,6 +6813,13 @@ def main(argv=None) -> int:
              "tol", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by")},
          "launches_pipeline_a_rank": pipeline["launches"],
+         "launches_mesh_serve_a_rank": {
+             m: n["flash_attention_fwd"]
+             for m, n in mesh_serve["launches"].items()},
+         "mesh_serve_shapes": [{k: r[k] for k in (
+             "arch", "mesh", "dtype", "shape", "max_abs_err", "tol",
+             "lse_err", "ms", "ms_lse", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")} for r in mesh_serve["flash"]],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                             if r["dtype"] == str(torch.bfloat16)),
          "max_abs_err_fp32": max(r["max_abs_err"] for r in flash_rows

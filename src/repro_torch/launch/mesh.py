@@ -87,3 +87,38 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1,
     if data is None:
         data = n // model
     return make_mesh((data, model), ("data", "model"), device)
+
+
+class _AbstractMesh:
+    """What ``MeshInfo`` and ``Sharding`` read of a ``DeviceMesh``: the
+    axes, their sizes and one rank's coordinate on each. No process group:
+    a collective over it fails."""
+
+    def __init__(self, shape, axes, coords):
+        self.shape = tuple(shape)
+        self.mesh_dim_names = tuple(axes)
+        self._coords = dict(zip(axes, coords))
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coords[axis]
+
+    def get_group(self, axis: str):
+        raise RuntimeError("an abstract mesh has no process groups")
+
+
+def abstract_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                  coords: Optional[Tuple[int, ...]] = None) -> _AbstractMesh:
+    """A mesh of ``shape`` over ``axes`` that no process has joined, seen
+    from the rank at ``coords`` (default the first): for placements and
+    local shapes alone (``input_specs`` on the production meshes' 256 or
+    512 ranks, the dry run), as the reference lowers on placeholder
+    devices."""
+    coords = tuple(coords) if coords is not None else (0,) * len(shape)
+    if len(shape) != len(axes) or len(coords) != len(shape) or any(
+            not 0 <= c < n for c, n in zip(coords, shape)):
+        raise ValueError(f"shape {shape}, axes {axes} and coords {coords} "
+                         f"do not match")
+    return _AbstractMesh(shape, axes, coords)

@@ -1,23 +1,37 @@
-"""The train step (port of ``repro/launch/steps.py::make_train_step``):
-the loss, its gradients and the AdamW update, on one device or on a mesh.
-``make_step``, the dry run's entry point, is ROADMAP item 2c(iii).
+"""Step builders (port of ``repro/launch/steps.py``): ``make_train_step``
+(the loss, its gradients and the AdamW update), ``make_prefill_step`` and
+``make_decode_step`` (the serve steps), each on one device or on a mesh,
+and ``make_step``, the dry run's entry point: a cell's step and the specs
+of its state.
 
-Parameters are plain tensors that each step replaces: the step takes
+Parameters are plain tensors that each train step replaces: the step takes
 gradients with ``torch.autograd.grad`` over detached copies of the leaves
 that ask for them, so no autograd state outlives it.
+
+On a mesh the serve steps are the function the reference lowers there:
+``params`` are the rank's blocks (``init_params(..., mi=)``), the cache
+the rank's blocks of ``model.cache_specs`` (``init_cache(..., mi=,
+placed=True)``, at the step's ``page_size``), the batch or token global;
+each rank returns its rows (``model.forward_prefill`` with ``placed``).
+The dense kinds only (``model.mesh_serve_refusal``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.models.dist import NO_MESH, MeshInfo
-from repro_torch.models.model import (batch_sharding, check_mesh_trainable,
-                                      forward_train)
+from repro_torch.models.layers import vocab_parallel_argmax
+from repro_torch.models.model import (DEFAULT_PAGE_SIZE, batch_sharding,
+                                      check_mesh_servable,
+                                      check_mesh_trainable, forward_decode,
+                                      forward_prefill, forward_train,
+                                      placed_decode)
 from repro_torch.models.params import model_specs, shardings
-from repro_torch.optim import (OptState, adamw_update, clip_by_global_norm)
+from repro_torch.optim import (OptState, adamw_update, clip_by_global_norm,
+                               opt_state_specs)
 from repro_torch.optim.compression import ef_compress
 from repro_torch.tree import flatten, tree_map, unflatten
 
@@ -99,3 +113,64 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, **extras}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, mi: MeshInfo = NO_MESH,
+                      page_size: int = DEFAULT_PAGE_SIZE):
+    """Returns prefill_step(params, batch, cache) -> (last_logits, cache)
+    (``forward_prefill``; on a mesh with placed weights and cache, at
+    ``page_size``, the global batch in and the rank's rows out). A kind
+    without a serving form on a mesh refuses here."""
+    check_mesh_servable(cfg, mi)
+
+    @torch.no_grad()
+    def prefill_step(params, batch, cache):
+        return forward_prefill(cfg, params, batch, cache, mi,
+                               placed=mi.active, page_size=page_size)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, mi: MeshInfo = NO_MESH,
+                     sample: bool = False,
+                     page_size: int = DEFAULT_PAGE_SIZE):
+    """Returns serve_step(params, token, pos, cache) -> (logits, cache), or
+    with ``sample`` (next_token (B,) int32, cache): the greedy token over
+    the whole vocab, on the device. On a mesh as ``make_prefill_step``;
+    where the embedding is vocab-parallel the argmax takes each rank's
+    block's largest logit and one all-reduce MAX and one MIN over
+    ``model`` (``layers.vocab_parallel_argmax``), not the whole logits."""
+    check_mesh_servable(cfg, mi)
+
+    @torch.no_grad()
+    def serve_step(params, token, pos, cache):
+        if not sample:
+            return forward_decode(cfg, params, token, pos, cache, mi,
+                                  placed=mi.active, page_size=page_size)
+        if mi.active:
+            logits, vocab_mi, cache = placed_decode(cfg, params, token, pos,
+                                                    cache, mi, page_size)
+        else:
+            (logits, cache), vocab_mi = forward_decode(
+                cfg, params, token, pos, cache), None
+        tok = (torch.argmax(logits, -1) if vocab_mi is None
+               else vocab_parallel_argmax(logits, vocab_mi))
+        return tok.to(torch.int32), cache
+    return serve_step
+
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig, mi: MeshInfo = NO_MESH,
+              tc: Optional[TrainConfig] = None):
+    """The dry run's entry: (the cell's step, the specs of its state that
+    is not an input): ``{"params", "opt_state"}`` for a train cell,
+    ``{"params"}`` for a serve cell (its inputs are
+    ``launch/input_specs.py``'s)."""
+    tc = tc or TrainConfig()
+    pspecs = model_specs(cfg)
+    if shape.kind == "train":
+        return make_train_step(cfg, tc, mi), {
+            "params": pspecs,
+            "opt_state": opt_state_specs(
+                pspecs, with_ef=tc.grad_compression == "int8_ef")}
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mi), {"params": pspecs}
+    return make_decode_step(cfg, mi), {"params": pspecs}

@@ -2,9 +2,12 @@
 latter gated), flash attention for training, prefill and cross-attention,
 with its backward, the paged KV cache in both layouts (the GLOBAL shared
 pool of zero-copy serving and the PER-SLOT pools of the copy baseline)
-with its append and decode attention, prefix-context attention, and the
+with its append and decode attention, prefix-context attention, the
 sequence-parallel decode of a long sequence whose pages are sharded over
-the ranks of a mesh axis (``sp_paged_decode``).
+the ranks of a mesh axis (``sp_paged_decode``), and the decode over a
+per-slot cache whose pages' tokens are split over the model axis
+(``split_paged_decode``); both merge their ranks' partials by
+``merge_partials``.
 
 ``flash_attention`` and ``paged_decode_attention`` run the hand-written CUDA
 kernels for tensors on a CUDA device and their plain versions on the CPU
@@ -369,10 +372,8 @@ def sp_paged_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         raise ValueError("sequence-parallel decode needs a mesh: the SP "
                          "cache layout shards a sequence's pages over the "
                          f"{seq_axis!r} axis")
-    import torch.distributed as dist
     mi = MeshInfo(mesh)
     n_shards, shard = mi.size(seq_axis), axis_rank(mi, seq_axis)
-    group = axis_group(mi, seq_axis)
     B, _, Hq, D = q.shape
     local_pages, page = kv.k_pool.shape[1], kv.page_size
     local_tokens = local_pages * page
@@ -397,12 +398,90 @@ def sp_paged_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     o, lse = paged_attention(q[:, 0].contiguous(), kv.k_pool, kv.v_pool,
                              tbl.to(torch.int32).contiguous(), n_local,
                              softcap=softcap, return_lse=True)
-    # ---- flash-decoding merge across shards ----
+    out = merge_partials(o, lse, mi, seq_axis)
+    return (out.reshape(B, 1, Hq, D).to(q.dtype),
+            kv._replace(length=kv.length + 1))
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, mi: MeshInfo,
+                   axis: str) -> torch.Tensor:
+    """The flash-decoding merge of partial decodes over ``axis``'s ranks:
+    each rank's ``o`` (B, Hq, D) fp32, normalised over its own keys, and
+    ``lse`` (B, Hq) fp32 (-inf where it holds none); m = max lse_r, w_r =
+    exp(lse_r - m), out = sum w_r o_r / sum w_r (fp32), by one all-reduce
+    MAX and one SUM. Some rank must hold a key of every row."""
+    import torch.distributed as dist
+    group = axis_group(mi, axis)
+    D = o.shape[-1]
     m = lse.clone()
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
     w = torch.exp(lse - m)[..., None]                  # (B, Hq, 1)
     acc = torch.cat([w * o, w], dim=-1)
     dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
-    out = acc[..., :D] / acc[..., D:]
+    return acc[..., :D] / acc[..., D:]
+
+
+def split_local_lengths(length: torch.Tensor, capacity: int, page: int,
+                        split: int, part: int) -> torch.Tensor:
+    """Valid tokens of one rank's slice of a per-slot pool whose pages'
+    tokens are split over ``split`` ranks: rank ``part`` holds offsets
+    [part * pl, (part + 1) * pl) of every page of ``page`` tokens (pl =
+    page / split). In local page-major order its tokens keep their global
+    order, so of the first ``min(length, capacity)`` tokens (a ring past
+    its capacity holds every slot) its valid ones are a prefix of
+    (L // page) * pl + clamp(L mod page - part * pl, 0, pl)."""
+    pl = page // split
+    L = torch.clamp(length.long(), max=capacity)
+    tail = torch.clamp(L % page - part * pl, 0, pl)
+    return ((L // page) * pl + tail).to(torch.int32)
+
+
+def split_paged_decode(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, kv: PagedKV, mi: MeshInfo,
+                       split: int, *, softcap: Optional[float] = None,
+                       axis: str = "model"):
+    """Decode over a per-slot cache whose pages' tokens are split over the
+    ``split`` ranks of ``axis`` (the reference's placement of a pool whose
+    KV heads are fewer than 16, ``("batch", None, "tp", None, None)``:
+    its decode merges partials over ``model``, flash-decoding). ``kv`` is
+    this rank's slice: pools (B, n_pages, page / split, Hkv, D) holding
+    offsets [r * pl, (r + 1) * pl) of every page, the whole table (B,
+    n_pages) and the whole sequence's lengths (B,). q (B, 1, Hq, D) and
+    k/v_new (B, 1, Hkv, D) are every head's.
+
+    The new token, at position ``length`` (modulo the capacity n_pages *
+    page: a ring wraps), is written by its owner rank alone, ``(length mod
+    page) // pl``. Each rank then runs the per-slot decode kernel at page
+    ``pl`` over its valid prefix (``split_local_lengths``) with the rows'
+    log-sum-exp, and the partials merge over ``axis``
+    (:func:`merge_partials`); rank 0 holds token 0, so every row has a
+    key somewhere. With ``split`` 1 it is ``paged_append`` and
+    ``paged_decode_attention``. Pools are updated in place; returns (out
+    (B, 1, Hq, D), the PagedKV with lengths + 1)."""
+    if split == 1:
+        kv_new = paged_append(kv, k_new, v_new)
+        return paged_decode_attention(q, kv_new, softcap=softcap), kv_new
+    B, _, Hq, D = q.shape
+    n_pages, pl = kv.k_pool.shape[1], kv.k_pool.shape[2]
+    page = pl * split
+    capacity = n_pages * page
+    part = axis_rank(mi, axis)
+    length = torch.broadcast_to(kv.length, (B,)).long()
+    # ---- append on the owner rank (rolling modulo the capacity) ----
+    wpos = length % capacity
+    slot = wpos % page
+    owner = (slot // pl) == part
+    phys = torch.gather(kv.block_table.long(), 1, (wpos // page)[:, None])[:, 0]
+    local = torch.clamp(slot - part * pl, 0, pl - 1)
+    rows = torch.arange(B, device=q.device)
+    for pool, new in ((kv.k_pool, k_new), (kv.v_pool, v_new)):
+        cur = pool[rows, phys, local]
+        pool[rows, phys, local] = torch.where(owner[:, None, None],
+                                              new[:, 0].to(pool.dtype), cur)
+    n_local = split_local_lengths(length + 1, capacity, page, split, part)
+    o, lse = paged_attention(q[:, 0].contiguous(), kv.k_pool, kv.v_pool,
+                             kv.block_table.to(torch.int32).contiguous(),
+                             n_local, softcap=softcap, return_lse=True)
+    out = merge_partials(o, lse, mi, axis)
     return (out.reshape(B, 1, Hq, D).to(q.dtype),
             kv._replace(length=kv.length + 1))

@@ -77,13 +77,21 @@ the all-to-all becomes an all-reduce of the (T_local, d) output: fewer
 bytes than the dispatched K * capacity_factor * T * d, and no collective
 that gloo lacks.
 
-Serving on a mesh, every rank runs the same layer on the same, whole
-tensors, except under the sequence-parallel layout (``ctx.sp``: one
-sequence whose pages are sharded over the ``data`` axis, the long_500k
-shape): a rank's per-slot pools hold only its shard of the pages, a
-prefill writes only the positions the rank owns, and a decode appends on
-the owner shard and merges the shards' partial attention
+Serving on a mesh through the engine, every rank runs the same layer on
+the same, whole tensors, except under the sequence-parallel layout
+(``ctx.sp``: one sequence whose pages are sharded over the ``data`` axis,
+the long_500k shape): a rank's per-slot pools hold only its shard of the
+pages, a prefill writes only the positions the rank owns, and a decode
+appends on the owner shard and merges the shards' partial attention
 (``attention.sp_paged_decode``).
+
+Serving on a mesh through ``launch/steps.py``'s steps (``ctx.placed``,
+set by ``model.forward_prefill``/``forward_decode`` with ``placed``, the
+reference's lowered serve steps) a dense layer runs on this rank's rows,
+its blocks of the weights in the tensor-parallel form above, and its
+block of the per-slot cache as the reference's ``layer_cache_specs``
+places it: the KV heads over ``model`` where there are at least 16, else
+the tokens of every page (``_placed_attention``).
 """
 from __future__ import annotations
 
@@ -96,8 +104,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.dist import (NO_MESH, MeshInfo, axis_rank, copy_to,
-                                     reduce_from)
+from repro_torch.models.dist import (NO_MESH, MeshInfo, all_gather,
+                                     axis_rank, copy_to, reduce_from)
 from repro_torch.models.layers import glu_mlp, mlp2, rmsnorm, rope
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import MAMBA_KINDS, SERVED_KINDS
@@ -129,6 +137,13 @@ class FwdCtx:
     # training on a mesh: the axes whose ranks hold other rows of the batch
     # (a parameter's gradient sums over them)
     grad_axes: Tuple[str, ...] = ()
+    # serving on a mesh with placed weights and cache (launch/steps.py's
+    # steps): each attention layer's cache is this rank's block of
+    # model.cache_specs, its weights the rank's blocks (tensor parallel
+    # under ``tp``); ``page_split`` ranks of 'model' split each page's
+    # tokens (1 where the placement keeps a page whole)
+    placed: bool = False
+    page_split: int = 1
 
 
 SP_MIN_LEN = 262144
@@ -151,13 +166,7 @@ def _tp_kv_heads(p, ctx: FwdCtx):
     cfg, mi = ctx.cfg, ctx.mi
     if p["wk"].shape[1] != cfg.n_kv_heads:
         return p                                  # KV heads split too
-    hq_l = p["wq"].shape[1]
-    G = cfg.n_heads // cfg.n_kv_heads
-    first = axis_rank(mi, "model") * hq_l
-    idx = torch.div(first + torch.arange(hq_l), G, rounding_mode="floor")
-    heads, counts = torch.unique_consecutive(idx, return_counts=True)
-    sel = heads if bool((counts == counts[0]).all()) else idx
-    sel = sel.to(p["wk"].device)
+    sel = _rank_kv_index(ctx, p["wq"].shape[1]).to(p["wk"].device)
     out = dict(p)
     for name in ("wk", "wv"):
         out[name] = copy_to(p[name], mi, "model").index_select(1, sel)
@@ -167,10 +176,98 @@ def _tp_kv_heads(p, ctx: FwdCtx):
     return out
 
 
+def _rank_kv_index(ctx: FwdCtx, hq_l: int) -> torch.Tensor:
+    """The KV heads this rank's ``hq_l`` q heads read, out of all
+    ``n_kv_heads`` (global q head h reads KV head h // G): one index a KV
+    head where the q heads fall in equal runs, so GQA keeps its groups,
+    else one a q head."""
+    G = ctx.cfg.n_heads // ctx.cfg.n_kv_heads
+    first = axis_rank(ctx.mi, "model") * hq_l
+    idx = torch.div(first + torch.arange(hq_l), G, rounding_mode="floor")
+    heads, counts = torch.unique_consecutive(idx, return_counts=True)
+    return heads if bool((counts == counts[0]).all()) else idx
+
+
+def _placed_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
+                      window: Optional[int]):
+    """Self-attention in serving on a mesh with placed weights and cache
+    (``ctx.placed``): ``p`` the rank's blocks, ``kv`` its block of the
+    per-slot cache (``model.cache_specs``), ``x`` its rows. Under ``tp``
+    the rank's q heads (and its KV heads, where they split over
+    ``model``; else all of them) come from its blocks of ``wq``/``wk``/
+    ``wv``, ``wo`` is row parallel and its output summed over ``model``.
+
+    Prefill: flash over the rank's q heads and the KV heads they read
+    (``_rank_kv_index`` where ``wk`` is whole). The write needs every KV
+    head the rank's pool holds for its rows: where the pool keeps all
+    heads (the tokens of a page split over ``model``, or nothing split)
+    but ``wk`` gave the rank a block of them, K/V are all-gathered over
+    ``model`` along the heads. Gathering the activations, not ``wk`` and
+    ``wv``: each rank projects its own heads once, no rank repeats the
+    others' projections, and the gathered bytes (B_l S Hkv D) are those
+    the pool stores. The write takes each row's pages as
+    ``_prefill_write_slots`` lays them out and keeps the rank's slice of
+    every page (``ctx.page_split``) or its heads.
+
+    Decode, KV heads over ``model`` (the pool holds the rank's heads):
+    the rank's q heads over its pool through the per-slot decode kernel.
+    Otherwise q is all-gathered over ``model`` (B_l x Hq x D) and the new
+    token's K/V likewise where ``wk`` is split; ``split_paged_decode``
+    writes the token on its owner rank, runs the kernel over the rank's
+    slice at page p / page_split and merges the partials over ``model``
+    by their lse; the rank keeps its q heads for ``wo``. A ring (a
+    sliding-window layer) wraps modulo its capacity in both."""
+    cfg, mi = ctx.cfg, ctx.mi
+    B, S, _ = x.shape
+    q, k, v = attn.qkv_proj(p, x)
+    hq_l = q.shape[2]
+    part = axis_rank(mi, "model") if ctx.tp else 0
+    kv_whole = k.shape[2] == cfg.n_kv_heads
+    gather_heads = lambda t: (t if t.shape[2] == kv.k_pool.shape[3] else
+                              all_gather(t, 2, mi, "model"))
+    if ctx.mode == "decode":
+        pos = torch.as_tensor(ctx.q_offset, device=x.device)
+        pos_b = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
+        q = rope(q, pos_b, cfg.rope_theta)
+        k = rope(k, pos_b, cfg.rope_theta)
+        if kv.k_pool.shape[3] < cfg.n_kv_heads:      # KV heads over 'model'
+            kv_new = attn.paged_append(kv, k, v)
+            o = attn.paged_decode_attention(q, kv_new,
+                                            softcap=cfg.attn_softcap)
+        else:
+            q_all = all_gather(q, 2, mi, "model") if ctx.tp else q
+            o, kv_new = attn.split_paged_decode(
+                q_all, gather_heads(k), gather_heads(v), kv, mi,
+                ctx.page_split, softcap=cfg.attn_softcap)
+            o = o[:, :, part * hq_l:(part + 1) * hq_l]
+        y = attn.out_proj(p, o)
+        return (reduce_from(y, mi, "model") if ctx.tp else y), kv_new
+    positions = torch.arange(S, device=x.device)[None] + ctx.q_offset
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kr, vr = k, v
+    if ctx.tp and kv_whole:
+        sel = _rank_kv_index(ctx, hq_l).to(k.device)
+        kr, vr = k.index_select(2, sel), v.index_select(2, sel)
+    o = attn.flash_attention(q, kr, vr, causal=ctx.causal, window=window,
+                             softcap=cfg.attn_softcap,
+                             q_chunk=cfg.flash_q_chunk,
+                             kv_chunk=cfg.flash_kv_chunk)
+    y = attn.out_proj(p, o)
+    if ctx.tp:
+        y = reduce_from(y, mi, "model")
+    if kv is None:
+        return y, None
+    return y, _prefill_write_slots(kv, gather_heads(k), gather_heads(v),
+                                   ctx, S, ctx.page_split, part)
+
+
 def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
                     window: Optional[int]):
     cfg = ctx.cfg
     B, S, _ = x.shape
+    if ctx.placed:
+        return _placed_attention(p, x, ctx, kv, window)
     if ctx.tp:
         x = copy_to(x, ctx.mi, "model")
         p = _tp_kv_heads(p, ctx)
@@ -221,18 +318,21 @@ def _self_attention(p, x, ctx: FwdCtx, kv: Optional[attn.PagedKV],
     return y, _prefill_write_slots(kv, k, v, ctx, S)
 
 
-def _prefill_write_slots(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
-                         ) -> attn.PagedKV:
+def _prefill_write_slots(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int,
+                         split: int = 1, part: int = 0) -> attn.PagedKV:
     """Write a prefill's KV into PER-SLOT pools (B, n_pages, page, H, D)
     through each row's permutation table, in place. Every page of every row
-    is rewritten.
+    is rewritten. With ``split`` > 1 the pools hold one rank's slice of
+    each page, offsets [part * pl, (part + 1) * pl) of pages of pl *
+    ``split`` tokens (``attention.split_paged_decode``'s placement).
 
     Ring alignment: token t lives at slot t % eff (eff = the pool's
     capacity), so the decode append, which writes position
     ``length % eff``, overwrites the OLDEST resident token.
     """
     B = k.shape[0]
-    n_pages, page = kv.k_pool.shape[1], kv.k_pool.shape[2]
+    n_pages, pl = kv.k_pool.shape[1], kv.k_pool.shape[2]
+    page = pl * split
     eff = n_pages * page
     dev = k.device
     # Physical page j of row b holds logical page inv[b, j].
@@ -260,6 +360,8 @@ def _prefill_write_slots(kv: attn.PagedKV, k, v, ctx: FwdCtx, S: int
         else:
             seg = kv_seq
         pages = seg.reshape(B, n_pages, page, *feat)
+        if split > 1:
+            pages = pages[:, :, part * pl:(part + 1) * pl]
         pool.copy_(torch.take_along_dim(pages, inv[:, :, None, None, None],
                                         dim=1))
 

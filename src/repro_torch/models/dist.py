@@ -130,10 +130,11 @@ def _axes(mi: MeshInfo, axes) -> Tuple[str, ...]:
 
 def all_reduce(t: torch.Tensor, mi: MeshInfo, axes, op: str = "sum"
                ) -> torch.Tensor:
-    """``t`` reduced (``op``: sum or max) over ``axes``, one axis after
-    another, into a new tensor."""
+    """``t`` reduced (``op``: sum, max or min) over ``axes``, one axis
+    after another, into a new tensor."""
     dist = _dist()
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
     t = t.clone(memory_format=torch.contiguous_format)
     for a in _axes(mi, axes):
         dist.all_reduce(t, op=red, group=axis_group(mi, a))

@@ -126,6 +126,22 @@ def vocab_parallel_embed(p: dict, tokens: torch.Tensor, mi: MeshInfo
     return reduce_from(rows, mi, "model")
 
 
+def vocab_parallel_argmax(logits: torch.Tensor, mi: MeshInfo
+                          ) -> torch.Tensor:
+    """The index over the whole vocab of each row's largest logit, where
+    ``logits`` (..., V / m) is this rank's vocab block over ``model``:
+    each block's first largest, the largest value by one all-reduce MAX
+    and the smallest index that holds it by one MIN (``argmax``'s first
+    occurrence over the whole vocab), int64."""
+    n = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0].float()
+    top = all_reduce(val, mi, "model", "max")
+    cand = torch.where(val == top, idx + vocab_start(n, mi),
+                       torch.full_like(idx, torch.iinfo(idx.dtype).max))
+    return all_reduce(cand, mi, "model", "min")
+
+
 def _vocab_gold(logits: torch.Tensor, labels: torch.Tensor, v0: int
                 ) -> torch.Tensor:
     """Each row's logit at its label where the label falls in this rank's

@@ -97,6 +97,18 @@ class MambaState(NamedTuple):
     ssm: torch.Tensor    # (B, d_in, N) fp32
 
 
+def state_specs(cfg: ModelConfig, batch: int) -> MambaState:
+    """The reference's ``mamba_state_specs``: one slot's state a row, the
+    d_in channels over ``model``."""
+    d_in, _, N, K = _dims(cfg)
+    return MambaState(
+        conv=ParamSpec((batch, K - 1, d_in), "zeros",
+                       dtype=cfg.activation_dtype,
+                       pspec=("batch", None, "tp")),
+        ssm=ParamSpec((batch, d_in, N), "zeros", dtype="float32",
+                      pspec=("batch", "tp", None)))
+
+
 def zero_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                device, split: int = 1) -> MambaState:
     """The reference's ``mamba_state_specs`` (and ``_zero_mamba``) as

@@ -15,11 +15,14 @@ entry, :class:`EncOut`, the encoder's output, which the reference keeps as
 Every entry that is not a PagedKV is a NamedTuple of tensors with one row
 a slot, which the walkers below treat alike.
 
+  cache_specs(cfg, batch, max_len, page_size=DEFAULT_PAGE_SIZE,
+              src_len=ENCDEC_SRC_LEN, global_pages=None) -> ParamSpec list
   init_cache(cfg, batch, max_len, page_size, global_pages=None, device,
-             src_len=ENCDEC_SRC_LEN, mi=NO_MESH)
-  forward_prefill(cfg, params, batch, cache, mi=NO_MESH)
-      -> (last_logits, cache)
-  forward_decode(cfg, params, token, pos, cache, mi=NO_MESH, sp=None)
+             src_len=ENCDEC_SRC_LEN, mi=NO_MESH, placed=False)
+  forward_prefill(cfg, params, batch, cache, mi=NO_MESH, placed=False,
+                  page_size=DEFAULT_PAGE_SIZE) -> (last_logits, cache)
+  forward_decode(cfg, params, token, pos, cache, mi=NO_MESH, sp=None,
+                 placed=False, page_size=DEFAULT_PAGE_SIZE)
       -> (logits, cache)
   forward_train(cfg, params, batch, mi=NO_MESH) -> loss
 
@@ -28,12 +31,19 @@ axis, ``check_mesh_trainable``) each rank holds its blocks of the
 parameters (FSDP over ``data``, TP over ``model``, ``params.shardings``)
 and takes its rows of the global batch; see :func:`forward_train`.
 
-Serving on a mesh, every rank runs the same forward on the same inputs.
-One sequence of at least 262144 tokens (``blocks._sp_mode``) takes the
-sequence-parallel layout: each attention layer's per-slot pools hold only
-this rank's shard of the pages over ``data`` (every rank holds the whole
-block table), a prefill writes the rank's positions, and a decode merges
-the shards' partial attention (``attention.sp_paged_decode``).
+Serving on a mesh through the engine, every rank runs the same forward
+on the same inputs. One sequence of at least 262144 tokens
+(``blocks._sp_mode``) takes the sequence-parallel layout: each attention
+layer's per-slot pools hold only this rank's shard of the pages over
+``data`` (every rank holds the whole block table), a prefill writes the
+rank's positions, and a decode merges the shards' partial attention
+(``attention.sp_paged_decode``).
+
+Serving on a mesh through the serve steps (``placed``; the dense kinds,
+``mesh_serve_refusal``), each rank holds its blocks of the weights as
+training places them and its block of the per-slot cache as
+``cache_specs`` places it (``init_cache(..., mi=, placed=True)``), and
+takes its rows of the global batch; see :func:`forward_prefill`.
 
 A prefill's ``batch`` carries ``enc_x`` (B, src_len, d) for an
 encoder-decoder, whose encoder runs non-causal over it, or ``img_x``
@@ -58,18 +68,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.blocks import FwdCtx, _sp_mode, apply_layer
-from repro_torch.models.dist import (NO_MESH, MeshInfo, gather_param,
-                                     reduce_from)
+from repro_torch.models.blocks import (SP_MIN_LEN, FwdCtx, _sp_mode,
+                                       apply_layer)
+from repro_torch.models.dist import (NO_MESH, MeshInfo, all_gather,
+                                     gather_param, reduce_from)
 from repro_torch.models.layers import (chunked_xent, embed, logits_fn,
                                       rmsnorm, vocab_parallel_embed,
                                       vocab_parallel_xent)
-from repro_torch.models.params import (MAMBA_KINDS, Sharding, model_specs,
-                                       resolve_device, sharding_of,
-                                       shardings, split_axes, torch_dtype)
+from repro_torch.models.params import (MAMBA_KINDS, ParamSpec, Sharding,
+                                       abstract, model_specs, resolve_device,
+                                       sharding_of, shardings, split_axes,
+                                       torch_dtype)
 from repro_torch.tree import tree_map
 
+DEFAULT_PAGE_SIZE = 64
 ENCDEC_SRC_LEN = 3072          # the reference's stubbed audio-frame count
+# the reference places a per-slot pool's KV heads over 'model' from this
+# many on (blocks.py's layer_cache_specs), else each page's tokens
+KV_HEADS_SPLIT = 16
 
 
 class EncOut(NamedTuple):
@@ -97,9 +113,106 @@ def layer_capacity(cfg: ModelConfig, kind: str, max_len: int) -> int:
     return max_len
 
 
+def _kv_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+              page_size: int, global_pages: Optional[int]) -> attn.PagedKV:
+    """One attention layer's PagedKV of ParamSpecs, as the reference's
+    ``layer_cache_specs`` places it (see :func:`cache_specs`)."""
+    act = cfg.activation_dtype
+    tail = (page_size, cfg.n_kv_heads, cfg.d_head)
+    cap = layer_capacity(cfg, kind, max_len)
+    n_pages = -(-cap // page_size)
+    sp = _sp_mode(cfg, batch, max_len)
+    heads = cfg.n_kv_heads >= KV_HEADS_SPLIT
+    if global_pages is not None and cap == max_len and not sp:
+        shape = (global_pages, *tail)
+        pool = (None, None, "tp", None) if heads else (None, "tp", None, None)
+        table = ("batch", None)
+    else:
+        shape = (batch, n_pages, *tail)
+        if sp:          # long-context decode: pages over 'data'
+            pool, table = (None, "data", None, None, None), (None, "data")
+        elif heads:     # KV heads divide the model axis: head TP
+            pool, table = ("batch", None, None, "tp", None), ("batch", None)
+        else:           # each page's tokens over 'model' (flash-decoding)
+            pool, table = ("batch", None, "tp", None, None), ("batch", None)
+    return attn.PagedKV(
+        ParamSpec(shape, "zeros", dtype=act, pspec=pool),
+        ParamSpec(shape, "zeros", dtype=act, pspec=pool),
+        ParamSpec((batch, n_pages), "zeros", dtype="int32", pspec=table),
+        ParamSpec((batch,), "zeros", dtype="int32", pspec=("batch",)))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                page_size: int = DEFAULT_PAGE_SIZE,
+                src_len: int = ENCDEC_SRC_LEN,
+                global_pages: Optional[int] = None) -> Cache:
+    """The reference's ``cache_specs`` (and ``layer_cache_specs``) in the
+    port's flat layout: one entry a layer (two for ``cross_mlp``), each a
+    NamedTuple of ParamSpecs with the reference's logical specs; where the
+    reference stacks a leaf over ``n_blocks``, each block's layer has its
+    own entry. A per-slot pool (B, n_pages, page, Hkv, D) places its rows
+    over the batch axes and, with at least 16 KV heads, its heads over
+    ``model``, else each page's tokens; under the sequence-parallel
+    layout (B 1, >= 262144 tokens) its pages over ``data``; the global
+    pool (``global_pages``) its heads or tokens over ``model``. Cross K/V
+    (B, src_len, Hkv, D) and the encoder output (B, src_len, d) place
+    their source rows over ``model``; recurrent states as
+    ``rwkv6.state_specs`` and ``mamba.state_specs``. One difference is
+    kept: a PagedKV's ``length`` is (B,), one a row, over the batch axes;
+    the reference's per-slot length is one scalar (``per_seq=False``)."""
+    act = cfg.activation_dtype
+    out = []
+    cross = lambda: ParamSpec((batch, src_len, cfg.n_kv_heads, cfg.d_head),
+                              "zeros", dtype=act,
+                              pspec=("batch", "tp", None, None))
+    for kind in cfg.layer_kinds():
+        if kind == "xattn_mlp":
+            out.append(attn.CrossKV(cross(), cross()))
+        elif kind == "rwkv":
+            out.append(rwkv.state_specs(cfg, batch))
+        elif kind in MAMBA_KINDS:
+            out.append(mam.state_specs(cfg, batch))
+        else:
+            out.append(_kv_specs(cfg, kind, batch, max_len, page_size,
+                                 global_pages))
+            if kind == "cross_mlp":
+                out.append(attn.CrossKV(cross(), cross()))
+    if cfg.is_encdec:
+        out.append(EncOut(ParamSpec((batch, src_len, cfg.d_model), "zeros",
+                                    dtype=act, pspec=("batch", "tp", None))))
+    return out
+
+
+def _placed_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  page_size: int, device, src_len: int,
+                  mi: MeshInfo) -> Cache:
+    """This rank's blocks of :func:`cache_specs` (per-slot layout), zero,
+    with its rows of the identity tables."""
+    if _sp_mode(cfg, batch, max_len):
+        raise NotImplementedError(
+            f"serving {cfg.name} with placed weights: the sequence-parallel "
+            f"layout (batch 1, >= {SP_MIN_LEN} tokens) is not ported")
+    specs = cache_specs(cfg, batch, max_len, page_size, src_len)
+    sh = shardings(specs, mi)
+    cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device=device),
+                     abstract(specs, mi))
+    out = []
+    for e, s_ in zip(cache, sh):
+        if not is_state(e):
+            n = e.block_table.shape[-1]
+            whole = torch.arange(n, dtype=torch.int32, device=device) \
+                .expand(batch, n)
+            e = e._replace(block_table=s_.block_table.cut(whole).clone(
+                memory_format=torch.contiguous_format))
+        out.append(e)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
                global_pages: Optional[int] = None, device="cuda",
-               src_len: int = ENCDEC_SRC_LEN, mi: MeshInfo = NO_MESH) -> Cache:
+               src_len: int = ENCDEC_SRC_LEN, mi: MeshInfo = NO_MESH,
+               placed: bool = False) -> Cache:
     """Zero-filled cache, lengths 0, one layout chosen per layer.
 
     With ``global_pages``, a layer that holds all ``max_len`` tokens gets one
@@ -119,8 +232,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
     the mesh's ``data`` axis, physical pages [r * lp, (r + 1) * lp) of the
     identity table, which every rank holds whole; without a mesh the
     shard is the whole pool (and a decode refuses it).
+
+    With ``placed`` on a mesh (the serve steps of ``launch/steps.py``),
+    this rank's blocks of :func:`cache_specs`' per-slot placements: its
+    rows, and its KV heads or its slice of every page's tokens over
+    ``model``; ``global_pages`` and the sequence-parallel layout raise
+    ``NotImplementedError`` there.
     """
     dev = resolve_device(device)
+    if placed and mi.active:
+        if global_pages is not None:
+            raise NotImplementedError(
+                "placed serving takes the per-slot cache; the global "
+                "layout's placement is not ported")
+        return _placed_cache(cfg, batch, max_len, page_size, dev, src_len,
+                             mi)
     dt = torch_dtype(cfg.activation_dtype)
     tail = (page_size, cfg.n_kv_heads, cfg.d_head)
     max_pages = -(-max_len // page_size)
@@ -336,8 +462,108 @@ def _embed_in(cfg: ModelConfig, params, tokens, vocab_mi=None):
     return x
 
 
+def mesh_serve_refusal(cfg: ModelConfig, model: int) -> Optional[str]:
+    """Why serving ``cfg`` with placed weights on a mesh whose model axis
+    is ``model`` (the serve steps of ``launch/steps.py``) is not ported,
+    or None: every layer kind but the dense ones (``attn_mlp``,
+    ``attn_mlp_local``), and widths that do not split over the model
+    axis (q heads, ``d_ff``), where a layer would run whole on every rank
+    and its sum over ``model`` count it ``model`` times."""
+    kinds = set(cfg.layer_kinds())
+    if cfg.is_encdec:
+        kinds |= set(cfg.enc_block_pattern)
+    other = sorted(kinds - set(DENSE_KINDS))
+    if other:
+        return (f"serving {cfg.name} with placed weights on a mesh: layer "
+                f"kind(s) {', '.join(other)} have no serving form on a "
+                f"mesh (ported: {', '.join(DENSE_KINDS)})")
+    bad = {k: v for k, v in (("heads", cfg.n_heads), ("d_ff", cfg.d_ff))
+           if v % model}
+    if bad:
+        return (f"serving {cfg.name} on a mesh: "
+                + ", ".join(f"{k} {v}" for k, v in bad.items())
+                + f" must split over a model axis of {model}")
+    return None
+
+
+def check_mesh_servable(cfg: ModelConfig, mi: MeshInfo) -> None:
+    """Raise ``NotImplementedError`` where serving ``cfg`` with placed
+    weights on ``mi``'s mesh is not ported (:func:`mesh_serve_refusal`)."""
+    why = mesh_serve_refusal(cfg, model_size(mi)) if mi.active else None
+    if why:
+        raise NotImplementedError(why)
+
+
+def page_split(cfg: ModelConfig, page_size: int, mi: MeshInfo) -> int:
+    """The ranks of ``model`` each page's tokens split over in
+    :func:`cache_specs`' per-slot placement: the model axis where the
+    pool's token dimension keeps it (fewer than 16 KV heads, and a page
+    the axis divides: ``resolve_spec`` drops it otherwise), else 1."""
+    m = model_size(mi)
+    if cfg.n_kv_heads >= KV_HEADS_SPLIT or page_size % m:
+        return 1
+    return m
+
+
+def _placed_forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+                    cache: Cache, mi: MeshInfo, page_size: int, **ctx_kw):
+    """The serve steps' forward on a mesh with placed weights and cache:
+    ``params`` this rank's blocks, ``tokens`` its rows, ``cache`` its
+    blocks of ``cache_specs(..., page_size)``. Each layer's blocks are
+    gathered over the batch axes at use (the reference's FSDP, as
+    :func:`forward_train`), and run in their tensor-parallel forms over
+    ``model`` (``blocks._placed_attention``, the MLP's column and row
+    parallel products); the embedding is vocab-parallel where the specs
+    split the vocab over ``model`` (``vocab_split``). Returns (x after
+    the final norm, the new cache, the embedding leaves as used, the
+    vocab mesh or None)."""
+    check_mesh_servable(cfg, mi)
+    sh = shardings(model_specs(cfg), mi)
+    ctx = FwdCtx(cfg=cfg, mi=mi, tp=model_size(mi) > 1, placed=True,
+                 page_split=page_split(cfg, page_size, mi), **ctx_kw)
+    vocab_mi = mi if vocab_split(sh, ctx) else None
+    emb = _use_params(params["embed"], sh["embed"], ctx)
+    x = _embed_in(cfg, {"embed": emb}, tokens, vocab_mi)
+    entries = by_layer(cfg, cache)
+    new = []
+    for (kind, p), (_, s_), e in zip(layers(cfg, params), layers(cfg, sh),
+                                     entries):
+        x, e = apply_layer(kind, _use_params(p, s_, ctx), x, ctx, e)
+        new.append(e)
+    x = rmsnorm(x, _use_params(params["final_ln"], sh["final_ln"], ctx),
+                cfg.norm_eps)
+    return x, flat(cfg, new), emb, vocab_mi
+
+
+def _check_placed(cfg: ModelConfig, cache: Cache, batch: int,
+                  page_size: int) -> None:
+    """Refuse what placed serving does not take: the global layout, and
+    the sequence-parallel layout (batch 1, >= 262144 tokens)."""
+    kv = next((e for e in cache if not is_state(e)), None)
+    if kv is None:
+        return
+    if attn.is_global_layout(kv):
+        raise NotImplementedError("placed serving takes the per-slot "
+                                  "cache, not the global layout")
+    if _sp_mode(cfg, batch, kv.block_table.shape[-1] * page_size):
+        raise NotImplementedError(
+            f"serving {cfg.name} with placed weights: the sequence-parallel "
+            f"layout (batch 1, >= {SP_MIN_LEN} tokens) is not ported")
+
+
+def placed_logits(cfg: ModelConfig, emb, x: torch.Tensor, vocab_mi,
+                  mi: MeshInfo) -> torch.Tensor:
+    """The head over the whole vocab: with a vocab-parallel embedding each
+    rank's block of the logits, all-gathered over ``model``."""
+    logits = logits_fn(emb, x, cfg.logit_softcap)
+    return logits if vocab_mi is None else all_gather(logits, -1, mi,
+                                                      "model")
+
+
 def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-                    cache: Optional[Cache], mi: MeshInfo = NO_MESH):
+                    cache: Optional[Cache], mi: MeshInfo = NO_MESH,
+                    placed: bool = False,
+                    page_size: int = DEFAULT_PAGE_SIZE):
     """``batch``: tokens (B, S) right-padded; lengths (B,) real lengths;
     optionally prefix_lens (B,) (tokens already resident in the shared pool;
     ``tokens`` then holds only each prompt's suffix) and write_tables (B, P)
@@ -345,7 +571,34 @@ def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     where the arch has cross-attention. Returns the logits at each row's
     last real token, (B, 1, V), and the cache. Under the
     sequence-parallel layout each rank computes the whole prefill and
-    writes the pages it holds."""
+    writes the pages it holds.
+
+    With ``placed`` on a mesh (``launch/steps.py::make_prefill_step``,
+    the reference's lowered prefill), ``params`` are this rank's blocks,
+    ``cache`` its blocks of ``cache_specs(..., page_size)`` (per-slot),
+    ``batch`` the global batch, of which it takes its rows
+    (``batch_sharding``); the layers run their placed forms
+    (:func:`_placed_forward`), and the logits are the rank's rows over
+    the whole vocab. Kinds other than the dense ones refuse
+    (``mesh_serve_refusal``), as do the global and sequence-parallel
+    layouts."""
+    if placed and mi.active:
+        tokens = batch["tokens"]
+        rows = batch_sharding(tokens.shape, mi)
+        _check_placed(cfg, cache, tokens.shape[0], page_size)
+        if "prefix_lens" in batch:
+            raise NotImplementedError("placed serving does not prefill a "
+                                      "suffix over a shared prefix")
+        lengths = batch.get("lengths")
+        lengths = rows.cut(lengths) if lengths is not None else None
+        tokens = rows.cut(tokens)
+        x, cache, emb, vocab_mi = _placed_forward(
+            cfg, params, tokens, cache, mi, page_size, mode="prefill",
+            seq_lengths=lengths)
+        x = _last_rows(x, lengths)
+        cache = set_cache_length(cache, tokens.shape[1] if lengths is None
+                                 else lengths)
+        return placed_logits(cfg, emb, x, vocab_mi, mi), cache
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     prefix_lens = batch.get("prefix_lens")
@@ -359,12 +612,7 @@ def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     if cache is not None and cfg.is_encdec:
         new.append(EncOut(cross_x))
     cache = new
-    if lengths is None:
-        x = x[:, -1:]
-    else:
-        idx = torch.clamp(lengths.long() - 1, min=0)[:, None, None]
-        x = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    x = rmsnorm(_last_rows(x, lengths), params["final_ln"], cfg.norm_eps)
     logits = logits_fn(params["embed"], x, cfg.logit_softcap)
     if cache is not None:
         total = tokens.shape[1] if lengths is None else lengths
@@ -374,12 +622,48 @@ def forward_prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     return logits, cache
 
 
+def _last_rows(x: torch.Tensor, lengths) -> torch.Tensor:
+    """Each row's last real position of x (B, S, d): the last one, or
+    ``lengths - 1`` of a right-padded batch -> (B, 1, d)."""
+    if lengths is None:
+        return x[:, -1:]
+    idx = torch.clamp(lengths.long() - 1, min=0)[:, None, None]
+    return torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+
+
+def placed_decode(cfg: ModelConfig, params, token: torch.Tensor, pos,
+                  cache: Cache, mi: MeshInfo,
+                  page_size: int = DEFAULT_PAGE_SIZE):
+    """:func:`forward_decode` with ``placed``, before the vocab gather:
+    (the rank's rows' logits, or its vocab block of them where the
+    embedding is vocab-parallel; that vocab mesh or None; the cache)."""
+    rows = batch_sharding(token.shape, mi)
+    _check_placed(cfg, cache, token.shape[0], page_size)
+    pos = torch.as_tensor(pos)
+    if pos.dim():
+        pos = rows.cut(pos)
+    x, cache, emb, vocab_mi = _placed_forward(
+        cfg, params, rows.cut(token), cache, mi, page_size, mode="decode",
+        q_offset=pos)
+    return logits_fn(emb, x, cfg.logit_softcap), vocab_mi, cache
+
+
 def forward_decode(cfg: ModelConfig, params, token: torch.Tensor, pos,
                    cache: Cache, mi: MeshInfo = NO_MESH,
-                   sp: Optional[bool] = None):
+                   sp: Optional[bool] = None, placed: bool = False,
+                   page_size: int = DEFAULT_PAGE_SIZE):
     """token: (B, 1) int; pos: (B,) or scalar current cache length. ``sp``
     (None: from the cache's layout) decodes sequence-parallel over
-    ``mi``'s ``data`` axis."""
+    ``mi``'s ``data`` axis. With ``placed`` on a mesh
+    (``launch/steps.py::make_decode_step``), as :func:`forward_prefill`'s:
+    ``token`` (and ``pos`` where it has one a row) the global batch's,
+    the rank's blocks of the weights and the cache, its rows' logits over
+    the whole vocab."""
+    if placed and mi.active:
+        logits, vocab_mi, cache = placed_decode(cfg, params, token, pos,
+                                                cache, mi, page_size)
+        return (logits if vocab_mi is None else
+                all_gather(logits, -1, mi, "model")), cache
     if sp is None:
         sp = _decode_is_sp(cfg, cache)
     ctx = FwdCtx(cfg=cfg, mode="decode", q_offset=pos, mi=mi, sp=sp)

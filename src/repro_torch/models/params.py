@@ -27,7 +27,9 @@ which a per-block leaf here does not have). ``logical_to_mesh`` and
 axis that does not divide its dimension; ``shardings`` gives every leaf
 its :class:`Sharding` on a mesh, and ``init_params`` and
 ``from_jax_params`` with a mesh give each rank only its block of every
-leaf (the same values the whole tree holds there).
+leaf (the same values the whole tree holds there). ``abstract`` gives a
+spec tree as meta tensors of a rank's local shapes, which allocate
+nothing (the reference's ShapeDtypeStruct stand-ins).
 """
 from __future__ import annotations
 
@@ -216,6 +218,23 @@ def shardings(specs, mi: MeshInfo):
     return _map(lambda s: sharding_of(s.pspec, s.shape, mi), specs)
 
 
+def abstract(specs, mi: MeshInfo = NO_MESH, device="meta",
+             cfg: Optional[ModelConfig] = None):
+    """The reference's ``abstract``: a tree of ParamSpecs as tensors of
+    this rank's local shapes (``Sharding.local_shape`` on ``mi``'s mesh;
+    whole without one) and the specs' dtypes (``cfg.param_dtype`` where a
+    spec names none), on ``device``: by default the meta device, which
+    allocates nothing."""
+    def mk(s: ParamSpec) -> torch.Tensor:
+        if s.dtype is None and cfg is None:
+            raise ValueError(f"a spec of shape {s.shape} names no dtype: "
+                             f"pass cfg")
+        dt = DTYPES[s.dtype] if s.dtype else DTYPES[cfg.param_dtype]
+        shape = sharding_of(s.pspec, s.shape, mi).local_shape(s.shape)
+        return torch.empty(shape, dtype=dt, device=device)
+    return _map(mk, specs)
+
+
 def residual(shape: Tuple[int, ...], damp: float,
              pspec: Tuple = ()) -> ParamSpec:
     """A residual-writing projection: its fan-in std times ``damp``."""
@@ -345,13 +364,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def local_blocks(cfg: ModelConfig, params, mi: MeshInfo = NO_MESH):
     """This rank's block of every leaf of a whole parameter tree (or of a
-    tree of its structure) on ``mi``'s mesh, each a contiguous copy; the
-    tree itself without a mesh."""
+    tree of its structure) on ``mi``'s mesh, each a contiguous copy that
+    holds its block alone (a block cut along the first dimension is a
+    view, whose storage is the whole leaf's); the tree itself without a
+    mesh."""
     if not mi.active:
         return params
     from repro_torch.tree import tree_map
-    return tree_map(lambda t, sh: sh.cut(t).contiguous(), params,
-                    shardings(model_specs(cfg), mi))
+    return tree_map(lambda t, sh: sh.cut(t).clone(
+        memory_format=torch.contiguous_format), params,
+        shardings(model_specs(cfg), mi))
 
 
 def materialize(specs, cfg: ModelConfig, generator: torch.Generator,

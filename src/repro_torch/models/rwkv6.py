@@ -111,6 +111,20 @@ class RWKVState(NamedTuple):
     shift_cm: torch.Tensor   # (B, d) last token (channel mix)
 
 
+def state_specs(cfg: ModelConfig, batch: int) -> RWKVState:
+    """The reference's ``rwkv_state_specs``: one slot's state a row, the
+    WKV state's heads over ``model``."""
+    d, H, N = cfg.d_model, cfg.n_heads, cfg.d_head
+    act = cfg.activation_dtype
+    return RWKVState(
+        wkv=ParamSpec((batch, H, N, N), "zeros", dtype="float32",
+                      pspec=("batch", "tp", None, None)),
+        shift_tm=ParamSpec((batch, d), "zeros", dtype=act,
+                           pspec=("batch", None)),
+        shift_cm=ParamSpec((batch, d), "zeros", dtype=act,
+                           pspec=("batch", None)))
+
+
 def zero_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                device, split: int = 1) -> RWKVState:
     """The reference's ``rwkv_state_specs`` (and ``_zero_rwkv``) as zeros;

@@ -58,8 +58,10 @@ def test_import_all_submodules_without_jax():
                                     "repro_torch.optim.compression",
                                     "repro_torch.checkpoint.ckpt",
                                     "repro_torch.launch.steps",
+                                    "repro_torch.launch.input_specs",
                                     "repro_torch.launch.train",
-                                    "repro_torch.launch.pipeline"])
+                                    "repro_torch.launch.pipeline",
+                                    "repro_torch.configs"])
 def test_mesh_modules_stand_alone(module):
     """The multi-device modules import neither ``jax`` nor ``repro``, and
     importing one joins no process group and touches no device."""
